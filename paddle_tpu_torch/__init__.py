@@ -7,9 +7,9 @@ code is PyTorch; every TPU kernel on a ported path is a kernel written
 by hand for Hopper (`ops/`, sources in `csrc/`). Entry points run on the
 card unless the caller passes `device='cpu'`.
 
-This slice serves Llama-family models through paged continuous
-batching: `models.llama.LlamaForCausalLM` and
-`inference.ServingEngine`.
+Ported so far: Llama-family models (`models.llama.LlamaForCausalLM`)
+served through paged continuous batching (`inference.ServingEngine`) and
+trained (`training.TrainEngine` with the `optimizer` package).
 """
 from .device import resolve_device
 

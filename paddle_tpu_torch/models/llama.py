@@ -7,12 +7,15 @@ JAX package's, so one state dict carries across (see
 `framework.io.load_jax_state`): projections are raw (in, out)
 parameters applied as `x @ W`, the embedding table is (vocab, hidden).
 
-This slice serves the model through `inference.ServingEngine`:
-admission prefill runs over a contiguous cache with plain masked
-attention (as the JAX package does), and every decode step runs the
-paged-attention kernel over the engine's page pools. Configurations the
-slice does not serve (sequence parallelism, sliding-window attention,
-remat, int8 caches, tensor parallelism) raise NotImplementedError.
+The model serves through `inference.ServingEngine`: admission prefill
+runs over a contiguous cache with plain masked attention (as the JAX
+package does), and every decode step runs the paged-attention kernel
+over the engine's page pools. It trains through `LlamaForCausalLM.loss`
+(`training.TrainEngine`): the uncached forward runs the flash-attention
+kernels for >= 128 tokens, every RMSNorm and the loss run their fused
+kernels, forward and backward. Configurations the port does not run
+(sequence parallelism, sliding-window attention, remat, int8 caches,
+tensor parallelism) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -389,7 +392,7 @@ class LlamaForCausalLM(GenerationMixin, torch.nn.Module):
     def __init__(self, config: LlamaConfig, device=None, seed=0):
         super().__init__()
         for knob, why in (('sequence_parallel', 'sequence parallelism'),
-                          ('remat', 'remat (a training feature)'),
+                          ('remat', 'remat (activation recomputation)'),
                           ('sliding_window', 'sliding-window attention')):
             if getattr(config, knob):
                 raise NotImplementedError(
@@ -426,3 +429,13 @@ class LlamaForCausalLM(GenerationMixin, torch.nn.Module):
         if caches is None:
             return logits
         return logits, new_caches
+
+    def loss(self, input_ids, labels=None):
+        """Mean next-token cross-entropy through the fused loss kernels.
+        Without `labels`, input_ids (B, S + 1) is split into inputs
+        [:, :-1] and labels [:, 1:]."""
+        if labels is None:
+            labels = input_ids[:, 1:]
+            input_ids = input_ids[:, :-1]
+        logits = self(input_ids)
+        return ops.softmax_cross_entropy(logits, labels).mean()

@@ -1,4 +1,5 @@
 from . import functional
+from .clip import ClipGradByGlobalNorm
 from .layer import RMSNorm
 
-__all__ = ['RMSNorm', 'functional']
+__all__ = ['ClipGradByGlobalNorm', 'RMSNorm', 'functional']

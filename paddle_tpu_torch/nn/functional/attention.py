@@ -2,11 +2,12 @@
 paddle_tpu/nn/functional/attention.py).
 
 Layout (batch, seq, num_heads, head_dim), as in the JAX package. The
-masked attention here is plain PyTorch in float32, the counterpart of
-the JAX package's `_sdpa_reference`: it is what serving's admission
-prefill runs there too (a mask is passed, so no kernel is involved).
-The unmasked causal case that the JAX package sends to its flash
-kernel (K5 of PERF.md) is not ported yet and raises on the card.
+dispatch rule is the JAX package's: no mask, no dropout, head_dim % 8 ==
+0 and at least 128 queries take the flash-attention op (`ops.
+flash_attention`: kernels K5/K6 on the card, their plain versions on the
+CPU); anything else takes the plain masked attention here, in float32,
+the counterpart of the JAX package's `_sdpa_reference` (serving's
+admission prefill passes a mask, so it runs this path).
 """
 from __future__ import annotations
 
@@ -14,23 +15,24 @@ import math
 
 import torch
 
+from ... import ops
+
 NEG_INF = -1e30
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False, scale=None):
+                                 dropout_p=0.0, is_causal=False, scale=None):
     """softmax(scale * q k^T + mask) v. Causal masks are bottom-right
     aligned (tril with k = Sk - Sq); a bool `attn_mask` keeps True
     positions (masked logits become -1e30), a float one is added to the
     logits. GQA: kv heads are repeated to the query heads."""
+    if dropout_p:
+        raise NotImplementedError('attention dropout is not ported yet')
     B, Sq, H, D = query.shape
     Sk = key.shape[1]
-    if (query.device.type == 'cuda' and attn_mask is None and D % 8 == 0
-            and Sq >= 128):
-        raise NotImplementedError(
-            'unmasked attention over >= 128 queries runs the flash '
-            'attention kernel (K5), which is not ported yet (training '
-            'slice); serve through inference.ServingEngine')
+    if attn_mask is None and D % 8 == 0 and Sq >= 128:
+        return ops.flash_attention(query, key, value, causal=is_causal,
+                                   scale=scale)
     scale = scale or 1.0 / math.sqrt(D)
     if key.shape[2] != H:
         rep = H // key.shape[2]

@@ -8,8 +8,9 @@ from ... import ops
 
 class RMSNorm(torch.nn.Module):
     """RMSNorm over the trailing `normalized_shape` axis, through the
-    fused kernel on the card. The weight is float32 and starts at ones,
-    as in the JAX package (whatever the model's dtype)."""
+    fused kernels on the card (forward and backward). The weight is
+    float32 and starts at ones, as in the JAX package (whatever the
+    model's dtype)."""
 
     def __init__(self, normalized_shape, epsilon=1e-6, device=None):
         super().__init__()

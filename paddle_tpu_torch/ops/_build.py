@@ -34,7 +34,10 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC']
 
 # launches per kernel: each wrapper adds one where it launches its kernel
-LAUNCHES = {'rms_norm': 0, 'paged_decode_attention': 0}
+# (flash_attention_bwd launches twice per call: dq, then dk and dv)
+LAUNCHES = {'rms_norm': 0, 'rms_norm_bwd': 0, 'softmax_xent_fwd': 0,
+            'softmax_xent_bwd': 0, 'flash_attention_fwd': 0,
+            'flash_attention_bwd': 0, 'paged_decode_attention': 0}
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,6 +45,14 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     'pt_rms_norm_fwd': [_I, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP],
+    'pt_rms_norm_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    'pt_softmax_xent_fwd': [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    'pt_softmax_xent_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    'pt_flash_attention_fwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                               _I, _I, _I, _F, _I, _I, _VP],
+    'pt_flash_attention_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                               _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I,
+                               _I, _VP],
     'pt_paged_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                                   _I, _I, _I, _I, _I, _F, _I, _VP],
 }
@@ -156,6 +167,23 @@ def check(err, kernel):
 def stream_ptr(t):
     """PyTorch's current stream on `t`'s device, as a pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_card(x, kernel):
+    """True for a CUDA tensor (launch the kernel), False for a CPU one
+    (take the plain version); any other device raises."""
+    if x.device.type == 'cuda':
+        return True
+    if x.device.type == 'cpu':
+        return False
+    raise ValueError(f'{kernel}: no kernel for device {x.device}')
+
+
+def require_cuda(x, kernel):
+    """A kernel wrapper's first check: its tensors lie on the card."""
+    if x.device.type != 'cuda':
+        raise ValueError(f'{kernel} kernel: tensors must be on a CUDA '
+                         f'device, got {x.device}')
 
 
 def dtype_code(t, kernel):

@@ -1,0 +1,207 @@
+"""Flash attention forward and backward: the hand-written Hopper kernels,
+their plain versions, and the autograd Function that picks between them.
+
+The kernels (`csrc/flash_attention.cu`) replace the TPU kernels
+`paddle_tpu/ops/pallas/flash_attention.py::_fwd` (`flash_attention_fwd`)
+and `::_bwd` (`flash_attention_bwd`, two launches: dq, then dk and dv);
+`flash_attention_fwd_plain` and `flash_attention_bwd_plain` write out the
+same math in float32 with plain PyTorch ops.
+
+Layout (B, H, S, D), as the JAX package's kernels take it: q (B, H, Sq,
+D), k and v (B, Hkv, Sk, D), query head h reading kv head h // (H / Hkv).
+The kernels take any strides over (batch, head, sequence) with D
+contiguous, so the (B, S, H, D) tensors of the model pass as transposed
+views without a copy, and they return views of (B, S, H, D) buffers.
+Causal masking is bottom-right (query i sees keys j <= i + Sk - Sq); a
+query that sees no key returns 0. Segment ids and sliding windows are not
+ported: `ops.flash_attention` raises on them.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)   # head widths the kernels are built for
+
+
+def _visible(Sq, Sk, causal, device):
+    """(Sq, Sk) bool: which keys each query sees (bottom-right causal)."""
+    if not causal:
+        return torch.ones(Sq, Sk, dtype=torch.bool, device=device)
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    return qpos >= torch.arange(Sk, device=device)[None, :]
+
+
+def _expand_kv(t, group):
+    return t.float().repeat_interleave(group, dim=1) if group > 1 \
+        else t.float()
+
+
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
+    """(out, lse): out (B, H, Sq, D) in q's dtype, lse (B, H, Sq)
+    float32 (the JAX package's `_fwd` in float32)."""
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    group = H // k.shape[1]
+    s = torch.einsum('bhqd,bhkd->bhqk', q.float() * scale,
+                     _expand_kv(k, group))
+    ok = _visible(Sq, Sk, causal, q.device)
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    safe = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum('bhqk,bhkd->bhqd', p, _expand_kv(v, group)) / safe
+    return out.to(q.dtype), (m + torch.log(safe))[..., 0]
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
+                              scale=None):
+    """(dq, dk, dv) in the inputs' dtypes (the JAX package's `_bwd` in
+    float32): delta = sum_d(do * out), p = exp(s - lse), ds = p * (dp -
+    delta); dk and dv summed over each GQA group."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    group = H // Hkv
+    qf, dof = q.float(), do.float()
+    kf, vf = _expand_kv(k, group), _expand_kv(v, group)
+    delta = (dof * out.float()).sum(-1)
+    s = torch.einsum('bhqd,bhkd->bhqk', qf * scale, kf)
+    ok = _visible(Sq, Sk, causal, q.device)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    dv = torch.einsum('bhqk,bhqd->bhkd', p, dof)
+    ds = p * (torch.einsum('bhqd,bhkd->bhqk', dof, vf) - delta[..., None])
+    dq = scale * torch.einsum('bhqk,bhkd->bhqd', ds, kf)
+    dk = scale * torch.einsum('bhqk,bhqd->bhkd', ds, qf)
+    if group > 1:
+        dk = dk.reshape(B, Hkv, group, Sk, D).sum(2)
+        dv = dv.reshape(B, Hkv, group, Sk, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_view(t, vec):
+    """`t` if the kernel can read it in place (D contiguous, 16-byte
+    aligned rows), else a contiguous copy."""
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:-1])):
+        return t
+    return t.contiguous()
+
+
+def _bhsd_buffer(B, H, S, D, like):
+    """A (B, H, S, D) view of a contiguous (B, S, H, D) buffer: the
+    layout the model consumes next, with no copy."""
+    return torch.empty(B, S, H, D, dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def _check(kernel, q, k, v, *more):
+    _build.require_cuda(q, kernel)
+    code = _build.dtype_code(q, kernel)
+    B, H, Sq, D = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D \
+            or v.shape != k.shape:
+        raise ValueError(f'{kernel} kernel: q (B, H, Sq, D) and k, v (B, '
+                         f'Hkv, Sk, D), got {tuple(q.shape)}, '
+                         f'{tuple(k.shape)}, {tuple(v.shape)}')
+    if H % k.shape[1]:
+        raise ValueError(f'{kernel} kernel: query heads ({H}) must be a '
+                         f'multiple of kv heads ({k.shape[1]})')
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(
+            f'{kernel} kernel: head_dim {D} is not built (built: '
+            f'{HEAD_DIMS})')
+    for t in (k, v, *more):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f'{kernel} kernel: every tensor must be '
+                             f'{q.dtype} on {q.device}')
+    vec = 16 // q.element_size()
+    return code, [_kernel_view(t, vec) for t in (q, k, v, *more)]
+
+
+def _strides(*ts):
+    vals = [s for t in ts for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None):
+    """The forward kernel on the card -> (out, lse) as the plain
+    version returns them; out is a (B, H, Sq, D) view of a contiguous
+    (B, Sq, H, D) buffer."""
+    code, (q, k, v) = _check('flash_attention_fwd', q, k, v)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    out = _bhsd_buffer(B, H, Sq, D, q)
+    lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, out)
+    lib = _build.load()
+    err = lib.pt_flash_attention_fwd(
+        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), strides, B, H, Hkv, Sq, Sk, D,
+        float(scale), int(bool(causal)), code, _build.stream_ptr(q))
+    _build.check(err, 'flash_attention_fwd')
+    _build.LAUNCHES['flash_attention_fwd'] += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
+    """The backward kernels on the card (dq, then dk and dv) -> (dq, dk,
+    dv) as the plain version returns them, as views of (B, S, H, D)
+    buffers."""
+    code, (q, k, v, out, do) = _check('flash_attention_bwd', q, k, v, out,
+                                      do)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError('flash_attention_bwd kernel: lse must be the '
+                         'forward\'s (B, H, Sq) float32 output')
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    lse = lse.contiguous()
+    dq = _bhsd_buffer(B, H, Sq, D, q)
+    dk = _bhsd_buffer(B, Hkv, Sk, D, k)
+    dv = _bhsd_buffer(B, Hkv, Sk, D, v)
+    if Sq == 0 or Sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    strides = _strides(q, k, v, out, do, dq, dk, dv)
+    lib = _build.load()
+    err = lib.pt_flash_attention_bwd(
+        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, B, H, Hkv, Sq,
+        Sk, D, float(scale), int(bool(causal)), code, _build.stream_ptr(q))
+    _build.check(err, 'flash_attention_bwd')
+    _build.LAUNCHES['flash_attention_bwd'] += 2
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention over (B, H, S, D) tensors with its backward: the kernels
+    on a CUDA tensor, the plain versions on a CPU one (the counterpart of
+    the JAX package's `_flash` custom VJP). The kernel functions are
+    looked up in this module at call time, so a harness can swap in the
+    plain ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        fwd = (flash_attention_fwd if _build.on_card(q, 'flash_attention')
+               else flash_attention_fwd_plain)
+        out, lse = fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = (flash_attention_bwd if _build.on_card(q, 'flash_attention')
+               else flash_attention_bwd_plain)
+        dq, dk, dv = bwd(q, k, v, out, lse, do, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
