@@ -11,8 +11,8 @@ Phases, in order (any failure exits non-zero and prints no result):
               (one nvcc per source, all in parallel), with ptxas's
               register and shared-memory report;
   3. kernels  each kernel held against its plain PyTorch version on the
-              card at the shapes the serving and training paths give it
-              (bf16, and float32 for the training kernels), with a
+              card at the shapes the serving, decode and training paths
+              give it (bf16, and float32 where a path runs it), with a
               stated tolerance, and timed with CUDA events (kernel,
               plain version, and the one PyTorch call that computes the
               same function, where there is one) against its bound, the
@@ -28,10 +28,20 @@ Phases, in order (any failure exits non-zero and prints no result):
               kernels against the plain versions on the same tokens:
               bounded in float32 (the served weights cast up); in bf16
               printed with each kernel alone and a kernel-free control;
-  6. grads    one training step's loss and gradients (Llama-7B width, 2
+  6. decode   the JAX bench's decode section at Llama-7B width (all 32
+              layers, bf16): greedy single-token forwards over 2048-
+              position contiguous caches at batch 1 and 8, with an int8
+              KV cache, and with int8 and int4 weights (tokens/s, ms per
+              forward, exact launch counts of K1, K7, K10, K11; one
+              forward traced at b8 bf16 and at b1 int8 weights), then
+              DecodeEngine end to end on a 13-token prompt, then the
+              kernels against the plain versions in float32 (7B width,
+              2 layers): logits of 16 decode steps in five modes, and
+              DecodeEngine token-equal to generate;
+  7. grads    one training step's loss and gradients (Llama-7B width, 2
               layers, 1 x 2048 tokens) through the kernels against the
               plain versions: bounded in float32, printed in bf16;
-  7. train    TrainEngine + AdamW at the JAX bench's training
+  8. train    TrainEngine + AdamW at the JAX bench's training
               configuration (Llama-7B width, 4 layers, bf16, 6 x 2048
               tokens): 2 warm-up and 5 timed steps on one repeated
               batch (tokens/s, ms per step, peak memory, per-step
@@ -78,7 +88,12 @@ class Timer:
     """Mean time of one call on the card, from CUDA events around each
     call, with the L2 cache flushed before every call (the serving path
     finds its KV pages cold: a decode step streams 13 GB of weights
-    between two visits to one layer's pages)."""
+    between two visits to one layer's pages). A device-side sleep after
+    the flush holds the stream while the host enqueues the call, so the
+    events time the call's kernels and not its Python wrapper's host
+    time (which a kernel of a few microseconds would otherwise show)."""
+
+    HOLD_CYCLES = 1_000_000      # ~0.5 ms at the H100's clock
 
     def __init__(self, torch):
         self.torch = torch
@@ -91,6 +106,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -192,6 +208,149 @@ def check_paged(torch, timer, Hq, Hkv, D=128, BS=16):
         'library_ms': None,
         'bound_ms': b, 'bound_by': by,
     }
+
+
+def check_decode(torch, timer, B, Hq, Hkv, mode, S=2048, D=128):
+    """K7 at the decode phase's shapes (a 2048-position cache of Llama-7B
+    heads). B = 1 is the bench's row (window [0, 2000)); B = 8 varies
+    the window per row: an empty one (start past valid_len), valid_len
+    past S (clamped), starts inside the cache. Modes: bf16, float32, and
+    int8 caches with per-(head, dim) scales under a bf16 query."""
+    from paddle_tpu_torch.ops.hopper import decode_attention as k
+
+    F = torch.nn.functional
+    g = torch.Generator(device='cuda').manual_seed(B * 100 + Hkv)
+    dtype = torch.float32 if mode == 'float32' else torch.bfloat16
+    q = torch.randn(B, 1, Hq, D, device='cuda', generator=g).to(dtype)
+    ks = vs = None
+    if mode == 'int8':
+        kc, vc = (torch.randint(-127, 128, (B, S, Hkv, D), device='cuda',
+                                generator=g, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (0.005 + 0.015 * torch.rand(Hkv, D, device='cuda',
+                                             generator=g)
+                  for _ in range(2))
+    else:
+        kc, vc = (torch.randn(B, S, Hkv, D, device='cuda',
+                              generator=g).to(dtype) for _ in range(2))
+    if B == 1:
+        vl_list, st_list = [S - 48], [0]
+    else:
+        vl_list = [S + 5, 700, S, 1500, 37, S - 1, 1024, 2047][:B]
+        st_list = [0, 900, 100, 0, 0, 1000, 512, 2040][:B]
+    vl = torch.tensor(vl_list, dtype=torch.int32, device='cuda')
+    st = torch.tensor(st_list, dtype=torch.int32, device='cuda')
+    out = k.decode_attention(q, kc, vc, vl, None, ks, vs, st)
+    ref = k.decode_attention_plain(q, kc, vc, vl, None, ks, vs, st)
+    torch.cuda.synchronize()
+    tol = TENSOR_TOL[dname(torch, dtype)]
+    what = f'decode attention B={B} Hq={Hq} Hkv={Hkv} {mode}'
+    err = within(out, ref, tol, what)
+    for b, (v_, s_) in enumerate(zip(vl_list, st_list)):
+        if s_ >= min(v_, S) and out[b].abs().max().item() != 0.0:
+            raise AssertionError(f'{what}: row {b} has an empty window and '
+                                 f'must be 0')
+    # the bytes this run's windows need: each K and V row once, q, out
+    # (and the scales)
+    pos = sum(max(0, min(v_, S) - min(max(s_, 0), S))
+              for v_, s_ in zip(vl_list, st_list))
+    nbytes = (2 * pos * Hkv * D * kc.element_size()
+              + 2 * B * Hq * D * q.element_size()
+              + (2 * Hkv * D * 4 if ks is not None else 0) + 2 * B * 4)
+    b_, by = bound_ms(nbytes, 4 * pos * Hq * D,
+                      BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    # the yardstick: SDPA over the whole cache with the window as a mask
+    # (an int8 cache dequantized to bf16 first: the same function at
+    # twice the cache bytes)
+    kl, vl_ = kc, vc
+    if ks is not None:
+        kl = (kc.float() * ks).to(dtype)
+        vl_ = (vc.float() * vs).to(dtype)
+    kpos = torch.arange(S, device='cuda')
+    mask = ((kpos[None] < vl[:, None]) & (kpos[None] >= st[:, None]))[
+        :, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), kl.transpose(1, 2), vl_.transpose(1, 2)
+    lib = F.scaled_dot_product_attention
+    return {
+        'shape': (f'B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {mode} '
+                  f'valid_len={vl_list} start={st_list}'),
+        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'ms': timer(lambda: k.decode_attention(q, kc, vc, vl, None, ks, vs,
+                                               st)),
+        'plain_ms': timer(lambda: k.decode_attention_plain(
+            q, kc, vc, vl, None, ks, vs, st), iters=10),
+        'library_ms': timer(lambda: lib(qt, kt, vt, attn_mask=mask,
+                                        enable_gqa=Hq != Hkv)),
+        'library': ('F.scaled_dot_product_attention with the window as a '
+                    'boolean mask' + (' over the cache dequantized to bf16'
+                                      if ks is not None else '')),
+        'bound_ms': b_, 'bound_by': by,
+    }
+
+
+def check_quant_matmul(torch, timer, M, K, N, dtype, bits):
+    """K10 (bits 8) or K11 (bits 4) at a Llama-7B projection: M = 1 and 8
+    decode rows, 16 (the bucketed prefill), 2048 (a long prompt). The
+    yardstick is torch.matmul against the weight dequantized to x's
+    dtype: the same product reading 2x (K10) or 4x (K11) the weight
+    bytes in bf16; where the installed torch has a CUDA
+    torch._weight_int8pack_mm (K10's function for bf16 x), it is timed
+    too."""
+    from paddle_tpu_torch.ops.hopper import quant_matmul as k
+
+    g = torch.Generator(device='cuda').manual_seed(M + K + N + bits)
+    w = 0.02 * torch.randn(K, N, device='cuda', generator=g)
+    quant = k.quantize_weight_int4 if bits == 4 else k.quantize_weight
+    codes, scale = quant(w)
+    del w
+    x = torch.randn(M, K, device='cuda', generator=g).to(dtype)
+    kern = k.quant_matmul_int4 if bits == 4 else k.quant_matmul
+    plain = k.quant_matmul_int4_plain if bits == 4 else k.quant_matmul_plain
+    out = kern(x, codes, scale)
+    ref = plain(x, codes, scale)
+    torch.cuda.synchronize()
+    # float32: sums of K products in another order; bf16: one rounding
+    # step of the output on top
+    tol = {'float32': (1e-4, 1e-4), 'bfloat16': TENSOR_TOL['bfloat16']}[
+        dname(torch, dtype)]
+    what = f'quant_matmul int{bits} M={M} K={K} N={N} {dtype}'
+    err = within(out, ref, tol, what)
+    del out, ref
+    item = x.element_size()
+    nbytes = (M * K * item + codes.numel() + N * 4 + M * N * item)
+    b_, by = bound_ms(nbytes, 2 * M * K * N,
+                      BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    if bits == 4:
+        deq = (k.unpack_int4(codes)[:K] * scale).to(dtype)
+    else:
+        deq = (codes.float() * scale).to(dtype)
+    iters = 20 if M <= 16 else 5
+    rec = {
+        'shape': f'x ({M}, {K}) {dname(torch, dtype)}, codes int{bits} '
+                 f'{tuple(codes.shape)}',
+        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'ms': timer(lambda: kern(x, codes, scale), iters=iters),
+        'plain_ms': timer(lambda: plain(x, codes, scale), iters=iters),
+        'library_ms': timer(lambda: torch.matmul(x, deq), iters=iters),
+        'library': (f'torch.matmul against the weight dequantized to '
+                    f'{dname(torch, dtype)} (the same product at '
+                    f'{(2 if bits == 8 else 4) * item // 2}x the weight '
+                    f'bytes)'),
+        'bound_ms': b_, 'bound_by': by,
+    }
+    if bits == 8 and dtype == torch.bfloat16 and hasattr(
+            torch, '_weight_int8pack_mm'):
+        wt = codes.t().contiguous()
+        try:
+            torch._weight_int8pack_mm(x, wt, scale.to(dtype))
+            rec['int8pack_ms'] = timer(lambda: torch._weight_int8pack_mm(
+                x, wt, scale.to(dtype)), iters=iters)
+        except RuntimeError as e:      # a yardstick only: record why not
+            rec['int8pack_ms'] = None
+            rec['int8pack'] = f'torch._weight_int8pack_mm: {e}'[:200]
+        del wt
+    del deq, codes
+    return rec
 
 
 # (rtol, atol as a fraction of max |plain|) for a kernel's tensor output
@@ -593,10 +752,13 @@ def logits_phase(torch, model, cfg, prompt, gen, f32_tol=1e-3):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Every training kernel swapped for its plain version: the autograd
-    Functions look their kernel functions up at call time, so the same
-    model code runs the plain math on the card."""
+    """Every kernel swapped for its plain version: the ops and the
+    autograd Functions look their kernel functions up at call time, so
+    the same model code runs the plain math on the card."""
+    from paddle_tpu_torch.ops.hopper import decode_attention as hd
     from paddle_tpu_torch.ops.hopper import flash_attention as hf
+    from paddle_tpu_torch.ops.hopper import paged_attention as hp
+    from paddle_tpu_torch.ops.hopper import quant_matmul as hq
     from paddle_tpu_torch.ops.hopper import rms_norm as hr
     from paddle_tpu_torch.ops.hopper import softmax_xent as hx
 
@@ -605,7 +767,10 @@ def plain_kernels():
                           (hx, 'softmax_xent_fwd'),
                           (hx, 'softmax_xent_bwd'),
                           (hf, 'flash_attention_fwd'),
-                          (hf, 'flash_attention_bwd')):
+                          (hf, 'flash_attention_bwd'),
+                          (hp, 'paged_decode_attention'),
+                          (hd, 'decode_attention'),
+                          (hq, 'quant_matmul'), (hq, 'quant_matmul_int4')):
             stack.enter_context(mock.patch.object(
                 mod, name, getattr(mod, name + '_plain')))
         yield
@@ -676,6 +841,297 @@ def grads_phase(torch, np, card, rel_tol=1e-4):
         raise AssertionError(f'float32 loss {lk} vs {lp} or gradient '
                              f'relative error {worst} > {rel_tol}')
     torch.cuda.empty_cache()
+
+
+def count_launches(torch, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after (synchronised): (result, counts)."""
+    from paddle_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ops.LAUNCHES)
+
+
+def expect_launches(got, L, forwards, decode_forwards, quant=None):
+    """The decode phase's exact launch counts: K1 2L + 1 per forward, K7
+    L per single-token forward, K10 or K11 7L + 1 per forward of a
+    quantized model, nothing else (K8 0)."""
+    want = {name: 0 for name in got}
+    want.update(rms_norm=(2 * L + 1) * forwards,
+                decode_attention=L * decode_forwards)
+    if quant:
+        want[quant] = (7 * L + 1) * forwards
+    if got != want:
+        raise AssertionError(f'launch counts {got} != expected {want}')
+
+
+def profile_forward(torch, fn, label, card):
+    """Trace one decode forward: device time by kernel and the share of
+    the forward's wall time the device was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith('CUDA')
+                   and e.self_device_time_total > 0), reverse=True)
+    if not rows:
+        print(f'decode profile {label}: the profiler recorded no device '
+              f'time; device-busy share not measured')
+        return
+    busy = sum(r[0] for r in rows) / 1e3
+    n = sum(r[1] for r in rows)
+    print(f'decode profile {label}: one forward: wall {wall * 1e3:.2f} ms, '
+          f'device busy {busy:.3f} ms ({busy / (wall * 1e3):.3f}), {n} '
+          f'kernels [{card}]')
+    for t_us, c, key in rows[:12]:
+        print(f'decode profile {label}:   {t_us / 1e3:8.3f} ms  {c:5d}x  '
+              f'{key[:90]}')
+
+
+def bench_decode(torch, model, batch, label, card, quant=None,
+                 kv_int8=False, cache_len=2048, steps=48, reps=3,
+                 profile=False):
+    """The JAX bench's decode measurement (bench.py:2739-2780): zero
+    caches of `cache_len` positions, `steps` greedy single-token
+    forwards per rep from cache index cache_len - steps - 2, one warm
+    rep, then `reps` timed reps. With kv_int8 the caches are int8 with
+    unit scales, as the JAX bench sets them (no prefill calibrates
+    them). Checks the exact launch counts of all reps; returns
+    (tokens/s, ms per forward, counts)."""
+    L = model.config.num_hidden_layers
+    caches = model.init_cache(batch, cache_len, quantized=kv_int8)
+    if kv_int8:
+        for c in caches:
+            c.kscale.fill_(1.0)
+            c.vscale.fill_(1.0)
+    base = cache_len - steps - 2
+    tok = torch.zeros(batch, 1, dtype=torch.int64, device=model.device)
+
+    def rep(tok):
+        for i in range(steps):
+            logits, _ = model(tok, caches=caches, cache_index=base + i)
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        return tok
+
+    def run():
+        nonlocal tok
+        with torch.no_grad():
+            tok = rep(tok)                         # warm
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(reps):
+                tok = rep(tok)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    dt, counts = count_launches(torch, run)
+    n_fwd = (reps + 1) * steps
+    expect_launches(counts, L, n_fwd, n_fwd, quant)
+    if not bool(((tok >= 0) & (tok < model.config.vocab_size)).all()):
+        raise AssertionError(f'{label}: a decoded id is outside the vocab')
+    tps = batch * steps * reps / dt
+    ms = dt / (steps * reps) * 1e3
+    print(f'decode {label}: {tps:.2f} tokens/s, {ms:.3f} ms per forward '
+          f'(batch {batch}, {steps} steps x {reps} timed reps over a '
+          f'{cache_len}-position cache), peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
+          f'{ {k: v for k, v in counts.items() if v} } over {n_fwd} '
+          f'forwards [{card}]', flush=True)
+    if profile:
+        with torch.no_grad():
+            profile_forward(torch, lambda: model(
+                tok, caches=caches, cache_index=cache_len - 2), label, card)
+    del caches
+    return tps, ms, counts
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def capture_logits(torch, model, fn):
+    """(fn()'s result, the last-position logits of every forward of
+    `model` during it, stacked in float32)."""
+    rows = []
+
+    def hook(_mod, _args, out):
+        rows.append(out[0][:, -1].float())
+
+    h = model.register_forward_hook(hook)
+    try:
+        out = fn()
+    finally:
+        h.remove()
+    return out, torch.stack(rows)
+
+
+def agreement_phase(torch, np, card, steps=16, f32_tol=1e-3):
+    """Kernels against plain versions on a float32 model at Llama-7B
+    width with 2 layers: the logits of every forward of a generate
+    (prefill, then `steps` decode forwards) in five modes must agree
+    within `f32_tol`, with equal tokens; and DecodeEngine (padded to its
+    bucket) must be token-equal to model.generate (unpadded)."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    cfg = dataclasses.replace(llama_7b(), num_hidden_layers=2,
+                              dtype='float32')
+    model = LlamaForCausalLM(cfg, seed=1)
+    rng = np.random.default_rng(5)
+    dev = model.device
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, (1, 21))).to(dev)
+    padded = torch.from_numpy(rng.integers(3, cfg.vocab_size, (3, 21))).to(
+        dev)
+    am = torch.ones_like(padded)
+    am[0, :9] = 0
+    am[2, :4] = 0
+    padded = padded * am
+    n = steps + 1
+    modes = (
+        ('float32 caches', model, dict(input_ids=ids), None),
+        ('int8 KV, scales calibrated on the prefill', model,
+         dict(input_ids=ids, kv_cache_int8=True), None),
+        ('int8 weights', model.quantize_weights(8), dict(input_ids=ids),
+         'quant_matmul'),
+        ('int4 weights', model.quantize_weights(4), dict(input_ids=ids),
+         'quant_matmul_int4'),
+        ('left-padded batch, attention_mask', model,
+         dict(input_ids=padded, attention_mask=am), None))
+    for label, m, kw, quant in modes:
+        def gen():
+            return m.generate(max_new_tokens=n, **kw)
+
+        (toks, lk), counts = count_launches(
+            torch, lambda: capture_logits(torch, m, gen))
+        expect_launches(counts, 2, n, steps, quant)
+        with plain_kernels():
+            (ptoks, lp), pcounts = count_launches(
+                torch, lambda: capture_logits(torch, m, gen))
+        if any(pcounts.values()):
+            raise AssertionError(f'the plain run launched {pcounts}')
+        err = (lk - lp).abs().max().item()
+        print(f'agreement float32, {label}: Llama-7B width, 2 layers, '
+              f'{steps} decode steps: max |kernels - plain| logit {err:.6g}'
+              f' (bound {f32_tol:g}, max |logit| '
+              f'{lp.abs().max().item():.4f}); tokens equal '
+              f'{bool(torch.equal(toks, ptoks))} [{card}]', flush=True)
+        if not (err <= f32_tol and torch.equal(toks, ptoks)):
+            raise AssertionError(f'{label}: kernels and plain versions '
+                                 f'disagree ({err} > {f32_tol} or tokens)')
+        if kw.get('kv_cache_int8'):
+            # an int8 code flips where K1 and the plain RMSNorm round a K
+            # row differently: swap K7 alone, so both runs quantize the
+            # same rows and the difference is K7's own
+            from paddle_tpu_torch.ops.hopper import decode_attention as hd
+
+            with mock.patch.object(hd, 'decode_attention',
+                                   hd.decode_attention_plain):
+                _, la = capture_logits(torch, m, gen)
+            err = (lk - la).abs().max().item()
+            print(f'agreement float32, {label}, K7 alone against its plain '
+                  f'version: max |Δ| logit {err:.6g} (bound {f32_tol:g})')
+            if not err <= f32_tol:
+                raise AssertionError(f'{label}: K7 alone differs by {err}')
+    prompt = ids[:, :13]
+    got = DecodeEngine(model, max_new_tokens=n).generate(prompt)
+    want = model.generate(prompt, max_new_tokens=n)
+    print(f'agreement float32: DecodeEngine (13 tokens padded to 16) vs '
+          f'generate (unpadded), {n} tokens: equal '
+          f'{bool(torch.equal(got, want))}')
+    if not torch.equal(got, want):
+        raise AssertionError('DecodeEngine and generate disagree')
+    del model, modes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_phase(torch, np, card):
+    """The JAX bench's decode section (bench.py:2739-2860) at Llama-2-7B
+    widths, all 32 layers, bf16 seeded weights: five bench_decode runs
+    (b1, b8, b8 with an int8 KV cache, b1 with int8 weights, b1 with
+    int4 weights), then DecodeEngine on a 13-token prompt (bucket 16)
+    with 192 new tokens, then the float32 agreement checks. Returns the
+    launch counts of the phase's measured runs."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama_7b(), dtype='bfloat16')
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, seed=0)
+    torch.cuda.synchronize()
+    total = {}
+    for batch, label, kv8, prof in ((1, 'b1 bf16', False, False),
+                                    (8, 'b8 bf16', False, True),
+                                    (8, 'b8 int8 KV', True, False)):
+        add_counts(total, bench_decode(torch, model, batch, label, card,
+                                       kv_int8=kv8, profile=prof)[2])
+        gc.collect()
+        torch.cuda.empty_cache()
+    for bits, name in ((8, 'quant_matmul'), (4, 'quant_matmul_int4')):
+        t = time.perf_counter()
+        qm = model.quantize_weights(bits)
+        torch.cuda.synchronize()
+        nbytes = sum(b.numel() * b.element_size() for b in qm.buffers())
+        print(f'decode: quantize_weights({bits}) in '
+              f'{time.perf_counter() - t:.1f} s, {nbytes / 1e9:.3f} GB of '
+              f'codes and scales')
+        add_counts(total, bench_decode(
+            torch, qm, 1, f'b1 int{bits} weights', card, quant=name,
+            profile=bits == 8)[2])
+        del qm
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # DecodeEngine end to end (bench.py:2846-2860): one warm call, one
+    # timed call over the engine's own (bucket + 192) cache
+    eng_steps = 192
+    prompt = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (1, 13))).to(model.device)
+    eng = DecodeEngine(model, max_new_tokens=eng_steps)
+    eng.generate(prompt)
+    torch.cuda.synchronize()
+
+    def timed():
+        t = time.perf_counter()
+        out = eng.generate(prompt)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (out, dt), counts = count_launches(torch, timed)
+    expect_launches(counts, L, eng_steps, eng_steps - 1)
+    add_counts(total, counts)
+    print(f'decode DecodeEngine: {eng_steps / dt:.2f} tokens/s end to end '
+          f'(13-token prompt in bucket 16, {eng_steps} new tokens, '
+          f'{dt:.3f} s) [{card}]')
+    gen = model.generate(prompt, max_new_tokens=eng_steps)
+    same = (out[0, 13:] == gen[0, 13:]).int()
+    lead = int(same.cumprod(0).sum().item())
+    print(f'decode bf16, {L} layers: DecodeEngine (padded) and generate '
+          f'(unpadded) agree on the first {lead} of {eng_steps} tokens '
+          f'(printed, not asserted: bf16 rounding differs between the '
+          f'padded and unpadded prefill)')
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    agreement_phase(torch, np, card)
+    print(f'decode: phase took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return total
 
 
 KERNEL_GROUPS = (('flash_fwd', 'K5 flash fwd'), ('flash_bwd', 'K6 flash bwd'),
@@ -886,6 +1342,21 @@ def main():
             cases.setdefault('flash_attention_fwd', []).append(fwd)
             cases.setdefault('flash_attention_bwd', []).append(bwd)
             torch.cuda.empty_cache()
+        # decode attention: the bench's b1 row first (the main path)
+        cases['decode_attention'] = [
+            check_decode(torch, timer, B, 32, Hkv, mode)
+            for B in (1, 8) for Hkv in (32, 8)
+            for mode in ('bfloat16', 'float32', 'int8')]
+        torch.cuda.empty_cache()
+        # weight-only products: M = 1 bf16 at 4096 x 4096 first
+        for bits, name in ((8, 'quant_matmul'), (4, 'quant_matmul_int4')):
+            cases[name] = [
+                check_quant_matmul(torch, timer, M, K, N, dt, bits)
+                for M in (1, 8, 16, 2048)
+                for K, N in ((4096, 4096), (4096, 11008), (11008, 4096),
+                             (4096, 32000))
+                for dt in (bf16, f32)]
+            torch.cuda.empty_cache()
         for name, cs in cases.items():
             for c in cs:
                 print(f'kernel {name}: {json.dumps(c)} [{card}]', flush=True)
@@ -897,10 +1368,16 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
 
-        # 6. a training step's gradients through the kernels vs plain
+        # 6. decode over contiguous caches: the JAX bench's decode
+        # section, DecodeEngine, float32 agreement
+        decode_launches = decode_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 7. a training step's gradients through the kernels vs plain
         grads_phase(torch, np, card)
 
-        # 7. training at the JAX bench's configuration
+        # 8. training at the JAX bench's configuration
         train_launches = train_phase(torch, np, card)
 
         records = []
@@ -915,21 +1392,32 @@ def main():
                 ('flash_attention_bwd', 'flash_attention.cu',
                  'flash_attention.py:323'),
                 ('paged_decode_attention', 'paged_attention.cu',
-                 'paged_attention.py:140')):
+                 'paged_attention.py:140'),
+                ('decode_attention', 'decode_attention.cu',
+                 'decode_attention.py:164'),
+                ('quant_matmul', 'quant_matmul.cu', 'quant_matmul.py:124'),
+                ('quant_matmul_int4', 'quant_matmul.cu',
+                 'quant_matmul.py:154')):
             cs = cases[name]
             head = cs[0]       # the main path's shape and dtype
+            by_path = {'serving': serve_launches[name],
+                       'decode': decode_launches.get(name, 0),
+                       'train': train_launches[name]}
             records.append({
                 'name': name, 'route': 'cuda',
                 'source': f'paddle_tpu_torch/csrc/{src}',
                 'replaces': f'paddle_tpu/ops/pallas/{rep}',
-                'launches': serve_launches[name] + train_launches[name],
-                'launches_by_path': {'serving': serve_launches[name],
-                                     'train': train_launches[name]},
+                'launches': sum(by_path.values()),
+                'launches_by_path': by_path,
                 'max_abs_err': max(c['max_abs_err'] for c in cs),
                 'ms': head['ms'], 'plain_ms': head['plain_ms'],
                 'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
                 'library_ms': head['library_ms'], 'shape': head['shape'],
                 'cases': cs})
+        unused = [r['name'] for r in records if not r['launches']]
+        if unused:
+            raise AssertionError(f'kernels the paths never launched: '
+                                 f'{unused}')
         print(card)
         print(json.dumps({'kernels': records}))
     except Exception:  # noqa: BLE001 - any failed phase fails the run

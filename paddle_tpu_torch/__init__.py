@@ -8,8 +8,11 @@ by hand for Hopper (`ops/`, sources in `csrc/`). Entry points run on the
 card unless the caller passes `device='cpu'`.
 
 Ported so far: Llama-family models (`models.llama.LlamaForCausalLM`)
-served through paged continuous batching (`inference.ServingEngine`) and
-trained (`training.TrainEngine` with the `optimizer` package).
+served through paged continuous batching (`inference.ServingEngine`),
+generating over contiguous KV caches (`generate`,
+`inference.DecodeEngine`; bf16 or int8 caches, int8 / int4 weights via
+`quantize_weights`), and trained (`training.TrainEngine` with the
+`optimizer` package).
 """
 from .device import resolve_device
 

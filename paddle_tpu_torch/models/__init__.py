@@ -1,5 +1,9 @@
-from .generation import GenerationMixin, PagedKVCache, default_positions
+from .generation import (GenerationMixin, PagedKVCache, QuantKVCache,
+                         calibrate_kv_scale, default_positions,
+                         filter_logits, quantize_kv_rows)
 from .llama import LlamaConfig, LlamaForCausalLM, llama_7b, llama_tiny
 
 __all__ = ['GenerationMixin', 'LlamaConfig', 'LlamaForCausalLM',
-           'PagedKVCache', 'default_positions', 'llama_7b', 'llama_tiny']
+           'PagedKVCache', 'QuantKVCache', 'calibrate_kv_scale',
+           'default_positions', 'filter_logits', 'llama_7b', 'llama_tiny',
+           'quantize_kv_rows']

@@ -13,9 +13,14 @@ package does), and every decode step runs the paged-attention kernel
 over the engine's page pools. It trains through `LlamaForCausalLM.loss`
 (`training.TrainEngine`): the uncached forward runs the flash-attention
 kernels for >= 128 tokens, every RMSNorm and the loss run their fused
-kernels, forward and backward. Configurations the port does not run
-(sequence parallelism, sliding-window attention, remat, int8 caches,
-tensor parallelism) raise NotImplementedError.
+kernels, forward and backward. It generates through
+`GenerationMixin.generate` and `inference.DecodeEngine` over contiguous
+caches (bf16 / float32, or int8 `QuantKVCache`): every single-token step
+runs the decode-attention kernel. `quantize_weights(8 or 4)` gives a
+model whose projections run the weight-only int8 / int4 kernels.
+Configurations the port does not run (sequence parallelism,
+sliding-window attention, remat, int8 paged pools, tensor parallelism)
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -29,7 +34,9 @@ from .. import ops
 from ..device import resolve_device, torch_dtype
 from ..nn import RMSNorm
 from ..nn import functional as F
-from .generation import GenerationMixin, PagedKVCache, default_positions
+from .generation import (GenerationMixin, PagedKVCache, QuantKVCache,
+                         calibrate_kv_scale, default_positions,
+                         quantize_kv_rows)
 
 
 @dataclasses.dataclass
@@ -175,17 +182,31 @@ def apply_rotary(x, cos, sin):
 # ---------------------------------------------------------------------------
 
 def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
-                     block_tables=None):
+                     block_tables=None, kvalid=None, kv_start=None):
     """KV-cached attention step: write the S new K/V rows into the cache,
-    then attend over it. Returns (out (B, S, H, D), cache).
+    then attend over it. Returns (out (B, S, H, D), cache); caches are
+    updated in place.
 
-    A contiguous (k, v) cache of (B, max_len, Hkv, D) takes the rows at
-    `cache_index` and attends with a position mask through the plain
-    masked attention (serving's admission prefill). A PagedKVCache takes
-    `kv_write_pos` (B,) and `block_tables` (B, MAXB) and runs the
-    paged-attention kernel (see `_paged_cached_attention`). Caches are
-    updated in place."""
+    A contiguous cache of (B, max_len, Hkv, D) — a (k, v) pair, or a
+    `QuantKVCache` of int8 codes with per-(head, dim) scales — takes the
+    rows at `cache_index`. `kvalid` (B, max_len) 0/1 marks the cache rows
+    that may be attended at all (left-padded batches put 0 on the pad
+    rows); `kv_start` (B,) says the caller's valid rows are exactly the
+    window [kv_start, now]. The dispatch rule is the JAX package's: a
+    single-token step with head_dim % 8 == 0 and either no kvalid or a
+    kv_start runs the decode-attention kernel (K7) over the window
+    [kv_start, cache_index + 1); anything else (prefill, a holed mask)
+    takes the plain masked attention, which dequantizes a whole int8
+    cache first. An int8 cache calibrates its scales on the index-0
+    multi-token prefill only and quantizes every later row against them.
+
+    A PagedKVCache takes `kv_write_pos` (B,) and `block_tables` (B, MAXB)
+    and runs the paged-attention kernel (see `_paged_cached_attention`).
+    """
     if isinstance(cache, PagedKVCache):
+        if kvalid is not None or kv_start is not None:
+            raise NotImplementedError(
+                'kvalid / kv_start over a PagedKVCache are not ported yet')
         return _paged_cached_attention(q, k, v, cache, kv_write_pos,
                                        block_tables)
     B, S, H, D = q.shape
@@ -193,19 +214,41 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
         raise NotImplementedError(
             'per-row write offsets over a contiguous cache (chunked '
             'prefill, speculative verify) are not ported yet')
-    if S == 1 and q.device.type == 'cuda':
-        raise NotImplementedError(
-            'single-token decode over a contiguous cache runs the '
-            'decode_attention kernel (K7), which is not ported yet; serve '
-            'through inference.ServingEngine (paged cache)')
-    ck, cv = cache
-    ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
-    cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
-    kpos = torch.arange(ck.shape[1], device=q.device)
+    quant = isinstance(cache, QuantKVCache)
+    if quant:
+        ck, cv, kscale, vscale = cache
+        if S > 1 and int(cache_index) == 0:
+            # calibrate on the index-0 prefill only: a later chunk must
+            # not reinterpret the int8 rows already written
+            kscale.copy_(calibrate_kv_scale(k))
+            vscale.copy_(calibrate_kv_scale(v))
+        ck[:, cache_index:cache_index + S] = quantize_kv_rows(k, kscale)
+        cv[:, cache_index:cache_index + S] = quantize_kv_rows(v, vscale)
+    else:
+        ck, cv = cache
+        kscale = vscale = None
+        ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
+        cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
+    if S == 1 and D % 8 == 0 and (kvalid is None or kv_start is not None):
+        out = ops.dispatch_decode_attention(
+            q, ck, cv, int(cache_index) + 1, start=kv_start,
+            k_scale=kscale, v_scale=vscale)
+        return out, cache
+    # valid keys: position <= the query's position, and kvalid / kv_start
+    max_len = ck.shape[1]
+    kpos = torch.arange(max_len, device=q.device)
     qpos = cache_index + torch.arange(S, device=q.device)
     mask = (kpos[None, :] <= qpos[:, None])[None, None]
+    if kvalid is not None:
+        mask = mask & (kvalid[:, None, None, :] > 0)
+    if kv_start is not None:
+        st = kv_start.reshape(-1)
+        mask = mask & (kpos[None, :] >= st[:, None])[:, None, None, :]
+    if quant:
+        ck = (ck.float() * kscale[None, None]).to(q.dtype)
+        cv = (cv.float() * vscale[None, None]).to(q.dtype)
     out = F.scaled_dot_product_attention(q, ck, cv, attn_mask=mask)
-    return out, (ck, cv)
+    return out, cache
 
 
 def _paged_cached_attention(q, k, v, cache, kv_write_pos, block_tables):
@@ -277,9 +320,11 @@ class LlamaAttention(torch.nn.Module):
             self.q_bias = self.k_bias = self.v_bias = None
 
     def forward(self, x, cos, sin, cache=None, cache_index=None,
-                kv_write_pos=None, block_tables=None):
+                kv_write_pos=None, block_tables=None, kvalid=None,
+                kv_start=None):
         """x: (B, S, hidden); cos/sin: (B, S, head_dim // 2). Returns
-        (out, cache): uncached (cache None) is causal attention over x."""
+        (out, cache): uncached (cache None) is causal attention over x,
+        masked by `kvalid` (B, >= S) 0/1 when it is given."""
         B, S, _ = x.shape
         q, k, v = x @ self.q_proj, x @ self.k_proj, x @ self.v_proj
         if self.q_bias is not None:
@@ -289,11 +334,18 @@ class LlamaAttention(torch.nn.Module):
         k = apply_rotary(k.reshape(B, S, self.num_kv_heads, self.head_dim),
                          cos, sin)
         v = v.reshape(B, S, self.num_kv_heads, self.head_dim)
-        if cache is None:
+        if cache is None and kvalid is None:
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        elif cache is None:
+            # pad rows of a left-padded batch are never attended
+            causal = torch.ones(S, S, dtype=torch.bool,
+                                device=x.device).tril()
+            mask = causal[None, None] & (kvalid[:, :S] > 0)[:, None, None, :]
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
         else:
             out, cache = cached_attention(q, k, v, cache, cache_index,
-                                          kv_write_pos, block_tables)
+                                          kv_write_pos, block_tables,
+                                          kvalid, kv_start)
         return out.reshape(B, S, self.num_heads * self.head_dim) \
             @ self.o_proj, cache
 
@@ -327,10 +379,11 @@ class LlamaDecoderLayer(torch.nn.Module):
         self.mlp = LlamaMLP(config, dtype, device, generator)
 
     def forward(self, x, cos, sin, cache=None, cache_index=None,
-                kv_write_pos=None, block_tables=None):
+                kv_write_pos=None, block_tables=None, kvalid=None,
+                kv_start=None):
         attn_out, cache = self.self_attn(
             self.input_layernorm(x), cos, sin, cache, cache_index,
-            kv_write_pos, block_tables)
+            kv_write_pos, block_tables, kvalid, kv_start)
         x = x + attn_out
         x = x + self.mlp(self.post_attention_layernorm(x))
         return x, cache
@@ -338,6 +391,10 @@ class LlamaDecoderLayer(torch.nn.Module):
 
 class LlamaModel(torch.nn.Module):
     """Embedding + decoder stack + final norm."""
+
+    # the vocab table is gathered (and served transposed when tied):
+    # exempt from weight-only quantization
+    no_quantize = ('embed_tokens',)
 
     def __init__(self, config: LlamaConfig, dtype, device, generator):
         super().__init__()
@@ -360,7 +417,8 @@ class LlamaModel(torch.nn.Module):
         self.rope_scaling = rs
 
     def forward(self, input_ids, positions=None, caches=None,
-                cache_index=None, kv_write_pos=None, block_tables=None):
+                cache_index=None, kv_write_pos=None, block_tables=None,
+                kvalid=None, kv_start=None):
         B, S = input_ids.shape
         if positions is None:
             positions = default_positions(B, S, cache_index, kv_write_pos,
@@ -373,7 +431,8 @@ class LlamaModel(torch.nn.Module):
         for i, layer in enumerate(self.layers):
             x, cache = layer(x, cos, sin,
                              caches[i] if caches is not None else None,
-                             cache_index, kv_write_pos, block_tables)
+                             cache_index, kv_write_pos, block_tables,
+                             kvalid, kv_start)
             if new_caches is not None:
                 new_caches.append(cache)
         return self.norm(x), new_caches
@@ -420,11 +479,14 @@ class LlamaForCausalLM(GenerationMixin, torch.nn.Module):
         return hidden @ self.lm_head
 
     def forward(self, input_ids, positions=None, caches=None,
-                cache_index=None, kv_write_pos=None, block_tables=None):
-        """Logits (B, S, vocab); with `caches`, (logits, caches)."""
+                cache_index=None, kv_write_pos=None, block_tables=None,
+                kvalid=None, kv_start=None):
+        """Logits (B, S, vocab); with `caches`, (logits, caches).
+        `kvalid` (B, max_len) 0/1 and `kv_start` (B,) mark the attendable
+        cache rows of a left-padded batch (see `cached_attention`)."""
         hidden, new_caches = self.model(input_ids, positions, caches,
                                         cache_index, kv_write_pos,
-                                        block_tables)
+                                        block_tables, kvalid, kv_start)
         logits = self.logits(hidden)
         if caches is None:
             return logits

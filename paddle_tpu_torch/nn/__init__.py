@@ -1,5 +1,5 @@
-from . import functional
+from . import functional, quant
 from .clip import ClipGradByGlobalNorm
 from .layer import RMSNorm
 
-__all__ = ['ClipGradByGlobalNorm', 'RMSNorm', 'functional']
+__all__ = ['ClipGradByGlobalNorm', 'RMSNorm', 'functional', 'quant']

@@ -17,8 +17,10 @@ import math
 import torch
 
 from ._build import LAUNCHES, on_card
+from .hopper import decode_attention as _decode
 from .hopper import flash_attention as _flash
 from .hopper import paged_attention as _paged
+from .hopper import quant_matmul as _qmm
 from .hopper import rms_norm as _rms
 from .hopper import softmax_xent as _xent
 
@@ -74,5 +76,69 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables,
               k_scale, v_scale)
 
 
-__all__ = ['LAUNCHES', 'flash_attention', 'paged_decode_attention',
-           'rms_norm', 'softmax_cross_entropy']
+def decode_attention(q, k_cache, v_cache, valid_len, scale=None,
+                     k_scale=None, v_scale=None, start=None):
+    """Single-token attention over a contiguous (B, S, Hkv, D) cache
+    (kernel K7 of PERF.md): q (B, 1, Hq, D) attends its row's window
+    [start, min(valid_len, S)); int8 caches pass per-(kv head, dim)
+    float32 `k_scale` / `v_scale`. See `ops/hopper/decode_attention.py`."""
+    fn = (_decode.decode_attention if on_card(q, 'decode_attention')
+          else _decode.decode_attention_plain)
+    return fn(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale,
+              start)
+
+
+def dispatch_decode_attention(q, k_cache, v_cache, valid_len, start=None,
+                              window=None, k_scale=None, v_scale=None,
+                              scale=None):
+    """The decode step's one entry (the JAX package's
+    `dispatch_decode_attention`): a sliding `window` becomes a later
+    per-row start, max(start, valid_len - window), so every caller
+    applies the same window rule; then `decode_attention`."""
+    if window is not None:
+        B = q.shape[0]
+        vl = (valid_len.to(torch.int32).reshape(-1).expand(B)
+              if isinstance(valid_len, torch.Tensor)
+              else torch.full((B,), int(valid_len), dtype=torch.int32,
+                              device=q.device))
+        wstart = torch.clamp(vl - int(window), min=0)
+        if start is not None:
+            st = (start.to(torch.int32) if isinstance(start, torch.Tensor)
+                  else torch.tensor(int(start), dtype=torch.int32,
+                                    device=q.device))
+            wstart = torch.maximum(st.reshape(-1).expand(B), wstart)
+        start = wstart
+    return decode_attention(q, k_cache, v_cache, valid_len, scale=scale,
+                            k_scale=k_scale, v_scale=v_scale, start=start)
+
+
+def _no_grad_through(x, name):
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            f'{name} has no gradient (the TPU kernel has no VJP either): '
+            f'quantized weights serve inference only')
+
+
+def quant_matmul(x, wq, scale):
+    """Weight-only int8 product (kernel K10): x (M, K) bf16 / float32,
+    codes (K, N) int8, per-column float32 scale (N,) -> (M, N) in x's
+    dtype. Inference only: raises when x needs a gradient."""
+    _no_grad_through(x, 'quant_matmul')
+    fn = (_qmm.quant_matmul if on_card(x, 'quant_matmul')
+          else _qmm.quant_matmul_plain)
+    return fn(x, wq, scale)
+
+
+def quant_matmul_int4(x, wq_packed, scale):
+    """Weight-only packed-int4 product (kernel K11): codes
+    (ceil(K / 2), N), two 4-bit codes per byte along K; otherwise as
+    `quant_matmul`."""
+    _no_grad_through(x, 'quant_matmul_int4')
+    fn = (_qmm.quant_matmul_int4 if on_card(x, 'quant_matmul_int4')
+          else _qmm.quant_matmul_int4_plain)
+    return fn(x, wq_packed, scale)
+
+
+__all__ = ['LAUNCHES', 'decode_attention', 'dispatch_decode_attention',
+           'flash_attention', 'paged_decode_attention', 'quant_matmul',
+           'quant_matmul_int4', 'rms_norm', 'softmax_cross_entropy']

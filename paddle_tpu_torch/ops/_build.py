@@ -37,7 +37,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # (flash_attention_bwd launches twice per call: dq, then dk and dv)
 LAUNCHES = {'rms_norm': 0, 'rms_norm_bwd': 0, 'softmax_xent_fwd': 0,
             'softmax_xent_bwd': 0, 'flash_attention_fwd': 0,
-            'flash_attention_bwd': 0, 'paged_decode_attention': 0}
+            'flash_attention_bwd': 0, 'paged_decode_attention': 0,
+            'decode_attention': 0, 'quant_matmul': 0, 'quant_matmul_int4': 0}
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,6 +56,11 @@ _SIGNATURES = {
                                _I, _VP],
     'pt_paged_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                                   _I, _I, _I, _I, _I, _F, _I, _VP],
+    'pt_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                            _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _I, _VP],
+    'pt_quant_matmul': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                        _I, _VP],
 }
 
 _lib = None

@@ -14,8 +14,10 @@ import torch
 
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops.hopper import decode_attention as k_decode
 from paddle_tpu_torch.ops.hopper import flash_attention as k_flash
 from paddle_tpu_torch.ops.hopper import paged_attention as k_paged
+from paddle_tpu_torch.ops.hopper import quant_matmul as k_qmm
 from paddle_tpu_torch.ops.hopper import rms_norm as k_rms
 from paddle_tpu_torch.ops.hopper import softmax_xent as k_xent
 
@@ -303,3 +305,125 @@ def test_training_ops_differentiate_on_the_card(card):
                plain_xent)
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize('mode', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('B,S,Hq,Hkv,D', [(1, 2048, 32, 32, 128),
+                                          (8, 2048, 32, 8, 128),
+                                          (4, 37, 4, 2, 16),
+                                          (3, 300, 8, 1, 64)])
+def test_decode_attention_kernel(card, mode, B, S, Hq, Hkv, D):
+    """K7 against its plain version: per-row windows with an empty one
+    (start past valid_len), valid_len past S, a start below 0, in one
+    split and in several (B = 1 splits the context across blocks)."""
+    rng = np.random.default_rng(B * 1000 + S + Hkv + D)
+    dtype = torch.float32 if mode == 'float32' else torch.bfloat16
+    q = _randn(rng, (B, 1, Hq, D), card, dtype)
+    ks = vs = None
+    if mode == 'int8':
+        kc, vc = (torch.from_numpy(rng.integers(-127, 128, (B, S, Hkv, D))
+                                   .astype(np.int8)).to(card)
+                  for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (Hkv, D))
+                                   .astype(np.float32)).to(card)
+                  for _ in range(2))
+    else:
+        kc, vc = (_randn(rng, (B, S, Hkv, D), card, dtype)
+                  for _ in range(2))
+    vl = rng.integers(1, S + 1, B)
+    st = rng.integers(0, S, B) % np.maximum(vl, 1)
+    vl[0] = S + 5                                  # clamped to S
+    if B > 1:
+        st[1], vl[1] = S // 2, S // 3              # empty window
+    if B > 2:
+        st[2] = -3                                 # clipped to 0
+    vl = torch.from_numpy(vl.astype(np.int32)).to(card)
+    st = torch.from_numpy(st.astype(np.int32)).to(card)
+    before = _build.LAUNCHES['decode_attention']
+    got = k_decode.decode_attention(q, kc, vc, vl, None, ks, vs, st)
+    want = k_decode.decode_attention_plain(q, kc, vc, vl, None, ks, vs, st)
+    assert _build.LAUNCHES['decode_attention'] == before + 1
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    if B > 1:
+        assert not got[1].any(), 'an empty window must return zeros'
+    # a uniform int valid_len and no start, as the model's decode step
+    got = k_decode.decode_attention(q, kc, vc, S - 1, None, ks, vs)
+    want = k_decode.decode_attention_plain(q, kc, vc, S - 1, None, ks, vs)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_decode_attention_kernel_refusals(card):
+    q = torch.zeros(1, 1, 6, 64, device=card)
+    kc = torch.zeros(1, 16, 2, 64, device=card)
+    with pytest.raises(ValueError, match='Hq/Hkv'):
+        k_decode.decode_attention(q, kc, kc, 4)
+    with pytest.raises(TypeError, match='dtype'):
+        k_decode.decode_attention(q[:, :, :2], kc.bfloat16(), kc.bfloat16(),
+                                  4)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('bits', [8, 4])
+@pytest.mark.parametrize('M,K,N', [(1, 4096, 4096), (16, 4096, 11008),
+                                   (8, 11008, 4096), (3, 333, 77),
+                                   (40, 129, 130), (2, 4095, 4096)])
+def test_quant_matmul_kernels(card, dtype, bits, M, K, N):
+    """K10 / K11 against their plain versions: decode rows (M <= 16, the
+    skinny path with K split across blocks), a ragged M / K / N (scalar
+    tails, odd K for int4) and M > 16 (the tiled path)."""
+    rng = np.random.default_rng(M * 7 + K + N + bits)
+    w = _randn(rng, (K, N), card, torch.float32, 0.02)
+    quant = k_qmm.quantize_weight_int4 if bits == 4 else k_qmm.quantize_weight
+    codes, scale = quant(w)
+    x = _randn(rng, (M, K), card, dtype)
+    kern = k_qmm.quant_matmul_int4 if bits == 4 else k_qmm.quant_matmul
+    plain = (k_qmm.quant_matmul_int4_plain if bits == 4
+             else k_qmm.quant_matmul_plain)
+    name = 'quant_matmul_int4' if bits == 4 else 'quant_matmul'
+    before = _build.LAUNCHES[name]
+    got = kern(x, codes, scale)
+    want = plain(x, codes, scale)
+    assert _build.LAUNCHES[name] == before + 1
+    assert got.dtype == dtype and got.shape == (M, N)
+    # float32: sums of up to 11008 products taken in another order;
+    # bf16: one rounding step of the output on top
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else TOL[dtype]
+    amax = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol * amax)
+
+
+def test_generate_on_the_card_runs_the_decode_kernels(card):
+    """A tiny model's generate and DecodeEngine on the card, with bf16 and
+    int8 caches and int8 / int4 weights: every decode forward launches K7
+    once per layer, and a quantized model K10 / K11 for each of the
+    7L + 1 projections of every forward."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+
+    cfg = llama_tiny(vocab_size=128, hidden_size=64, layers=2)
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, device=card, seed=0)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        3, 128, (2, 9))).to(card)
+    for kv8 in (False, True):
+        before = dict(_build.LAUNCHES)
+        out = model.generate(ids, max_new_tokens=6, kv_cache_int8=kv8)
+        assert out.shape == (2, 15)
+        assert _build.LAUNCHES['decode_attention'] - before[
+            'decode_attention'] == 5 * L
+    eng = DecodeEngine(model, max_new_tokens=6)
+    before = dict(_build.LAUNCHES)
+    out = eng.generate(ids)
+    assert torch.equal(out, model.generate(ids, max_new_tokens=6))
+    assert _build.LAUNCHES['decode_attention'] - before[
+        'decode_attention'] == 2 * 5 * L
+    for bits, name in ((8, 'quant_matmul'), (4, 'quant_matmul_int4')):
+        qm = model.quantize_weights(bits)
+        before = dict(_build.LAUNCHES)
+        out = qm.generate(ids, max_new_tokens=6)
+        assert out.shape == (2, 15)
+        assert _build.LAUNCHES[name] - before[name] == 6 * (7 * L + 1)
