@@ -28,6 +28,13 @@ Phases, in order (any failure exits non-zero and prints no result):
               kernels against the plain versions on the same tokens:
               bounded in float32 (the served weights cast up); in bf16
               printed with each kernel alone and a kernel-free control;
+              then int8 serving: the same model, settings and burst
+              through ServingEngine(kv_cache_dtype='int8') (exact launch
+              counts of K8q and K1, no leaked page, tokens equal to the
+              bf16 engine printed), and at Llama-7B width with 2 layers
+              in float32 the int8 streams through the kernels equal to
+              the plain versions', and a preempting pool's equal to the
+              uninterrupted engine's;
   6. decode   the JAX bench's decode section at Llama-7B width (all 32
               layers, bf16): greedy single-token forwards over 2048-
               position contiguous caches at batch 1 and 8, with an int8
@@ -38,10 +45,20 @@ Phases, in order (any failure exits non-zero and prints no result):
               kernels against the plain versions in float32 (7B width,
               2 layers): logits of 16 decode steps in five modes, and
               DecodeEngine token-equal to generate;
-  7. grads    one training step's loss and gradients (Llama-7B width, 2
+  7. fused    Paddle's fused-inference ops at Llama-7B widths:
+              fused_multi_transformer (32 layers, RMSNorm, bf16)
+              prefilling 8 x 512 tokens, then 64 decode steps over
+              2048-position head-major caches (ms per step, rows x
+              steps / s, peak memory, exact launches of K5, K9 and K1,
+              one step traced); FusedMultiTransformer (2 layers,
+              float32) through the kernels against the plain versions;
+              block_multihead_attention's varlen prefill (K5s) and 32
+              paged decode steps (K8, or K8q with static int8 scales),
+              bf16 and float32, float32 against the plain versions;
+  8. grads    one training step's loss and gradients (Llama-7B width, 2
               layers, 1 x 2048 tokens) through the kernels against the
               plain versions: bounded in float32, printed in bf16;
-  8. train    TrainEngine + AdamW at the JAX bench's training
+  9. train    TrainEngine + AdamW at the JAX bench's training
               configuration (Llama-7B width, 4 layers, bf16, 6 x 2048
               tokens): 2 warm-up and 5 timed steps on one repeated
               batch (tokens/s, ms per step, peak memory, per-step
@@ -207,6 +224,193 @@ def check_paged(torch, timer, Hq, Hkv, D=128, BS=16):
             q, kc, vc, tbl, cl)),
         'library_ms': None,
         'bound_ms': b, 'bound_by': by,
+    }
+
+
+def check_paged_int8(torch, timer, Hq, Hkv, rowscale, D=128, BS=16):
+    """K8q at check_paged's shapes (4 rows of ragged contexts up to 1024
+    positions, one count past its table, a -1 entry, a count-0 row) over
+    int8 pages: per-row (NB, Hkv, BS) scales as the int8 ServingEngine
+    writes them, or per-(head, dim) (Hkv, D) scales as
+    block_multihead_attention's static cache scales; bf16 queries."""
+    from paddle_tpu_torch.ops.hopper import paged_attention as k
+
+    g = torch.Generator(device='cuda').manual_seed(Hkv + 7 * rowscale)
+    B, MAXB = 4, 1024 // BS
+    lens = [1100, 517, 0, 300]
+    used = [min(math.ceil(n / BS), MAXB) for n in lens]
+    NB = sum(used) + 40
+    perm = torch.randperm(NB - 1, generator=g, device='cuda') + 1
+    tbl = torch.zeros(B, MAXB, dtype=torch.int32, device='cuda')
+    at = 0
+    for b, u in enumerate(used):
+        tbl[b, :u] = perm[at:at + u]
+        at += u
+    tbl[1, used[1]] = -1
+    tbl[2] = perm[:MAXB]                      # count 0: entries unread
+    q = torch.randn(B, 1, Hq, D, device='cuda',
+                    generator=g).to(torch.bfloat16)
+    kc, vc = (torch.randint(-127, 128, (NB, Hkv, BS, D), device='cuda',
+                            generator=g, dtype=torch.int8)
+              for _ in range(2))
+    sshape = (NB, Hkv, BS) if rowscale else (Hkv, D)
+    ks, vs = (0.002 + 0.028 * torch.rand(sshape, device='cuda', generator=g)
+              for _ in range(2))
+    cl = torch.tensor(lens, dtype=torch.int32, device='cuda')
+    out = k.paged_decode_attention(q, kc, vc, tbl, cl, None, ks, vs)
+    ref = k.paged_decode_attention_plain(q, kc, vc, tbl, cl, None, ks, vs)
+    torch.cuda.synchronize()
+    tol = TENSOR_TOL['bfloat16']
+    what = (f'paged attention int8 Hq={Hq} Hkv={Hkv} '
+            f'{"row" if rowscale else "head-dim"} scales')
+    err = within(out, ref, tol, what)
+    if out[2].abs().max().item() != 0.0:
+        raise AssertionError(f'{what}: a count-0 row must be 0')
+    ctx = sum(min(n, MAXB * BS) for n in lens)
+    scale_bytes = (2 * ctx * Hkv * 4 if rowscale else 2 * Hkv * D * 4)
+    nbytes = (2 * ctx * Hkv * D + scale_bytes + 2 * B * Hq * D * 2
+              + B * MAXB * 4 + B * 4)
+    b, by = bound_ms(nbytes, 4 * ctx * Hq * D, BF16_FLOPS)
+    return {
+        'shape': (f'B={B} Hq={Hq} Hkv={Hkv} D={D} BS={BS} lens={lens} '
+                  f'int8 pages, {"per-row" if rowscale else "(Hkv, D)"} '
+                  f'f32 scales, bf16 q'),
+        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'ms': timer(lambda: k.paged_decode_attention(q, kc, vc, tbl, cl,
+                                                     None, ks, vs)),
+        'plain_ms': timer(lambda: k.paged_decode_attention_plain(
+            q, kc, vc, tbl, cl, None, ks, vs)),
+        'library_ms': None,
+        'library': 'none: PyTorch has no paged-attention call',
+        'bound_ms': b, 'bound_by': by,
+    }
+
+
+def check_headmajor(torch, timer, B, Hq, Hkv, mode, S=2048, D=128):
+    """K9 at the fused decode step's shapes: (B, Hkv, 2048, 128) caches.
+    B = 1 attends 2000 positions; B = 8 ragged counts averaging ~600 (one
+    past S, clipped; one 0). Modes: bf16, float32, and int8 caches with
+    (Hkv, D) scales under a bf16 query."""
+    from paddle_tpu_torch.ops.hopper import headmajor_attention as k
+
+    F = torch.nn.functional
+    g = torch.Generator(device='cuda').manual_seed(B * 10 + Hkv + 3)
+    dtype = torch.float32 if mode == 'float32' else torch.bfloat16
+    q = torch.randn(B, 1, Hq, D, device='cuda', generator=g).to(dtype)
+    ks = vs = None
+    if mode == 'int8':
+        kc, vc = (torch.randint(-127, 128, (B, Hkv, S, D), device='cuda',
+                                generator=g, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (0.005 + 0.015 * torch.rand(Hkv, D, device='cuda',
+                                             generator=g)
+                  for _ in range(2))
+    else:
+        kc, vc = (torch.randn(B, Hkv, S, D, device='cuda',
+                              generator=g).to(dtype) for _ in range(2))
+    counts = [2000] if B == 1 else [S + 52, 600, 0, 1000, 37, 700, 300, 63]
+    cl = torch.tensor(counts, dtype=torch.int32, device='cuda')
+    out = k.decode_attention_headmajor(q, kc, vc, cl, None, ks, vs)
+    ref = k.decode_attention_headmajor_plain(q, kc, vc, cl, None, ks, vs)
+    torch.cuda.synchronize()
+    tol = TENSOR_TOL[dname(torch, dtype)]
+    what = f'head-major decode attention B={B} Hq={Hq} Hkv={Hkv} {mode}'
+    err = within(out, ref, tol, what)
+    for b, c in enumerate(counts):
+        if c == 0 and out[b].abs().max().item() != 0.0:
+            raise AssertionError(f'{what}: row {b} has count 0 and must '
+                                 f'be 0')
+    pos = sum(min(max(c, 0), S) for c in counts)
+    nbytes = (2 * pos * Hkv * D * kc.element_size()
+              + 2 * B * Hq * D * q.element_size()
+              + (2 * Hkv * D * 4 if ks is not None else 0) + B * 4)
+    b_, by = bound_ms(nbytes, 4 * pos * Hq * D,
+                      BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    # the yardstick: SDPA on the same (B, H, S, D) tensors (head-major is
+    # its own layout) with the counts as a boolean mask (an int8 cache
+    # dequantized to bf16 first: twice the cache bytes)
+    kl, vl_ = kc, vc
+    if ks is not None:
+        kl = (kc.float() * ks[None, :, None]).to(dtype)
+        vl_ = (vc.float() * vs[None, :, None]).to(dtype)
+    mask = (torch.arange(S, device='cuda')[None] < cl[:, None])[
+        :, None, None, :]
+    qt = q.transpose(1, 2)
+    lib = F.scaled_dot_product_attention
+    return {
+        'shape': (f'B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {mode} '
+                  f'counts={counts}'),
+        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'ms': timer(lambda: k.decode_attention_headmajor(q, kc, vc, cl,
+                                                         None, ks, vs)),
+        'plain_ms': timer(lambda: k.decode_attention_headmajor_plain(
+            q, kc, vc, cl, None, ks, vs), iters=10),
+        'library_ms': timer(lambda: lib(qt, kl, vl_, attn_mask=mask,
+                                        enable_gqa=Hq != Hkv)),
+        'library': ('F.scaled_dot_product_attention with the counts as a '
+                    'boolean mask' + (' over the cache dequantized to bf16'
+                                      if ks is not None else '')),
+        'bound_ms': b_, 'bound_by': by,
+    }
+
+
+def check_flash_seg(torch, timer, dtype, H=32, D=128):
+    """K5s at block_multihead_attention's varlen prefill: a packed stream
+    of 4 prompts (2012 tokens), 32 heads of 128, causal within each
+    segment, in the model's (B, S, H, D) layout; 16 queries carry a
+    segment id that no key has (they must return 0)."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as k
+
+    F = torch.nn.functional
+    g = torch.Generator(device='cuda').manual_seed(2012)
+    lens = [700, 300, 512, 500]
+    T = sum(lens)
+    seg = torch.repeat_interleave(
+        torch.arange(len(lens), device='cuda', dtype=torch.int32),
+        torch.tensor(lens, device='cuda'))[None]
+    qseg = seg.clone()
+    qseg[0, 1000:1016] = 99
+
+    def bshd():
+        return torch.randn(1, T, H, D, device='cuda', generator=g) \
+            .to(dtype).transpose(1, 2)
+
+    q, kk, v = bshd(), bshd(), bshd()
+    scale = 1.0 / math.sqrt(D)
+    out, lse = k.flash_attention_fwd(q, kk, v, True, scale, qseg, seg)
+    ref, ref_lse = k.flash_attention_fwd_plain(q, kk, v, True, scale, qseg,
+                                               seg)
+    torch.cuda.synchronize()
+    tol = TENSOR_TOL[dname(torch, dtype)]
+    what = f'flash attention with segment ids T={T} H={H} {dtype}'
+    err = within(out, ref, tol, what)
+    if out[:, :, 1000:1016].abs().max().item() != 0.0:
+        raise AssertionError(f'{what}: queries with no key in their '
+                             f'segment must be 0')
+    # the causal pairs inside each segment, less those of the 16 queries
+    # that see nothing (positions 0..15 of segment 2: 1 + 2 + ... + 16)
+    pairs = H * (sum(n * (n + 1) // 2 for n in lens) - sum(range(1, 17)))
+    item = q.element_size()
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    b_, by = bound_ms(4 * T * H * D * item + 2 * T * 4 + H * T * 4,
+                      4 * D * pairs, peak)
+    qpos = torch.arange(T, device='cuda')
+    mask = ((qseg[0][:, None] == seg[0][None, :])
+            & (qpos[:, None] >= qpos[None, :]))[None, None]
+    lib = F.scaled_dot_product_attention
+    return {
+        'shape': (f'B=1 T={T} (segments {lens}) H={H} D={D} causal '
+                  f'{dname(torch, dtype)}'),
+        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'ms': timer(lambda: k.flash_attention_fwd(q, kk, v, True, scale,
+                                                  qseg, seg)),
+        'plain_ms': timer(lambda: k.flash_attention_fwd_plain(
+            q, kk, v, True, scale, qseg, seg), iters=5),
+        'library_ms': timer(lambda: lib(q, kk, v, attn_mask=mask,
+                                        scale=scale)),
+        'library': ('F.scaled_dot_product_attention with the block-'
+                    'diagonal causal mask as a bool tensor'),
+        'bound_ms': b_, 'bound_by': by,
     }
 
 
@@ -565,10 +769,10 @@ def decode_logits(torch, model, prompt, gen):
     return torch.cat(rows)
 
 
-def profile_window(torch, engine, prompts, card):
+def profile_window(torch, engine, prompts, card, label='profile'):
     """Trace one engine step that decodes a full window of 4 rows, and
-    print the device time by kernel and the share of the step's wall
-    time the device was busy."""
+    print the device time by kernel, the kernel count, and the share of
+    the step's wall time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
 
     rids = [engine.submit(p, 16) for p in prompts[:4]]
@@ -590,37 +794,26 @@ def profile_window(torch, engine, prompts, card):
                    if str(e.device_type).endswith('CUDA')
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
-        print('profile: the profiler recorded no device time; device-busy '
-              'share not measured')
+        print(f'{label}: the profiler recorded no device time; device-busy '
+              f'share not measured')
         return
     busy = sum(r[0] for r in rows) / 1e3
-    print(f'profile: one window of {engine.decode_window} decode forwards '
+    print(f'{label}: one window of {engine.decode_window} decode forwards '
           f'x 4 rows under the profiler: wall {wall * 1e3:.1f} ms, device '
-          f'busy {busy:.1f} ms ({busy / (wall * 1e3):.3f}) [{card}]')
+          f'busy {busy:.1f} ms ({busy / (wall * 1e3):.3f}), '
+          f'{sum(r[1] for r in rows)} kernels [{card}]')
     for t_us, n, key in rows[:15]:
-        print(f'profile:   {t_us / 1e3:9.3f} ms  {n:6d}x  {key[:90]}')
+        print(f'{label}:   {t_us / 1e3:9.3f} ms  {n:6d}x  {key[:90]}')
 
 
-def serve_phase(torch, np, card):
+def serve_burst(torch, engine, prompts):
+    """Warm the engine on one short request (not measured), then serve
+    `prompts` in three staggered waves (later requests admitted while
+    earlier rows decode) with every launch count set to 0 just before
+    and read just after. Returns the run's wall time, launch counts,
+    engine stats before and after, outputs and peak memory."""
     from paddle_tpu_torch import ops
-    from paddle_tpu_torch.inference import ServingEngine
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 
-    cfg = dataclasses.replace(llama_7b(), dtype='bfloat16')
-    L = cfg.num_hidden_layers
-    t = time.perf_counter()
-    model = LlamaForCausalLM(cfg, seed=0)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f'model: llama_7b width, {L} layers, {n_params} parameters, '
-          f'bf16, drawn in {time.perf_counter() - t:.1f} s')
-    engine = ServingEngine(model, max_slots=4, block_size=16,
-                           decode_window=8, max_new_tokens=32)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(32, 513, 8)
-    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
-               for n in lens]
-    # warm the allocator and cuBLAS on one short request (not measured)
     engine.serve([prompts[0][:32]], max_new_tokens=8)
     before = engine.stats()
     torch.cuda.synchronize()
@@ -628,8 +821,6 @@ def serve_phase(torch, np, card):
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
     t0 = time.perf_counter()
-    # staggered arrivals: later requests are admitted while earlier
-    # rows are still decoding
     rids = [engine.submit(p) for p in prompts[:2]]
     engine.step()
     rids += [engine.submit(p) for p in prompts[2:4]]
@@ -641,42 +832,148 @@ def serve_phase(torch, np, card):
     launches = dict(ops.LAUNCHES)
     after = engine.stats()
     outs = [engine.result(r) for r in rids]
-    peak = torch.cuda.max_memory_allocated()
+    return wall, launches, before, after, outs, \
+        torch.cuda.max_memory_allocated()
 
+
+def check_burst(label, engine, prompts, vocab, wall, launches, before,
+                after, outs, peak, kernel, card):
+    """The burst's outputs, exact launch counts (`kernel` L per decode
+    forward, K1 2L + 1 per forward, nothing else) and leaks; prints its
+    throughput."""
+    from paddle_tpu_torch import ops
+
+    L = engine.model.config.num_hidden_layers
     for p, o in zip(prompts, outs):
-        if o is None or len(o) != len(p) + 32 or not np.array_equal(
-                o[:len(p)], p):
-            raise AssertionError('a request did not return prompt + 32 ids')
-        if o.min() < 0 or o.max() >= cfg.vocab_size:
-            raise AssertionError('a returned id is outside the vocabulary')
+        if o is None or len(o) != len(p) + 32 or not np_equal(o[:len(p)], p):
+            raise AssertionError(f'{label}: a request did not return '
+                                 f'prompt + 32 ids')
+        if o.min() < 0 or o.max() >= vocab:
+            raise AssertionError(f'{label}: a returned id is outside the '
+                                 f'vocabulary')
     n_dec = after['decode_forwards'] - before['decode_forwards']
     n_pre = after['prefill_forwards'] - before['prefill_forwards']
     want = dict.fromkeys(ops.LAUNCHES, 0)
-    want.update(paged_decode_attention=L * n_dec,
-                rms_norm=(2 * L + 1) * (n_dec + n_pre))
+    want[kernel] = L * n_dec
+    want['rms_norm'] = (2 * L + 1) * (n_dec + n_pre)
     if launches != want:
-        raise AssertionError(f'launch counts {launches} != expected {want} '
-                             f'({n_dec} decode and {n_pre} prefill '
-                             f'forwards)')
+        raise AssertionError(f'{label}: launch counts {launches} != '
+                             f'expected {want} ({n_dec} decode and {n_pre} '
+                             f'prefill forwards)')
     if engine.allocator.in_use() != 0:
-        raise AssertionError(f'{engine.allocator.in_use()} pages leaked')
+        raise AssertionError(f'{label}: {engine.allocator.in_use()} pages '
+                             f'leaked')
     n_tok = after['tokens_generated'] - before['tokens_generated']
     n_steps = after['steps'] - before['steps']
-    print(f'serving: {len(prompts)} requests, prompt lengths '
-          f'{lens.tolist()}, {n_tok} tokens in {wall:.3f} s: '
-          f'{n_tok / wall:.1f} tok/s, {wall / n_steps * 1e3:.1f} ms per '
-          f'engine step ({n_steps} steps of {n_pre} prefills and '
-          f'{n_dec // engine.decode_window} windows of '
-          f'{engine.decode_window}), '
-          f'{wall / n_dec * 1e3:.1f} ms per decode forward incl. prefill, '
-          f'peak memory {peak / 2**30:.2f} GiB, preemptions '
-          f'{after["preemptions"]} [{card}]')
-    print(f'serving: launches {launches} over {n_dec} decode forwards and '
-          f'{n_pre} prefill forwards; pages in use after drain: 0')
+    lens = [len(p) for p in prompts]
+    print(f'{label}: {len(prompts)} requests, prompt lengths {lens}, '
+          f'{n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} tok/s, '
+          f'{wall / n_steps * 1e3:.1f} ms per engine step ({n_steps} steps '
+          f'of {n_pre} prefills and {n_dec // engine.decode_window} windows '
+          f'of {engine.decode_window}), {wall / n_dec * 1e3:.1f} ms per '
+          f'decode forward incl. prefill, peak memory {peak / 2**30:.2f} '
+          f'GiB, preemptions {after["preemptions"]}, page bytes '
+          f'{engine.allocator.stats()["bytes_per_page"]} [{card}]')
+    print(f'{label}: launches { {k: v for k, v in launches.items() if v} } '
+          f'over {n_dec} decode forwards and {n_pre} prefill forwards; '
+          f'pages in use after drain: 0', flush=True)
+
+
+def np_equal(a, b):
+    return len(a) == len(b) and all(int(x) == int(y) for x, y in zip(a, b))
+
+
+def serve_phase(torch, np, card):
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    cfg = dataclasses.replace(llama_7b(), dtype='bfloat16')
+    L = cfg.num_hidden_layers
+    t = time.perf_counter()
+    model = LlamaForCausalLM(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f'model: llama_7b width, {L} layers, {n_params} parameters, '
+          f'bf16, drawn in {time.perf_counter() - t:.1f} s')
+    engine = ServingEngine(model, **SERVE_KW)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 513, 8)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    run = serve_burst(torch, engine, prompts)
+    launches, outs = run[1], run[4]
+    check_burst('serving', engine, prompts, cfg.vocab_size, *run,
+                'paged_decode_attention', card)
 
     profile_window(torch, engine, prompts, card)
 
     logits_phase(torch, model, cfg, prompts[2], outs[2][len(prompts[2]):])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_launches = int8_serve_phase(torch, np, card, model, prompts, outs)
+    return launches, int8_launches
+
+
+# phase 4's engine settings, shared by the int8 serving phase
+SERVE_KW = dict(max_slots=4, block_size=16, decode_window=8,
+                max_new_tokens=32)
+
+
+def int8_serve_phase(torch, np, card, model, prompts, bf16_outs):
+    """The int8-KV serving path: the same model, settings and staggered
+    burst as phase 4 through ServingEngine(kv_cache_dtype='int8') (K8q
+    in its per-row mode, L per decode forward); then, at Llama-7B width
+    with 2 layers in float32, the int8 engine's streams through the
+    kernels against the plain versions, and under a pool tight enough to
+    preempt against the uninterrupted engine (both asserted)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    engine = ServingEngine(model, kv_cache_dtype='int8', **SERVE_KW)
+    run = serve_burst(torch, engine, prompts)
+    launches, outs = run[1], run[4]
+    check_burst('int8 serving', engine, prompts, model.config.vocab_size,
+                *run, 'paged_decode_attention_int8', card)
+    profile_window(torch, engine, prompts, card, label='int8 profile')
+    same = [int(np.sum(np.cumprod(o[len(p):] == b[len(p):])))
+            for p, o, b in zip(prompts, outs, bf16_outs)]
+    print(f'int8 serving: leading tokens equal to the bf16 engine per '
+          f'request {same} of 32 (printed, not asserted: int8 pages round '
+          f'every K/V row)')
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(llama_7b(), num_hidden_layers=2,
+                              dtype='float32')
+    f32 = LlamaForCausalLM(cfg, seed=2)
+    small = [p[:96] for p in prompts[:4]]
+    kw = dict(SERVE_KW, max_new_tokens=16, kv_cache_dtype='int8')
+    got = ServingEngine(f32, **kw).serve(small)
+    with plain_kernels():
+        want = ServingEngine(f32, **kw).serve(small)
+    equal = all(np_equal(a, b) for a, b in zip(got, want))
+    print(f'int8 serving float32, Llama-7B width, 2 layers, {len(small)} '
+          f'requests x 16 tokens: streams through the kernels equal to the '
+          f'plain versions: {equal} [{card}]')
+    if not equal:
+        raise AssertionError('int8 serving: kernel and plain streams differ')
+    # 12 usable 16-token pages: a 96-token prompt takes 6 pages to admit
+    # and 7 by its end, so two admissions leave no page for the window
+    # top-up and the younger request is preempted
+    tight = ServingEngine(f32, num_blocks=13, **kw)
+    tight_out = tight.serve(small)
+    n_pre = tight.stats()['preemptions']
+    equal = all(np_equal(a, b) for a, b in zip(tight_out, got))
+    print(f'int8 serving float32: a 12-page pool preempted {n_pre} times; '
+          f'streams equal to the uninterrupted engine: {equal}')
+    if not (equal and n_pre > 0 and tight.allocator.in_use() == 0):
+        raise AssertionError('int8 serving: preempted streams differ, no '
+                             'preemption happened, or pages leaked')
+    del f32, tight
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -757,6 +1054,7 @@ def plain_kernels():
     the same model code runs the plain math on the card."""
     from paddle_tpu_torch.ops.hopper import decode_attention as hd
     from paddle_tpu_torch.ops.hopper import flash_attention as hf
+    from paddle_tpu_torch.ops.hopper import headmajor_attention as hh
     from paddle_tpu_torch.ops.hopper import paged_attention as hp
     from paddle_tpu_torch.ops.hopper import quant_matmul as hq
     from paddle_tpu_torch.ops.hopper import rms_norm as hr
@@ -770,6 +1068,7 @@ def plain_kernels():
                           (hf, 'flash_attention_bwd'),
                           (hp, 'paged_decode_attention'),
                           (hd, 'decode_attention'),
+                          (hh, 'decode_attention_headmajor'),
                           (hq, 'quant_matmul'), (hq, 'quant_matmul_int4')):
             stack.enter_context(mock.patch.object(
                 mod, name, getattr(mod, name + '_plain')))
@@ -1134,6 +1433,257 @@ def decode_phase(torch, np, card):
     return total
 
 
+def fmt_weights(torch, L, E, H, Fd, dtype, seed, std=0.02):
+    """Per-layer weight lists of fused_multi_transformer in the reference
+    layout, drawn on the card from a seeded generator: norm scales at
+    ones, no biases (the Llama family has none)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    D = E // H
+
+    def n(*shape):
+        return torch.empty(shape, dtype=dtype, device='cuda').normal_(
+            0.0, std, generator=g)
+
+    def ones():
+        return torch.ones(E, dtype=dtype, device='cuda')
+
+    return dict(
+        ln_scales=[ones() for _ in range(L)], ln_biases=[None] * L,
+        qkv_weights=[n(3, H, D, E) for _ in range(L)],
+        qkv_biases=[None] * L, linear_weights=[n(E, E) for _ in range(L)],
+        linear_biases=[None] * L, ffn_ln_scales=[ones() for _ in range(L)],
+        ffn_ln_biases=[None] * L, ffn1_weights=[n(E, Fd) for _ in range(L)],
+        ffn1_biases=[None] * L, ffn2_weights=[n(Fd, E) for _ in range(L)],
+        ffn2_biases=[None] * L)
+
+
+def expect_only(got, want, label):
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    if got != full:
+        raise AssertionError(f'{label}: launch counts {got} != expected '
+                             f'{full}')
+
+
+def fused_phase(torch, np, card, steps=64, f32_tol=1e-3, L=32, E=4096,
+                H=32, Fd=11008, B=8, S=512, T=2048, Sf=160):
+    """Paddle's fused-inference ops at Llama-7B widths: the functional
+    fused_multi_transformer (E 4096, 32 heads of 128, dim_feedforward
+    11008, 32 layers, RMSNorm (K1), bf16 weights drawn on the card)
+    prefilling batch 8 x 512 tokens (K5), then `steps` decode steps of
+    fused_multi_transformer_decode_step over 2048-position caches (K9),
+    one of them traced; FusedMultiTransformer (2 layers, float32) through
+    the kernels against the plain versions; block_multihead_attention
+    (32 heads of 128, block_size 64, one layer's pages): a varlen prefill
+    of 4 prompts (K5s), then 32 decode steps (K8, or K8q with static
+    (Hkv, D) int8 scales), in bf16 and float32, the float32 outputs held
+    against the plain versions. Returns the phase's launch counts."""
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.incubate.nn import functional as FF
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    D = E // H
+    t = time.perf_counter()
+    w = fmt_weights(torch, L, E, H, Fd, bf16, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for v in w.values() for a in v
+                   if a is not None)
+    print(f'fused: fused_multi_transformer at Llama-7B widths (E {E}, {H} '
+          f'heads of {D}, dim_feedforward {Fd}), {L} layers, rmsnorm, '
+          f'gelu, {n_params} parameters bf16 ({n_params * 2 / 1e9:.2f} GB) '
+          f'drawn in {time.perf_counter() - t:.1f} s')
+    caches = [torch.zeros(2, B, H, T, D, dtype=bf16, device='cuda')
+              for _ in range(L)]
+    g = torch.Generator(device='cuda').manual_seed(1)
+    x = torch.randn(B, S, E, device='cuda', generator=g, dtype=bf16)
+    xs = torch.randn(steps + 1, B, 1, E, device='cuda', generator=g,
+                     dtype=bf16)
+    kw = dict(norm_type='rmsnorm', activation='gelu', epsilon=1e-5)
+    total = {}
+
+    def prefill():
+        with torch.no_grad():
+            out, _ = FF.fused_multi_transformer(x, **w, cache_kvs=caches,
+                                                **kw)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    prefill()                                        # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, counts = count_launches(torch, prefill)
+    dt = time.perf_counter() - t
+    expect_only(counts, dict(flash_attention_fwd=L, rms_norm=2 * L),
+                'fused prefill')
+    add_counts(total, counts)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError('fused prefill: non-finite output')
+    print(f'fused prefill: batch {B} x {S} tokens in {dt * 1e3:.1f} ms; '
+          f'launches { {k: v for k, v in counts.items() if v} } [{card}]')
+
+    def step(i):
+        return FF.fused_multi_transformer_decode_step(
+            xs[i], **w, cache_kvs=caches, time_step=S + i, **kw)[0]
+
+    step(0)                                          # warm
+    torch.cuda.synchronize()
+
+    def decode():
+        t = time.perf_counter()
+        for i in range(1, steps + 1):
+            out = step(i)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (out, dt), counts = count_launches(torch, decode)
+    expect_only(counts, dict(decode_attention_headmajor=L * steps,
+                             rms_norm=2 * L * steps), 'fused decode')
+    add_counts(total, counts)
+    if not (bool(torch.isfinite(out).all()) and out.shape == (B, 1, E)):
+        raise AssertionError('fused decode: bad output')
+    print(f'fused decode: {steps} steps of fused_multi_transformer_decode_'
+          f'step, batch {B}, positions {S + 1}..{S + steps} of {T}: '
+          f'{dt / steps * 1e3:.3f} ms per step, {B * steps / dt:.1f} '
+          f'rows x steps / s, peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
+          f'per step: K9 {counts["decode_attention_headmajor"] // steps}, '
+          f'K1 {counts["rms_norm"] // steps} [{card}]', flush=True)
+    profile_forward(torch, lambda: step(steps), 'fused decode step b8', card)
+    del w, caches, x, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # FusedMultiTransformer, float32, 2 layers: kernels against plain
+    Lf, Bf, n = 2, 2, 16
+    layer = FusedMultiTransformer(E, H, Fd, num_layers=Lf, dtype='float32',
+                                  seed=0)
+    xf = torch.randn(Bf, Sf + n, E, device='cuda', generator=g)
+
+    def run_layer():
+        caches = layer.gen_cache(Bf, Sf + n)
+        with torch.no_grad():
+            outs = [layer(xf[:, :Sf], caches=caches)[0][:, -1]]
+            for i in range(n):
+                outs.append(layer(xf[:, Sf + i:Sf + i + 1], caches=caches,
+                                  time_step=Sf + i)[0][:, -1])
+        return torch.stack(outs)
+
+    got, counts = count_launches(torch, run_layer)
+    expect_only(counts, dict(flash_attention_fwd=Lf,
+                             decode_attention_headmajor=Lf * n),
+                'FusedMultiTransformer')
+    add_counts(total, counts)
+    with plain_kernels():
+        want, pcounts = count_launches(torch, run_layer)
+    if any(pcounts.values()):
+        raise AssertionError(f'the plain run launched {pcounts}')
+    err = (got - want).abs().max().item()
+    print(f'fused float32: FusedMultiTransformer at Llama-7B widths, {Lf} '
+          f'layers, prefill {Bf} x {Sf} then {n} time_step decodes: max '
+          f'|kernels - plain| {err:.6g} (bound {f32_tol:g}, max |out| '
+          f'{want.abs().max().item():.4f}) [{card}]')
+    if not err <= f32_tol:
+        raise AssertionError(f'FusedMultiTransformer: kernels and plain '
+                             f'versions differ by {err}')
+    del layer, xf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    add_counts(total, bmha_phase(torch, np, card, g, f32_tol, H=H, D=D))
+    print(f'fused: phase took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return total
+
+
+def bmha_phase(torch, np, card, g, f32_tol, steps=32, H=32, D=128, BS=64,
+               lens=(700, 300, 512, 500)):
+    """block_multihead_attention over one layer's pages at Llama-7B heads
+    (32 of 128, block_size 64): a varlen prefill of 4 prompts (2012
+    tokens, segment ids: K5s), then `steps` decode steps of the 4 rows
+    (K8, or K8q's (Hkv, D) mode over int8 pages with static scales). bf16
+    and float32; float32 against the plain versions."""
+    from paddle_tpu_torch.incubate.nn import functional as FF
+
+    lens = list(lens)
+    B, T = len(lens), sum(lens)
+    MAXB = max(-(-(n + steps) // BS) for n in lens)
+    NB = B * MAXB + 1
+    tbl = (torch.randperm(NB - 1, generator=g, device='cuda')[:B * MAXB]
+           + 1).reshape(B, MAXB).to(torch.int32)
+    enc = torch.tensor(lens, dtype=torch.int32)
+    zeros = torch.zeros(B, dtype=torch.int32)
+    ones = torch.ones(B, dtype=torch.int32)
+    cu = torch.cumsum(torch.tensor([0] + lens), 0).to(torch.int32)
+    total = {}
+    for int8 in (False, True):
+        mode = 'int8 pages, (Hkv, D) scales' if int8 else 'float pages'
+        kernel = ('paged_decode_attention_int8' if int8
+                  else 'paged_decode_attention')
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn(T, 3 * H * D, device='cuda', generator=g,
+                              dtype=dtype)
+            dec_in = torch.randn(steps, B, 3 * H * D, device='cuda',
+                                 generator=g, dtype=dtype)
+            scales = {}
+            if int8:
+                ds = 0.03 + 0.01 * torch.rand(H, D, device='cuda',
+                                              generator=g)
+                scales = dict(cache_k_dequant_scales=ds,
+                              cache_v_dequant_scales=ds)
+
+            def run():
+                cdt = torch.int8 if int8 else dtype
+                kc = torch.zeros(NB, H, BS, D, dtype=cdt, device='cuda')
+                vc = torch.zeros_like(kc)
+                with torch.no_grad():
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = FF.block_multihead_attention(
+                        qkv, kc, vc, enc, zeros, enc, cu_seqlens_q=cu,
+                        block_tables=tbl, block_size=BS, num_heads=H,
+                        **scales)[0]
+                    torch.cuda.synchronize()
+                    t_pre = time.perf_counter() - t
+                    outs = [out]
+                    t = time.perf_counter()
+                    for i in range(steps):
+                        outs.append(FF.block_multihead_attention(
+                            dec_in[i], kc, vc, zeros, enc + i, ones,
+                            block_tables=tbl, block_size=BS, num_heads=H,
+                            **scales)[0])
+                    torch.cuda.synchronize()
+                    t_dec = time.perf_counter() - t
+                return torch.cat(outs).float(), t_pre, t_dec
+
+            (got, t_pre, t_dec), counts = count_launches(torch, run)
+            expect_only(counts, {'flash_attention_fwd_seg': 1,
+                                 kernel: steps},
+                        f'block_multihead_attention {mode}')
+            add_counts(total, counts)
+            line = (f'bmha {mode}, {dname(torch, dtype)}: varlen prefill of '
+                    f'{lens} ({T} tokens) {t_pre * 1e3:.2f} ms, {steps} '
+                    f'decode steps {t_dec / steps * 1e3:.3f} ms per step '
+                    f'(host clock, first call); launches '
+                    f'{ {k: v for k, v in counts.items() if v} }')
+            if dtype == torch.float32:
+                with plain_kernels():
+                    (want, _, _), pcounts = count_launches(torch, run)
+                if any(pcounts.values()):
+                    raise AssertionError(f'the plain run launched {pcounts}')
+                err = (got - want).abs().max().item()
+                line += (f'; max |kernels - plain| {err:.6g} (bound '
+                         f'{f32_tol:g}, max |out| '
+                         f'{want.abs().max().item():.4f})')
+                if not err <= f32_tol:
+                    raise AssertionError(f'bmha {mode}: kernels and plain '
+                                         f'versions differ by {err}')
+            elif not bool(torch.isfinite(got).all()):
+                raise AssertionError(f'bmha {mode}: non-finite output')
+            print(f'{line} [{card}]', flush=True)
+    return total
+
+
 KERNEL_GROUPS = (('flash_fwd', 'K5 flash fwd'), ('flash_bwd', 'K6 flash bwd'),
                  ('rms_norm_fwd', 'K1 rms fwd'), ('rms_norm_bwd', 'K2 rms bwd'),
                  ('xent_fwd', 'K3 xent fwd'), ('xent_bwd', 'K4 xent bwd'))
@@ -1330,6 +1880,12 @@ def main():
                                         True)],
             'paged_decode_attention': [check_paged(torch, timer, 32, 32),
                                        check_paged(torch, timer, 32, 8)],
+            # int8 serving's per-row scales first (its main path), then
+            # block_multihead_attention's static (Hkv, D) scales
+            'paged_decode_attention_int8': [
+                check_paged_int8(torch, timer, Hq, Hkv, row)
+                for row in (True, False) for Hq, Hkv in ((32, 32),
+                                                         (32, 8))],
             'rms_norm_bwd': [check_rms_norm_bwd(torch, timer, 12288, 4096,
                                                 dt) for dt in (bf16, f32)],
         }
@@ -1342,6 +1898,16 @@ def main():
             cases.setdefault('flash_attention_fwd', []).append(fwd)
             cases.setdefault('flash_attention_bwd', []).append(bwd)
             torch.cuda.empty_cache()
+        cases['flash_attention_fwd_seg'] = [
+            check_flash_seg(torch, timer, dt) for dt in (bf16, f32)]
+        torch.cuda.empty_cache()
+        # head-major decode attention: the fused decode step's b8 bf16
+        # MHA first (the main path)
+        cases['decode_attention_headmajor'] = [
+            check_headmajor(torch, timer, B, 32, Hkv, mode)
+            for B in (8, 1) for Hkv in (32, 8)
+            for mode in ('bfloat16', 'float32', 'int8')]
+        torch.cuda.empty_cache()
         # decode attention: the bench's b1 row first (the main path)
         cases['decode_attention'] = [
             check_decode(torch, timer, B, 32, Hkv, mode)
@@ -1363,8 +1929,8 @@ def main():
         del timer
         torch.cuda.empty_cache()
 
-        # 4-5. serving, launch counts, leaks, logits
-        serve_launches = serve_phase(torch, np, card)
+        # 4-5. serving, launch counts, leaks, logits; then int8 serving
+        serve_launches, int8_launches = serve_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1374,10 +1940,16 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
 
-        # 7. a training step's gradients through the kernels vs plain
+        # 7. Paddle's fused-inference ops: fused_multi_transformer,
+        # FusedMultiTransformer, block_multihead_attention
+        fused_launches = fused_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 8. a training step's gradients through the kernels vs plain
         grads_phase(torch, np, card)
 
-        # 8. training at the JAX bench's configuration
+        # 9. training at the JAX bench's configuration
         train_launches = train_phase(torch, np, card)
 
         records = []
@@ -1389,19 +1961,27 @@ def main():
                  'softmax_xent.py:131'),
                 ('flash_attention_fwd', 'flash_attention.cu',
                  'flash_attention.py:121'),
+                ('flash_attention_fwd_seg', 'flash_attention.cu',
+                 'flash_attention.py:121'),
                 ('flash_attention_bwd', 'flash_attention.cu',
                  'flash_attention.py:323'),
                 ('paged_decode_attention', 'paged_attention.cu',
                  'paged_attention.py:140'),
+                ('paged_decode_attention_int8', 'paged_attention.cu',
+                 'paged_attention.py:140'),
                 ('decode_attention', 'decode_attention.cu',
                  'decode_attention.py:164'),
+                ('decode_attention_headmajor', 'decode_attention.cu',
+                 'paged_attention.py:206'),
                 ('quant_matmul', 'quant_matmul.cu', 'quant_matmul.py:124'),
                 ('quant_matmul_int4', 'quant_matmul.cu',
                  'quant_matmul.py:154')):
             cs = cases[name]
             head = cs[0]       # the main path's shape and dtype
             by_path = {'serving': serve_launches[name],
+                       'int8 serving': int8_launches[name],
                        'decode': decode_launches.get(name, 0),
+                       'fused': fused_launches.get(name, 0),
                        'train': train_launches[name]}
             records.append({
                 'name': name, 'route': 'cuda',

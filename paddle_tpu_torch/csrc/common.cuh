@@ -18,6 +18,9 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -35,6 +38,24 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
+};
+
+// Elements of one K/V cache load: 16 bytes of bf16 or f32, 8 bytes of
+// int8 (so an int8 row takes as many threads, and registers, as a bf16
+// one).
+template <typename KV>
+struct KVVec;
+template <>
+struct KVVec<float> {
+  static constexpr int n = 4;
+};
+template <>
+struct KVVec<__nv_bfloat16> {
+  static constexpr int n = 8;
+};
+template <>
+struct KVVec<int8_t> {
+  static constexpr int n = 8;
 };
 
 // Launch on the device the caller's tensors live on: this library links

@@ -17,6 +17,16 @@
 // as the TPU kernel does). In int8 mode every loaded K and V element is
 // multiplied by its head's scale before the dot, as the TPU body does.
 //
+// The same kernel also replaces
+// paddle_tpu/ops/pallas/paged_attention.py::decode_attention_headmajor
+// (pallas_call in _run; bodies _kernel_hm and _kernel_hm_q8), the decode
+// step of masked_multihead_attention over (B, Hkv, S, D) caches: the
+// caller passes the strides of that layout and each row's count as its
+// valid length (start 0). The TPU kernel walks every S-block and masks
+// those past the count; here a split past the count reads nothing. In
+// this layout one head's positions are contiguous, so a warp's rows are
+// one run of memory.
+//
 // Bound: bytes. Each K and V row of the window is read once (2 * D
 // elements per kv head and position) against 4 * D float operations per
 // query head and position: far below the ~295 operations per byte where
@@ -51,31 +61,6 @@ constexpr int kThreads = 128;
 constexpr int kTile = 64;  // positions per tile: two per lane in the softmax
 constexpr float kNegInf = -1e30f;
 
-// elements of one K/V load: 16 bytes of bf16 or f32, 8 bytes of int8 (so
-// an int8 row takes as many threads, and registers, as a bf16 one)
-template <typename KV>
-struct KVVec;
-template <>
-struct KVVec<float> {
-  static constexpr int n = 4;
-};
-template <>
-struct KVVec<__nv_bfloat16> {
-  static constexpr int n = 8;
-};
-template <>
-struct KVVec<int8_t> {
-  static constexpr int n = 8;
-};
-
-__device__ __forceinline__ float kv_f32(float v) { return v; }
-__device__ __forceinline__ float kv_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float kv_f32(int8_t v) {
-  return static_cast<float>(v);
-}
-
 template <typename T, typename KV, int G, int LPR>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
     const T* __restrict__ q, const KV* __restrict__ kc,
@@ -83,9 +68,9 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
     const float* __restrict__ vscale, const int* __restrict__ vlens,
     const int* __restrict__ starts, int vlen_all, int start_all,
     T* __restrict__ out, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int s_len, int hq, int hkv, int chunk,
-    float scale) {
-  constexpr int VEC = KVVec<KV>::n;
+    float* __restrict__ part_ml, int s_len, int hq, int chunk,
+    int64_t b_stride, int64_t h_stride, int64_t pos_stride, float scale) {
+  constexpr int VEC = pt::KVVec<KV>::n;
   constexpr int D = LPR * VEC;            // head size: LPR loads per row
   constexpr int ROWS = kThreads / LPR;    // tile rows one pass covers
   constexpr int IT = kTile / ROWS;        // tile rows of each thread
@@ -109,9 +94,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   const int lo = max(start, split * chunk);
   const int hi = min(end, (split + 1) * chunk);
 
-  const int64_t pos_stride = static_cast<int64_t>(hkv) * D;
-  const int64_t kv_off = static_cast<int64_t>(b) * s_len * pos_stride +
-                         static_cast<int64_t>(kvh) * D + chunk_i * VEC;
+  const int64_t kv_off = b * b_stride + kvh * h_stride + chunk_i * VEC;
   const int64_t q_off = (static_cast<int64_t>(b) * hq + kvh * G) * D;
 
   float qr[G][VEC];
@@ -155,7 +138,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
         float kf[VEC];
 #pragma unroll
         for (int j = 0; j < VEC; ++j)
-          kf[j] = kQuant ? kv_f32(kb[i].v[j]) * ks[j] : kv_f32(kb[i].v[j]);
+          kf[j] = kQuant ? pt::to_f32(kb[i].v[j]) * ks[j] : pt::to_f32(kb[i].v[j]);
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -223,7 +206,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
         float vf[VEC];
 #pragma unroll
         for (int j = 0; j < VEC; ++j)
-          vf[j] = kQuant ? kv_f32(vb[i].v[j]) * vs[j] : kv_f32(vb[i].v[j]);
+          vf[j] = kQuant ? pt::to_f32(vb[i].v[j]) * vs[j] : pt::to_f32(vb[i].v[j]);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float p = s_p[g * kTile + r];
@@ -293,6 +276,8 @@ struct Args {
   void* out;
   float *part_acc, *part_ml;
   int batch, s_len, hq, hkv, d, nsplit, chunk;
+  // element strides of a cache's (batch, kv head, position) axes
+  int64_t b_stride, h_stride, pos_stride;
   float scale;
 };
 
@@ -303,7 +288,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
           static_cast<const T*>(a.q), static_cast<const KV*>(a.kc),
           static_cast<const KV*>(a.vc), a.ks, a.vs, a.vlens, a.starts,
           a.vlen_all, a.start_all, static_cast<T*>(a.out), a.part_acc,
-          a.part_ml, a.s_len, a.hq, a.hkv, a.chunk, a.scale);
+          a.part_ml, a.s_len, a.hq, a.chunk, a.b_stride, a.h_stride,
+          a.pos_stride, a.scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.nsplit == 1) return e;
   decode_combine_kernel<T><<<a.batch * a.hq, 128, 0, stream>>>(
@@ -316,7 +302,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // spill the registers that hold a tile's rows)
 template <typename T, typename KV, int G>
 cudaError_t by_width(const Args& a, cudaStream_t s) {
-  constexpr int kVec = KVVec<KV>::n;
+  constexpr int kVec = pt::KVVec<KV>::n;
   if (a.d % kVec != 0 || a.d > 128) return cudaErrorInvalidValue;
   switch (a.d / kVec) {
     case 2:
@@ -353,19 +339,23 @@ cudaError_t dispatch(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// q, out: (batch, 1, hq, d) of `dtype`; kc, vc: (batch, s_len, hkv, d) of
-// `dtype`, or int8 with kv_int8 set and kscale, vscale (hkv, d) f32; all
-// contiguous. vlens / starts: (batch,) int32, or null to use vlen_all /
-// start_all for every row. With nsplit > 1, part_acc (batch, hq, nsplit,
-// d) and part_ml (batch, hq, nsplit, 2) are float32 scratch; split i
-// covers positions [i * chunk, (i + 1) * chunk). hq / hkv must be 1, 2, 4
-// or 8.
+// q, out: (batch, 1, hq, d) of `dtype`, contiguous; kc, vc: caches of
+// `dtype`, or int8 with kv_int8 set and kscale, vscale (hkv, d) f32
+// contiguous, whose element (b, p, h, :) lies at b * b_stride + h *
+// h_stride + p * pos_stride with d contiguous: (batch, s_len, hkv, d)
+// for decode_attention, (batch, hkv, s_len, d) for the head-major layout
+// of decode_attention_headmajor. vlens / starts: (batch,) int32, or null
+// to use vlen_all / start_all for every row. With nsplit > 1, part_acc
+// (batch, hq, nsplit, d) and part_ml (batch, hq, nsplit, 2) are float32
+// scratch; split i covers positions [i * chunk, (i + 1) * chunk).
+// hq / hkv must be 1, 2, 4 or 8.
 extern "C" int pt_decode_attention(
     int device, const void* q, const void* kc, const void* vc,
     const void* kscale, const void* vscale, const void* vlens,
     const void* starts, int vlen_all, int start_all, void* out,
     void* part_acc, void* part_ml, int batch, int s_len, int hq, int hkv,
-    int d, int nsplit, int chunk, float scale, int dtype, int kv_int8,
+    int d, long long b_stride, long long h_stride, long long pos_stride,
+    int nsplit, int chunk, float scale, int dtype, int kv_int8,
     void* stream) {
   cudaError_t e = pt::set_device(device);
   if (e != cudaSuccess) return e;
@@ -377,28 +367,16 @@ extern "C" int pt_decode_attention(
     return cudaErrorInvalidValue;
   if (kv_int8 && (kscale == nullptr || vscale == nullptr))
     return cudaErrorInvalidValue;
-  if (!pt::aligned16(kc) || !pt::aligned16(vc)) return cudaErrorMisalignedAddress;
+  if (!pt::aligned16(kc) || !pt::aligned16(vc))
+    return cudaErrorMisalignedAddress;
   if (batch == 0) return cudaSuccess;
-  const Args a{q,
-               kc,
-               vc,
-               static_cast<const float*>(kscale),
+  const Args a{q, kc, vc, static_cast<const float*>(kscale),
                static_cast<const float*>(vscale),
                static_cast<const int*>(vlens),
-               static_cast<const int*>(starts),
-               vlen_all,
-               start_all,
-               out,
-               static_cast<float*>(part_acc),
-               static_cast<float*>(part_ml),
-               batch,
-               s_len,
-               hq,
-               hkv,
-               d,
-               nsplit,
-               chunk,
-               scale};
+               static_cast<const int*>(starts), vlen_all, start_all, out,
+               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+               batch, s_len, hq, hkv, d, nsplit, chunk, b_stride, h_stride,
+               pos_stride, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kF32)
     return kv_int8 ? dispatch<float, int8_t>(a, s) : dispatch<float, float>(a, s);

@@ -7,7 +7,12 @@
 // contiguous; query head h reads kv head h / (H / Hkv). Causal masking is
 // bottom-right (query i sees keys j <= i + Sk - Sq). The forward returns
 // out (q's dtype) and lse = m + log(l) per query (float32); a query that
-// sees no key returns 0. The backward takes delta = sum_d(dout * out) and
+// sees no key returns 0. With segment ids (the forward's K5s mode, the
+// qseg / kseg operands of _fwd: (B, Sq) and (B, Sk) int32) a query also
+// sees only the keys of its own segment, combined with the causal mask
+// (packed sequences: block_multihead_attention's varlen prefill); a
+// query with no visible key in its segment returns 0, as the TPU body
+// forces p to 0 on masked pairs. The backward takes delta = sum_d(dout * out) and
 // p = exp(s - lse), and returns dq, dk, dv in the input dtypes, with dk
 // and dv summed over each GQA group inside the kernel (one kv head per
 // block walks the group's query heads; no atomics).
@@ -24,8 +29,13 @@
 // 32 banks. A 16 x 16 grid of threads gives each thread a strided
 // (4 x RN) slice of every product; online softmax in float32 never
 // materialises the S x S scores, and key tiles wholly above the causal
-// diagonal are skipped. Tensor cores (mma / wgmma on bf16 tiles) and TMA
+// diagonal are skipped. With segment ids, a key tile whose range of ids
+// does not meet the query tile's is skipped before it is loaded, so a
+// packed stream of sorted segments costs about the sum of its segments'
+// causal work. Tensor cores (mma / wgmma on bf16 tiles) and TMA
 // loads are the next step; this version is far from the bound.
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -50,6 +60,10 @@ struct Shape {
   int heads, kv_heads, sq, sk;
   float scale;
   int causal;
+  // segment ids (batch, sq) and (batch, sk) int32, contiguous; null for
+  // none (the backward takes none)
+  const int* qseg;
+  const int* kseg;
 };
 
 __device__ __forceinline__ int tid_y() { return threadIdx.x >> 4; }
@@ -168,6 +182,23 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   load_tile<T, D, BQ>(sq, q + st.off(kQ, b, h), st.seq(kQ), q0, sh.sq,
                       sh.scale);
+  // segment ids of the tile's queries and of the current key tile, and
+  // the range of the query ids (rows past sq take no part)
+  __shared__ int s_qseg[BQ], s_kseg[BK];
+  const bool seg = sh.qseg != nullptr;
+  int qlo = 0, qhi = 0;
+  if (seg) {
+    const int* qs = sh.qseg + static_cast<int64_t>(b) * sh.sq;
+    for (int i = threadIdx.x; i < BQ; i += kThreads)
+      s_qseg[i] = q0 + i < sh.sq ? qs[q0 + i] : 0;
+    __syncthreads();
+    qlo = INT_MAX;
+    qhi = INT_MIN;
+    for (int i = 0; i < BQ && q0 + i < sh.sq; ++i) {
+      qlo = min(qlo, s_qseg[i]);
+      qhi = max(qhi, s_qseg[i]);
+    }
+  }
   float o[RM][RD], m[RM], l[RM];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
@@ -180,7 +211,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int nk = live_key_tiles(sh, q0, BQ, BK);
   for (int ik = 0; ik < nk; ++ik) {
     const int k0 = ik * BK;
-    __syncthreads();  // the previous tile's p and v are consumed
+    __syncthreads();  // the previous tile's p, v and ids are consumed
+    if (seg) {
+      const int* ks = sh.kseg + static_cast<int64_t>(b) * sh.sk;
+      for (int i = threadIdx.x; i < BK; i += kThreads)
+        s_kseg[i] = k0 + i < sh.sk ? ks[k0 + i] : 0;
+      __syncthreads();
+      int klo = INT_MAX, khi = INT_MIN;
+      for (int i = 0; i < BK && k0 + i < sh.sk; ++i) {
+        klo = min(klo, s_kseg[i]);
+        khi = max(khi, s_kseg[i]);
+      }
+      // no key of the tile can share a query's segment: every thread
+      // reaches the same verdict, so the block skips the tile together
+      if (khi < qlo || klo > qhi) continue;
+    }
     load_tile<T, D, BK>(sk, kb, st.seq(kK), k0, sh.sk, 1.f);
     load_tile<T, D, BK>(sv, vb, st.seq(kV), k0, sh.sk, 1.f);
     __syncthreads();
@@ -194,9 +239,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < RM; ++i) {
       const int qpos = q0 + ty + 16 * i;
       float mx = kNegInf;
+      bool ok[RN];
 #pragma unroll
       for (int j = 0; j < RN; ++j) {
-        if (!visible(sh, qpos, k0 + tx + 16 * j)) s[i][j] = kNegInf;
+        ok[j] = visible(sh, qpos, k0 + tx + 16 * j) &&
+                (!seg || s_qseg[ty + 16 * i] == s_kseg[tx + 16 * j]);
+        if (!ok[j]) s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -204,9 +252,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int j = 0; j < RN; ++j) {
         // a masked key has probability 0, also in a row with no key yet
-        const float p = visible(sh, qpos, k0 + tx + 16 * j)
-                            ? __expf(s[i][j] - m_new)
-                            : 0.f;
+        const float p = ok[j] ? __expf(s[i][j] - m_new) : 0.f;
         s[i][j] = p;
         sum += p;
       }
@@ -557,13 +603,18 @@ cudaError_t check_args(int device, int batch, const Shape& sh, int d,
 // q, all of dtype `dtype` with d contiguous and 16-byte aligned rows;
 // `strides` holds the (batch, head, sequence) strides of q, k, v and out in
 // elements. lse: (batch, heads, sq) float32, contiguous. d is 64 or 128.
+// qseg, kseg: (batch, sq) and (batch, sk) int32 segment ids, contiguous,
+// or both null.
 extern "C" int pt_flash_attention_fwd(int device, const void* q, const void* k,
                                       const void* v, void* out, void* lse,
+                                      const void* qseg, const void* kseg,
                                       const long long* strides, int batch,
                                       int heads, int kv_heads, int sq, int sk,
                                       int d, float scale, int causal,
                                       int dtype, void* stream) {
-  const Shape sh{heads, kv_heads, sq, sk, scale, causal};
+  if ((qseg == nullptr) != (kseg == nullptr)) return cudaErrorInvalidValue;
+  const Shape sh{heads, kv_heads, sq, sk, scale, causal,
+                 static_cast<const int*>(qseg), static_cast<const int*>(kseg)};
   Strides st;
   cudaError_t e = check_args(device, batch, sh, d, strides, 4, &st);
   if (e != cudaSuccess) return e;
@@ -594,7 +645,7 @@ extern "C" int pt_flash_attention_bwd(int device, const void* q, const void* k,
                                       int batch, int heads, int kv_heads,
                                       int sq, int sk, int d, float scale,
                                       int causal, int dtype, void* stream) {
-  const Shape sh{heads, kv_heads, sq, sk, scale, causal};
+  const Shape sh{heads, kv_heads, sq, sk, scale, causal, nullptr, nullptr};
   Strides st;
   cudaError_t e = check_args(device, batch, sh, d, strides, kNumTensors, &st);
   if (e != cudaSuccess) return e;

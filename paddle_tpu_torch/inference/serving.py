@@ -22,11 +22,20 @@
      by re-prefilling prompt + prefix. Greedy decoding makes the resumed
      stream the uninterrupted one.
 
+  4. int8 KV (`kv_cache_dtype='int8'`): the pools hold int8 codes with a
+     float32 scale per written row (`QuantPagedKVCache`); a row's codes
+     and scale are a pure function of its values, so a re-prefill after
+     preemption rewrites the same bytes and greedy streams stay the
+     uninterrupted ones. The admission prefill writes into a
+     `RowQuantKVCache` with the same per-row rule and attends its rows
+     dequantized; its bytes and scales are copied into the pages as
+     they are. Decode steps run the paged kernel's per-row int8 mode.
+
 Greedy decoding only. Per request, `result(rid)` is what the JAX
 engine returns: the prompt, then `max_new_tokens` tokens, padded with
 eos after an early stop. Sampling, prefix caching, chunked prefill,
-speculative decoding, int8 KV, tensor parallelism, deadlines and load
-shedding, snapshot/restore, telemetry and AOT are not ported yet.
+speculative decoding, tensor parallelism, deadlines and load shedding,
+snapshot/restore, telemetry and AOT are not ported yet.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from ..models.generation import QuantPagedKVCache, RowQuantKVCache
 from .engine import DEFAULT_BUCKETS, bucket_length
 
 
@@ -205,11 +215,48 @@ class RequestQueue:
 # Device steps
 # ---------------------------------------------------------------------------
 
+def _pool_quant(pages):
+    """Whether the page pools are int8 (QuantPagedKVCache: per-row scale
+    pools ride with the pages)."""
+    return isinstance(pages[0], QuantPagedKVCache)
+
+
+def _tmp_cache(model, pages, K, Sb):
+    """The throwaway contiguous cache of an admission prefill, in the
+    pools' quantization: (k, v) pairs of the model's dtype for float
+    pools; a RowQuantKVCache for int8 pools, so the prefill writes rows
+    with the pools' per-row rule and attends exactly the int8 values a
+    paged decode step will."""
+    if _pool_quant(pages):
+        _, Hkv, _, D = pages[0].kp.shape
+        dev = pages[0].kp.device
+
+        def z(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        return [RowQuantKVCache(z((K, Sb, Hkv, D), torch.int8),
+                                z((K, Sb, Hkv, D), torch.int8),
+                                z((K, Sb, Hkv), torch.float32),
+                                z((K, Sb, Hkv), torch.float32))
+                for _ in pages]
+    return model.init_cache(K, Sb)
+
+
 def _pool_scatter(pc, tmp_entry, pflat, sflat):
     """Write one layer's contiguous temp-cache rows into its page pool at
-    the flat (page, slot) targets, in place."""
+    the flat (page, slot) targets, in place. Int8 pools take the int8
+    bytes and the per-row scales as they are: no second quantization."""
+    n = pflat.shape[0]
+    if isinstance(pc, QuantPagedKVCache):
+        kq, vq, ks, vs = tmp_entry
+        rows, srows = (n,) + tuple(kq.shape[2:]), (n,) + tuple(ks.shape[2:])
+        pc.kp[pflat, :, sflat, :] = kq.reshape(rows)
+        pc.vp[pflat, :, sflat, :] = vq.reshape(rows)
+        pc.ks[pflat, :, sflat] = ks.reshape(srows)
+        pc.vs[pflat, :, sflat] = vs.reshape(srows)
+        return
     k, v = tmp_entry
-    rows = (pflat.shape[0],) + tuple(k.shape[2:])
+    rows = (n,) + tuple(k.shape[2:])
     pc.kp[pflat, :, sflat, :] = k.reshape(rows).to(pc.kp.dtype)
     pc.vp[pflat, :, sflat, :] = v.reshape(rows).to(pc.vp.dtype)
 
@@ -223,7 +270,7 @@ def _prefill_kv(model, pages, ids, real_len, btabs):
     btabs[b, s // BS] slot s % BS; pad rows land on the scratch page 0.
     Returns (each request's last-token logits (K, V), pages)."""
     K, Sb = ids.shape
-    tmp = model.init_cache(K, Sb)
+    tmp = _tmp_cache(model, pages, K, Sb)
     logits, tmp = model(ids, caches=tmp, cache_index=0)
     rl = real_len.long()
     last = logits[torch.arange(K, device=ids.device), (rl - 1).clamp_min(0)]
@@ -279,14 +326,25 @@ class ServingEngine:
         outs = engine.serve(list_of_prompts)     # submit + run + collect
 
     Runs on the model's device. The model must take `block_tables` and
-    `kv_write_pos` in its cached forward (the Llama family does)."""
+    `kv_write_pos` in its cached forward (the Llama family does).
+    `kv_cache_dtype`: None (the model's dtype), 'bfloat16', or 'int8'
+    (int8 pages with per-row scales)."""
 
     def __init__(self, model, max_slots=8, block_size=16, num_blocks=None,
                  max_context_len=None, max_new_tokens=32, decode_window=8,
-                 eos_token_id=None, buckets=None):
+                 eos_token_id=None, buckets=None, kv_cache_dtype=None):
         if getattr(model.config, 'sliding_window', None) is not None:
             raise NotImplementedError(
                 'sliding-window models are not paged-servable yet')
+        kv_dtypes = {'int8': torch.int8, torch.int8: torch.int8,
+                     'bfloat16': torch.bfloat16,
+                     torch.bfloat16: torch.bfloat16}
+        if kv_cache_dtype is not None and kv_cache_dtype not in kv_dtypes:
+            raise ValueError(
+                f"kv_cache_dtype must be None, 'int8', or 'bfloat16', got "
+                f"{kv_cache_dtype!r}")
+        self.kv_cache_dtype = (None if kv_cache_dtype is None
+                               else kv_dtypes[kv_cache_dtype])
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -312,10 +370,13 @@ class ServingEngine:
         self.queue = RequestQueue()
 
         # device state, allocated once
-        self._pages = model.init_paged_cache(num_blocks, self.block_size)
+        self._pages = model.init_paged_cache(num_blocks, self.block_size,
+                                             dtype=self.kv_cache_dtype)
         self._last_logits = torch.zeros(
             (self.max_slots, model.config.vocab_size),
             dtype=model.cache_dtype(), device=self.device)
+        # one page across every layer and every pool field (an int8
+        # pool's scale rows included)
         self.allocator.bytes_per_page = sum(
             f[0].numel() * f.element_size() for pc in self._pages
             for f in pc)

@@ -65,6 +65,36 @@ class QuantKVCache(typing.NamedTuple):
     vscale: torch.Tensor
 
 
+class QuantPagedKVCache(typing.NamedTuple):
+    """One layer's int8 paged KV pools (the ServingEngine's
+    `kv_cache_dtype='int8'`): K/V codes (num_blocks, Hkv, block_size, D)
+    int8, and each written row's float32 scale at (page, head, slot) in
+    (num_blocks, Hkv, block_size) pools, computed from that row alone
+    (`quantize_kv_row`). A row's bytes are then a pure function of its
+    values, whenever and wherever it is written, so a re-prefill after
+    preemption reproduces the pages bit for bit. Decode steps read them
+    with the paged-attention kernel's per-row mode (K8q)."""
+
+    kp: torch.Tensor
+    vp: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+
+class RowQuantKVCache(typing.NamedTuple):
+    """One layer's contiguous int8 KV cache with per-row scales: codes
+    (B, max_len, Hkv, D) int8, scales (B, max_len, Hkv) float32. The
+    temporary cache of the serving engine's admission prefill over int8
+    pools: rows written here quantize with the pools' per-row rule, and
+    attention reads them dequantized, so the prefill sees exactly the
+    values a paged decode step will."""
+
+    kq: torch.Tensor
+    vq: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+
 class PagedKVCache(typing.NamedTuple):
     """One layer's paged KV pools for continuous-batching serving: K and V
     as (num_blocks, Hkv, block_size, D) pages shared by every in-flight
@@ -88,6 +118,24 @@ def calibrate_kv_scale(x, margin=1.0):
     (B, S, Hkv, D)."""
     amax = x.float().abs().amax(dim=(0, 1))
     return torch.clamp(amax * margin, min=1e-6) / 127.0
+
+
+def quantize_kv_row(x):
+    """Per-row symmetric int8 codes of K/V rows (..., Hkv, D): each
+    (row, head) quantizes against its own absmax. Returns (codes int8
+    (..., Hkv, D), scales float32 (..., Hkv)). Rounding is half to even
+    (`torch.round`, as `jnp.round`), so a float32 row gives the JAX
+    package's codes and scales bit for bit."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv_row(q, scale, dtype):
+    """Inverse of `quantize_kv_row`: codes times their per-row scales, in
+    float32, cast to `dtype`."""
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def _generator(rng_key, device):
@@ -139,11 +187,12 @@ class GenerationMixin:
 
     def _cache_dtype(self, dtype, paged):
         dtype = dtype or self.cache_dtype()
-        if dtype not in (torch.bfloat16, torch.float32):
+        if dtype not in (torch.bfloat16, torch.float32) and not (
+                paged and dtype == torch.int8):
             if paged:
                 raise NotImplementedError(
-                    f'paged KV pool dtype {dtype} is not ported yet (int8 '
-                    f'pages come with the int8-KV serving slice)')
+                    f'paged KV pool dtype {dtype}: the pools are bf16, '
+                    f'float32 or int8')
             raise NotImplementedError(
                 f'KV cache dtype {dtype}: an int8 contiguous cache is '
                 f'init_cache(..., quantized=True)')
@@ -171,16 +220,25 @@ class GenerationMixin:
                 for _ in range(self.config.num_hidden_layers)]
 
     def init_paged_cache(self, num_blocks, block_size, dtype=None):
-        """Per-layer PagedKVCache pools of (num_blocks, kv_heads,
-        block_size, head_dim) zero pages on the model's device. Page 0 is
-        the reserved scratch page, so a usable pool needs
-        num_blocks >= 2."""
+        """Per-layer pools of (num_blocks, kv_heads, block_size, head_dim)
+        zero pages on the model's device: PagedKVCache for bf16 / float32
+        pages, QuantPagedKVCache for int8 ones (with float32 per-row
+        scale pools of (num_blocks, kv_heads, block_size)). Page 0 is the
+        reserved scratch page, so a usable pool needs num_blocks >= 2."""
         kv_heads, head_dim = self._kv_shape()
         dtype = self._cache_dtype(dtype, paged=True)
         shape = (int(num_blocks), kv_heads, int(block_size), head_dim)
         dev = self.device
-        return [PagedKVCache(torch.zeros(shape, dtype=dtype, device=dev),
-                             torch.zeros(shape, dtype=dtype, device=dev))
+
+        def z(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
+        if dtype == torch.int8:
+            return [QuantPagedKVCache(z(shape, dtype), z(shape, dtype),
+                                      z(shape[:3], torch.float32),
+                                      z(shape[:3], torch.float32))
+                    for _ in range(self.config.num_hidden_layers)]
+        return [PagedKVCache(z(shape, dtype), z(shape, dtype))
                 for _ in range(self.config.num_hidden_layers)]
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0, top_k=0,

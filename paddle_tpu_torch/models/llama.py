@@ -10,7 +10,8 @@ parameters applied as `x @ W`, the embedding table is (vocab, hidden).
 The model serves through `inference.ServingEngine`: admission prefill
 runs over a contiguous cache with plain masked attention (as the JAX
 package does), and every decode step runs the paged-attention kernel
-over the engine's page pools. It trains through `LlamaForCausalLM.loss`
+over the engine's page pools (bf16 / float32 pages, or int8 pages with
+per-row scales: `ServingEngine(kv_cache_dtype='int8')`). It trains through `LlamaForCausalLM.loss`
 (`training.TrainEngine`): the uncached forward runs the flash-attention
 kernels for >= 128 tokens, every RMSNorm and the loss run their fused
 kernels, forward and backward. It generates through
@@ -19,8 +20,8 @@ caches (bf16 / float32, or int8 `QuantKVCache`): every single-token step
 runs the decode-attention kernel. `quantize_weights(8 or 4)` gives a
 model whose projections run the weight-only int8 / int4 kernels.
 Configurations the port does not run (sequence parallelism,
-sliding-window attention, remat, int8 paged pools, tensor parallelism)
-raise NotImplementedError.
+sliding-window attention, remat, tensor parallelism) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ from ..device import resolve_device, torch_dtype
 from ..nn import RMSNorm
 from ..nn import functional as F
 from .generation import (GenerationMixin, PagedKVCache, QuantKVCache,
+                         QuantPagedKVCache, RowQuantKVCache,
                          calibrate_kv_scale, default_positions,
-                         quantize_kv_rows)
+                         dequantize_kv_row, quantize_kv_row, quantize_kv_rows)
 
 
 @dataclasses.dataclass
@@ -200,10 +202,16 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
     cache first. An int8 cache calibrates its scales on the index-0
     multi-token prefill only and quantizes every later row against them.
 
-    A PagedKVCache takes `kv_write_pos` (B,) and `block_tables` (B, MAXB)
-    and runs the paged-attention kernel (see `_paged_cached_attention`).
+    A `RowQuantKVCache` (the serving engine's temporary cache over int8
+    pools) stores each new row as int8 codes with its own scale
+    (`quantize_kv_row`) and attends the whole cache dequantized through
+    the plain masked path, as the JAX package does.
+
+    A PagedKVCache or QuantPagedKVCache takes `kv_write_pos` (B,) and
+    `block_tables` (B, MAXB) and runs the paged-attention kernel (see
+    `_paged_cached_attention`).
     """
-    if isinstance(cache, PagedKVCache):
+    if isinstance(cache, (PagedKVCache, QuantPagedKVCache)):
         if kvalid is not None or kv_start is not None:
             raise NotImplementedError(
                 'kvalid / kv_start over a PagedKVCache are not ported yet')
@@ -214,8 +222,17 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
         raise NotImplementedError(
             'per-row write offsets over a contiguous cache (chunked '
             'prefill, speculative verify) are not ported yet')
+    rowquant = isinstance(cache, RowQuantKVCache)
     quant = isinstance(cache, QuantKVCache)
-    if quant:
+    if rowquant:
+        kq, vq, ks, vs = cache
+        rows = slice(cache_index, cache_index + S)
+        kq[:, rows], ks[:, rows] = quantize_kv_row(k)
+        vq[:, rows], vs[:, rows] = quantize_kv_row(v)
+        ck = dequantize_kv_row(kq, ks, q.dtype)
+        cv = dequantize_kv_row(vq, vs, q.dtype)
+        kscale = vscale = None
+    elif quant:
         ck, cv, kscale, vscale = cache
         if S > 1 and int(cache_index) == 0:
             # calibrate on the index-0 prefill only: a later chunk must
@@ -229,7 +246,8 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
         kscale = vscale = None
         ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
         cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
-    if S == 1 and D % 8 == 0 and (kvalid is None or kv_start is not None):
+    if (S == 1 and D % 8 == 0 and not rowquant
+            and (kvalid is None or kv_start is not None)):
         out = ops.dispatch_decode_attention(
             q, ck, cv, int(cache_index) + 1, start=kv_start,
             k_scale=kscale, v_scale=vscale)
@@ -255,7 +273,10 @@ def _paged_cached_attention(q, k, v, cache, kv_write_pos, block_tables):
     """Single-token decode over a PagedKVCache: scatter each row's new
     K/V into page block_tables[b, wp // BS] slot wp % BS (wp =
     kv_write_pos[b]), then attend over the row's first wp + 1 positions
-    with the paged-attention kernel."""
+    with the paged-attention kernel. Over a QuantPagedKVCache the new row
+    is quantized against its own absmax (`quantize_kv_row`, the rule the
+    serving prefill applies too) and its codes and scale are written;
+    the kernel then reads the int8 pages with their per-row scales."""
     B, S, H, D = q.shape
     if S != 1:
         raise NotImplementedError(
@@ -265,7 +286,8 @@ def _paged_cached_attention(q, k, v, cache, kv_write_pos, block_tables):
         raise ValueError(
             'PagedKVCache needs kv_write_pos (per-row write positions) '
             'and block_tables (per-row page ids)')
-    kp, vp = cache
+    quant = isinstance(cache, QuantPagedKVCache)
+    kp, vp = cache[0], cache[1]
     BS = kp.shape[2]
     maxb = block_tables.shape[1]
     wp = kv_write_pos.reshape(-1).expand(B)
@@ -274,10 +296,17 @@ def _paged_cached_attention(q, k, v, cache, kv_write_pos, block_tables):
     # column (such rows are parked on the scratch page by the engine)
     page = block_tables[rows, torch.clamp(wp // BS, max=maxb - 1)].long()
     slot = (wp % BS).long()
-    kp[page, :, slot, :] = k[:, 0].to(kp.dtype)
-    vp[page, :, slot, :] = v[:, 0].to(vp.dtype)
+    if quant:
+        kss, vss = cache.ks, cache.vs
+        kp[page, :, slot, :], kss[page, :, slot] = quantize_kv_row(k[:, 0])
+        vp[page, :, slot, :], vss[page, :, slot] = quantize_kv_row(v[:, 0])
+    else:
+        kss = vss = None
+        kp[page, :, slot, :] = k[:, 0].to(kp.dtype)
+        vp[page, :, slot, :] = v[:, 0].to(vp.dtype)
     counts = (wp + 1).to(torch.int32)
-    out = ops.paged_decode_attention(q, kp, vp, block_tables, counts)
+    out = ops.paged_decode_attention(q, kp, vp, block_tables, counts,
+                                     k_scale=kss, v_scale=vss)
     return out, cache
 
 

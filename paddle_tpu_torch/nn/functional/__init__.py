@@ -1,7 +1,7 @@
 from .flash_attention import flash_attention
 from .attention import scaled_dot_product_attention
 from .loss import softmax_cross_entropy
-from .norm import rms_norm
+from .norm import layer_norm, rms_norm
 
-__all__ = ['flash_attention', 'rms_norm', 'scaled_dot_product_attention',
-           'softmax_cross_entropy']
+__all__ = ['flash_attention', 'layer_norm', 'rms_norm',
+           'scaled_dot_product_attention', 'softmax_cross_entropy']

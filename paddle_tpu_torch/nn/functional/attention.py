@@ -7,7 +7,10 @@ dispatch rule is the JAX package's: no mask, no dropout, head_dim % 8 ==
 flash_attention`: kernels K5/K6 on the card, their plain versions on the
 CPU); anything else takes the plain masked attention here, in float32,
 the counterpart of the JAX package's `_sdpa_reference` (serving's
-admission prefill passes a mask, so it runs this path).
+admission prefill passes a mask, so it runs this path). Segment ids
+(packed sequences) ride either path: the flash op's K5s forward, or a
+block-diagonal mask here, whose query rows without a key of their
+segment return 0 as the kernel's do.
 """
 from __future__ import annotations
 
@@ -21,18 +24,43 @@ NEG_INF = -1e30
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 dropout_p=0.0, is_causal=False, scale=None):
+                                 dropout_p=0.0, is_causal=False, scale=None,
+                                 segment_ids=None, kv_segment_ids=None):
     """softmax(scale * q k^T + mask) v. Causal masks are bottom-right
     aligned (tril with k = Sk - Sq); a bool `attn_mask` keeps True
     positions (masked logits become -1e30), a float one is added to the
-    logits. GQA: kv heads are repeated to the query heads."""
+    logits. GQA: kv heads are repeated to the query heads.
+
+    segment_ids (B, Sq) and kv_segment_ids (B, Sk; needed when Sq != Sk,
+    else segment_ids) int: attention is block-diagonal within equal ids,
+    composed with the causal mask and `attn_mask`; a query whose segment
+    has no key returns 0."""
     if dropout_p:
         raise NotImplementedError('attention dropout is not ported yet')
+    if kv_segment_ids is not None and segment_ids is None:
+        raise ValueError('kv_segment_ids requires segment_ids')
+    if segment_ids is not None and kv_segment_ids is None:
+        if query.shape[1] != key.shape[1]:
+            raise ValueError(
+                'segment_ids with Sq != Sk requires kv_segment_ids')
+        kv_segment_ids = segment_ids
     B, Sq, H, D = query.shape
     Sk = key.shape[1]
     if attn_mask is None and D % 8 == 0 and Sq >= 128:
         return ops.flash_attention(query, key, value, causal=is_causal,
-                                   scale=scale)
+                                   scale=scale, segment_ids=segment_ids,
+                                   kv_segment_ids=kv_segment_ids)
+    seg_mask = None
+    if segment_ids is not None:
+        seg_mask = (segment_ids[:, :, None]
+                    == kv_segment_ids[:, None, :])[:, None]
+        if attn_mask is None:
+            attn_mask = seg_mask
+        elif attn_mask.dtype == torch.bool:
+            attn_mask = attn_mask & seg_mask
+        else:
+            # an additive float mask: masked-out pairs get -1e30
+            attn_mask = torch.where(seg_mask, attn_mask.float(), NEG_INF)
     scale = scale or 1.0 / math.sqrt(D)
     if key.shape[2] != H:
         rep = H // key.shape[2]
@@ -50,5 +78,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         else:
             logits = logits + attn_mask.float()
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum('bhqk,bkhd->bqhd', p, value.float())
-    return out.to(query.dtype)
+    out = torch.einsum('bhqk,bkhd->bqhd', p, value.float()).to(query.dtype)
+    if seg_mask is not None:
+        # a query whose segment has no key: 0, not the mean of v
+        row_valid = seg_mask[:, 0].any(-1)                  # (B, Sq)
+        out = torch.where(row_valid[:, :, None, None], out, 0.0)
+    return out

@@ -19,6 +19,7 @@ import torch
 from ._build import LAUNCHES, on_card
 from .hopper import decode_attention as _decode
 from .hopper import flash_attention as _flash
+from .hopper import headmajor_attention as _headmajor
 from .hopper import paged_attention as _paged
 from .hopper import quant_matmul as _qmm
 from .hopper import rms_norm as _rms
@@ -49,15 +50,38 @@ def softmax_cross_entropy(logits, labels):
 
 
 def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None,
-                    window_size=None):
+                    kv_segment_ids=None, window_size=None):
     """Flash attention (kernels K5 forward, K6 backward) in the JAX
     package's layout: q (B, Sq, H, D), k and v (B, Sk, Hkv, D) ->
-    (B, Sq, H, D), differentiable in q, k and v."""
-    if segment_ids is not None or window_size is not None:
+    (B, Sq, H, D), differentiable in q, k and v.
+
+    segment_ids (B, Sq) and kv_segment_ids (B, Sk, default segment_ids)
+    int: packed sequences, a query attending only keys of its own
+    segment (with `causal`, both masks), a query with no such key
+    returning 0. That mode is the forward alone (kernel K5s): it runs
+    when nothing needs a gradient and raises NotImplementedError
+    otherwise (its backward, K6s, is not ported)."""
+    if window_size is not None:
         raise NotImplementedError(
-            'flash_attention: segment ids and sliding windows are not '
-            'ported yet')
+            'flash_attention: sliding windows (the window mode of K5/K6) '
+            'are not ported yet')
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if kv_segment_ids is not None and segment_ids is None:
+        raise ValueError('kv_segment_ids requires segment_ids')
+    if segment_ids is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                'flash_attention with segment ids has no backward yet (K6s '
+                'of PERF.md is not ported): run it under torch.no_grad()')
+        kseg = segment_ids if kv_segment_ids is None else kv_segment_ids
+        fwd = (_flash.flash_attention_fwd
+               if on_card(q, 'flash_attention_fwd_seg')
+               else _flash.flash_attention_fwd_plain)
+        out, _ = fwd(q.transpose(1, 2), k.transpose(1, 2),
+                     v.transpose(1, 2), bool(causal), scale,
+                     segment_ids.to(torch.int32), kseg.to(torch.int32))
+        return out.transpose(1, 2)
     out = _flash.FlashAttentionFn.apply(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         bool(causal), scale)
@@ -68,7 +92,9 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables,
                            context_lens, scale=None, k_scale=None,
                            v_scale=None):
     """Single-token attention over paged KV pools (kernel K8 of
-    PERF.md)."""
+    PERF.md); int8 pools pass float32 `k_scale` / `v_scale`, per row
+    (NB, Hkv, BS) or per (kv head, dim) (Hkv, D) (kernel K8q). See
+    `ops/hopper/paged_attention.py`."""
     fn = (_paged.paged_decode_attention
           if on_card(q, 'paged_decode_attention')
           else _paged.paged_decode_attention_plain)
@@ -86,6 +112,20 @@ def decode_attention(q, k_cache, v_cache, valid_len, scale=None,
           else _decode.decode_attention_plain)
     return fn(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale,
               start)
+
+
+def decode_attention_headmajor(q, k_cache, v_cache, context_lens,
+                               scale=None, k_scale=None, v_scale=None):
+    """Single-token attention over a head-major (B, Hkv, S, D) cache
+    (kernel K9 of PERF.md, masked_multihead_attention's decode): q
+    (B, 1, Hq, D) attends its row's first min(context_lens, S)
+    positions; int8 caches pass (Hkv, D) float32 `k_scale` / `v_scale`.
+    See `ops/hopper/headmajor_attention.py`."""
+    fn = (_headmajor.decode_attention_headmajor
+          if on_card(q, 'decode_attention_headmajor')
+          else _headmajor.decode_attention_headmajor_plain)
+    return fn(q.contiguous(), k_cache, v_cache, context_lens, scale, k_scale,
+              v_scale)
 
 
 def dispatch_decode_attention(q, k_cache, v_cache, valid_len, start=None,
@@ -139,6 +179,7 @@ def quant_matmul_int4(x, wq_packed, scale):
     return fn(x, wq_packed, scale)
 
 
-__all__ = ['LAUNCHES', 'decode_attention', 'dispatch_decode_attention',
+__all__ = ['LAUNCHES', 'decode_attention', 'decode_attention_headmajor',
+           'dispatch_decode_attention',
            'flash_attention', 'paged_decode_attention', 'quant_matmul',
            'quant_matmul_int4', 'rms_norm', 'softmax_cross_entropy']

@@ -34,31 +34,38 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC']
 
 # launches per kernel: each wrapper adds one where it launches its kernel
-# (flash_attention_bwd launches twice per call: dq, then dk and dv)
+# (flash_attention_bwd launches twice per call: dq, then dk and dv). A
+# mode of a TPU kernel that is a kernel of its own in PERF.md's table
+# counts under its own key: K5s (flash_attention_fwd_seg), K8q
+# (paged_decode_attention_int8), K9 (decode_attention_headmajor).
 LAUNCHES = {'rms_norm': 0, 'rms_norm_bwd': 0, 'softmax_xent_fwd': 0,
             'softmax_xent_bwd': 0, 'flash_attention_fwd': 0,
-            'flash_attention_bwd': 0, 'paged_decode_attention': 0,
-            'decode_attention': 0, 'quant_matmul': 0, 'quant_matmul_int4': 0}
+            'flash_attention_fwd_seg': 0, 'flash_attention_bwd': 0,
+            'paged_decode_attention': 0, 'paged_decode_attention_int8': 0,
+            'decode_attention': 0, 'decode_attention_headmajor': 0,
+            'quant_matmul': 0, 'quant_matmul_int4': 0}
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     'pt_rms_norm_fwd': [_I, _VP, _VP, _VP, _VP, _I, _I, _F, _I, _I, _VP],
     'pt_rms_norm_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     'pt_softmax_xent_fwd': [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     'pt_softmax_xent_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    'pt_flash_attention_fwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _I, _VP],
+    'pt_flash_attention_fwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _VP],
     'pt_flash_attention_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I,
                                _I, _VP],
-    'pt_paged_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
-                                  _I, _I, _I, _I, _I, _F, _I, _VP],
+    'pt_paged_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                  _VP, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                  _I, _VP],
     'pt_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
-                            _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _F,
-                            _I, _I, _VP],
+                            _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL,
+                            _LL, _I, _I, _F, _I, _I, _VP],
     'pt_quant_matmul': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                         _I, _VP],
 }

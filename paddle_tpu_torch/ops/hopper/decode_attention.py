@@ -7,7 +7,9 @@ its modes: bf16 / f32 caches of q's dtype, and int8 caches with
 per-(kv head, dim) float32 scales `k_scale` / `v_scale` of shape
 (Hkv, D). `decode_attention` launches it on CUDA tensors;
 `decode_attention_plain` computes the same function with plain PyTorch
-ops.
+ops. The kernel reads the caches through their strides, so
+`ops/hopper/headmajor_attention.py` launches it over (B, Hkv, S, D)
+caches as transposed views (kernel K9).
 
 Semantics shared by both: q (B, 1, Hq, D) attends the window
 [start, min(valid_len, S)) of its row of the (B, S, Hkv, D) caches,
@@ -133,37 +135,51 @@ def decode_attention(q, k_cache, v_cache, valid_len, scale=None,
                      k_scale=None, v_scale=None, start=None):
     """The CUDA kernel (same arguments as the plain version). Raises on
     what it does not take: non-CUDA or mixed devices, caches of another
-    dtype than q (other than int8 with scales), non-contiguous inputs, a
-    GQA group outside 1/2/4/8, or a head size above 128 or whose row is
-    not a power of two of 16-byte loads (8-byte for int8)."""
+    dtype than q (other than int8 with scales), a q or scales that are
+    not contiguous, caches whose head dim is not contiguous or whose
+    rows are not 16-byte aligned, a GQA group outside 1/2/4/8, or a head
+    size above 128 or whose row is not a power of two of 16-byte loads
+    (8-byte for int8)."""
+    return launch(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale,
+                  start, 'decode_attention')
+
+
+def launch(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale, start,
+           kernel):
+    """Launch the kernel over (B, S, Hkv, D) cache views of any strides
+    with D contiguous, counting the launch under `kernel`."""
     B, S, Hq, Hkv, D = _check_shapes(q, k_cache, v_cache, k_scale, v_scale)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     dev = q.device
     quant = k_scale is not None
     tensors = [q, k_cache, v_cache] + ([k_scale, v_scale] if quant else [])
     if dev.type != 'cuda' or any(t.device != dev for t in tensors):
-        raise ValueError('decode_attention kernel: every input must be on '
-                         f'one CUDA device, got '
-                         f'{[str(t.device) for t in tensors]}')
+        raise ValueError(f'{kernel} kernel: every input must be on one CUDA '
+                         f'device, got {[str(t.device) for t in tensors]}')
     if not quant and (k_cache.dtype != q.dtype or v_cache.dtype != q.dtype):
         raise TypeError(
-            f'decode_attention kernel: caches ({k_cache.dtype}, '
-            f'{v_cache.dtype}) must have q\'s dtype {q.dtype} or be int8 '
-            f'with scales')
+            f'{kernel} kernel: caches ({k_cache.dtype}, {v_cache.dtype}) '
+            f'must have q\'s dtype {q.dtype} or be int8 with scales')
     if quant and (k_scale.dtype != torch.float32
                   or v_scale.dtype != torch.float32):
-        raise TypeError('decode_attention kernel: scales must be float32')
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError('decode_attention kernel: inputs must be '
-                         'contiguous')
+        raise TypeError(f'{kernel} kernel: scales must be float32')
+    dense = [q] + ([k_scale, v_scale] if quant else [])
+    item = k_cache.element_size()
+    if (not all(t.is_contiguous() for t in dense)
+            or k_cache.stride() != v_cache.stride()
+            or k_cache.stride(-1) != 1
+            or any(st * item % 16 for st in k_cache.stride()[:3])):
+        raise ValueError(f'{kernel} kernel: q and the scales must be '
+                         f'contiguous, and the caches share strides with '
+                         f'D contiguous and 16-byte aligned rows')
     vec = 4 if k_cache.dtype == torch.float32 else 8
     if (Hq // Hkv not in GROUPS or D % vec or D > 128
             or D // vec not in (2, 4, 8, 16, 32)):
         raise ValueError(
-            f'decode_attention kernel: needs Hq/Hkv in {GROUPS} and D a '
-            f'multiple of {vec} between {2 * vec} and 128 with D/{vec} a '
-            f'power of two; got Hq={Hq}, Hkv={Hkv}, D={D}')
-    code = _build.dtype_code(q, 'decode_attention')
+            f'{kernel} kernel: needs Hq/Hkv in {GROUPS} and D a multiple '
+            f'of {vec} between {2 * vec} and 128 with D/{vec} a power of '
+            f'two; got Hq={Hq}, Hkv={Hkv}, D={D}')
+    code = _build.dtype_code(q, kernel)
     vl_ptr, vl_all, vl_keep = _row_arg(valid_len, B, dev, 'valid_len')
     st_ptr, st_all, st_keep = _row_arg(start, B, dev, 'start')
     nsplit, chunk = splits(B, Hkv, S, _sm_count(dev.index))
@@ -174,6 +190,7 @@ def decode_attention(q, k_cache, v_cache, valid_len, scale=None,
                                device=dev)
         part_ml = torch.empty(B, Hq, nsplit, 2, dtype=torch.float32,
                               device=dev)
+    b_stride, pos_stride, h_stride = k_cache.stride()[:3]
     lib = _build.load()
     err = lib.pt_decode_attention(
         dev.index, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -181,7 +198,8 @@ def decode_attention(q, k_cache, v_cache, valid_len, scale=None,
         v_scale.data_ptr() if quant else 0, vl_ptr, st_ptr, vl_all, st_all,
         out.data_ptr(), 0 if part_acc is None else part_acc.data_ptr(),
         0 if part_ml is None else part_ml.data_ptr(), B, S, Hq, Hkv, D,
-        nsplit, chunk, float(scale), code, int(quant), _build.stream_ptr(q))
-    _build.check(err, 'decode_attention')
-    _build.LAUNCHES['decode_attention'] += 1
+        b_stride, h_stride, pos_stride, nsplit, chunk, float(scale), code,
+        int(quant), _build.stream_ptr(q))
+    _build.check(err, kernel)
+    _build.LAUNCHES[kernel] += 1
     return out

@@ -13,8 +13,12 @@ The kernels take any strides over (batch, head, sequence) with D
 contiguous, so the (B, S, H, D) tensors of the model pass as transposed
 views without a copy, and they return views of (B, S, H, D) buffers.
 Causal masking is bottom-right (query i sees keys j <= i + Sk - Sq); a
-query that sees no key returns 0. Segment ids and sliding windows are not
-ported: `ops.flash_attention` raises on them.
+query that sees no key returns 0. The forward also takes segment ids (K5s
+of PERF.md, the `qseg` / `kseg` mode of the TPU `_fwd`): (B, Sq) and
+(B, Sk) int32, a query seeing only keys of its own segment, combined
+with the causal mask; a kernel launch in that mode counts under
+`flash_attention_fwd_seg`. Its backward (K6s) and the sliding-window
+mode are not ported: `ops.flash_attention` raises on them.
 """
 from __future__ import annotations
 
@@ -29,12 +33,17 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)   # head widths the kernels are built for
 
 
-def _visible(Sq, Sk, causal, device):
-    """(Sq, Sk) bool: which keys each query sees (bottom-right causal)."""
+def _visible(Sq, Sk, causal, device, qseg=None, kseg=None):
+    """Which keys each query sees: (Sq, Sk) bool (bottom-right causal),
+    or (B, 1, Sq, Sk) with segment ids (B, Sq) / (B, Sk)."""
     if not causal:
-        return torch.ones(Sq, Sk, dtype=torch.bool, device=device)
-    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
-    return qpos >= torch.arange(Sk, device=device)[None, :]
+        ok = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
+    else:
+        qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+        ok = qpos >= torch.arange(Sk, device=device)[None, :]
+    if qseg is not None:
+        ok = ok & (qseg[:, :, None] == kseg[:, None, :])[:, None]
+    return ok
 
 
 def _expand_kv(t, group):
@@ -42,16 +51,32 @@ def _expand_kv(t, group):
         else t.float()
 
 
-def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
+def _check_segments(q, k, qseg, kseg):
+    if (qseg is None) != (kseg is None):
+        raise ValueError('flash attention: pass both segment id arrays or '
+                         'neither')
+    if qseg is not None and (tuple(qseg.shape) != (q.shape[0], q.shape[2])
+                             or tuple(kseg.shape) != (k.shape[0],
+                                                      k.shape[2])):
+        raise ValueError(
+            f'flash attention: segment ids must be (B, Sq) and (B, Sk), '
+            f'got {tuple(qseg.shape)} and {tuple(kseg.shape)}')
+
+
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None, qseg=None,
+                              kseg=None):
     """(out, lse): out (B, H, Sq, D) in q's dtype, lse (B, H, Sq)
-    float32 (the JAX package's `_fwd` in float32)."""
+    float32 (the JAX package's `_fwd` in float32); with segment ids
+    qseg (B, Sq) / kseg (B, Sk), a query attends only keys of its own
+    segment."""
+    _check_segments(q, k, qseg, kseg)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     group = H // k.shape[1]
     s = torch.einsum('bhqd,bhkd->bhqk', q.float() * scale,
                      _expand_kv(k, group))
-    ok = _visible(Sq, Sk, causal, q.device)
+    ok = _visible(Sq, Sk, causal, q.device, qseg, kseg)
     s = torch.where(ok, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
@@ -130,11 +155,20 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def flash_attention_fwd(q, k, v, causal=False, scale=None):
+def flash_attention_fwd(q, k, v, causal=False, scale=None, qseg=None,
+                        kseg=None):
     """The forward kernel on the card -> (out, lse) as the plain
     version returns them; out is a (B, H, Sq, D) view of a contiguous
-    (B, Sq, H, D) buffer."""
+    (B, Sq, H, D) buffer. Segment ids must be int32 on the card."""
+    _check_segments(q, k, qseg, kseg)
     code, (q, k, v) = _check('flash_attention_fwd', q, k, v)
+    seg = qseg is not None
+    if seg:
+        if (qseg.dtype != torch.int32 or kseg.dtype != torch.int32
+                or qseg.device != q.device or kseg.device != q.device):
+            raise TypeError('flash_attention_fwd kernel: segment ids must '
+                            f'be int32 on {q.device}')
+        qseg, kseg = qseg.contiguous(), kseg.contiguous()
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
@@ -144,10 +178,12 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     lib = _build.load()
     err = lib.pt_flash_attention_fwd(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), strides, B, H, Hkv, Sq, Sk, D,
+        out.data_ptr(), lse.data_ptr(), qseg.data_ptr() if seg else 0,
+        kseg.data_ptr() if seg else 0, strides, B, H, Hkv, Sq, Sk, D,
         float(scale), int(bool(causal)), code, _build.stream_ptr(q))
-    _build.check(err, 'flash_attention_fwd')
-    _build.LAUNCHES['flash_attention_fwd'] += 1
+    key = 'flash_attention_fwd_seg' if seg else 'flash_attention_fwd'
+    _build.check(err, key)
+    _build.LAUNCHES[key] += 1
     return out, lse
 
 

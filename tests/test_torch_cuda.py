@@ -16,6 +16,7 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops.hopper import decode_attention as k_decode
 from paddle_tpu_torch.ops.hopper import flash_attention as k_flash
+from paddle_tpu_torch.ops.hopper import headmajor_attention as k_hm
 from paddle_tpu_torch.ops.hopper import paged_attention as k_paged
 from paddle_tpu_torch.ops.hopper import quant_matmul as k_qmm
 from paddle_tpu_torch.ops.hopper import rms_norm as k_rms
@@ -427,3 +428,205 @@ def test_generate_on_the_card_runs_the_decode_kernels(card):
         out = qm.generate(ids, max_new_tokens=6)
         assert out.shape == (2, 15)
         assert _build.LAUNCHES[name] - before[name] == 6 * (7 * L + 1)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('rowscale', [True, False],
+                         ids=['row-scales', 'head-dim-scales'])
+@pytest.mark.parametrize('Hq,Hkv,D', [(32, 32, 128), (32, 8, 128),
+                                      (4, 2, 16), (8, 1, 64)])
+def test_paged_int8_kernel(card, dtype, rowscale, Hq, Hkv, D):
+    """K8q against its plain version: int8 pages with per-row (NB, Hkv,
+    BS) or per-(head, dim) (Hkv, D) scales, a count past the table, a
+    count-0 row, a -1 table entry."""
+    rng = np.random.default_rng(Hq * 100 + Hkv + D + int(rowscale))
+    B, BS, MAXB = 4, 16, 20
+    NB = B * MAXB + 1
+    lens = np.asarray([MAXB * BS + 7, 0, 33, 1], np.int32)
+    tbl = rng.permutation(NB)[:B * MAXB].reshape(B, MAXB).astype(np.int32)
+    tbl[2, 5] = -1
+    q = _randn(rng, (B, 1, Hq, D), card, dtype)
+    kc, vc = (torch.from_numpy(rng.integers(-127, 128, (NB, Hkv, BS, D))
+                               .astype(np.int8)).to(card) for _ in range(2))
+    sshape = (NB, Hkv, BS) if rowscale else (Hkv, D)
+    ks, vs = (torch.from_numpy(rng.uniform(0.002, 0.03, sshape)
+                               .astype(np.float32)).to(card)
+              for _ in range(2))
+    args = (q, kc, vc, torch.from_numpy(tbl).to(card),
+            torch.from_numpy(lens).to(card))
+    before = dict(_build.LAUNCHES)
+    got = k_paged.paged_decode_attention(*args, k_scale=ks, v_scale=vs)
+    want = k_paged.paged_decode_attention_plain(*args, k_scale=ks,
+                                                v_scale=vs)
+    assert _build.LAUNCHES['paged_decode_attention_int8'] == before[
+        'paged_decode_attention_int8'] + 1
+    assert _build.LAUNCHES['paged_decode_attention'] == before[
+        'paged_decode_attention']
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert not got[1].any(), 'a count-0 row must return zeros'
+
+
+@pytest.mark.parametrize('mode', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('B,S,Hq,Hkv,D', [(1, 2048, 32, 32, 128),
+                                          (8, 2048, 32, 32, 128),
+                                          (8, 2048, 32, 8, 128),
+                                          (3, 37, 4, 2, 16),
+                                          (2, 300, 8, 1, 64)])
+def test_headmajor_kernel(card, mode, B, S, Hq, Hkv, D):
+    """K9 against its plain version over (B, Hkv, S, D) caches: counts
+    past S (clipped), 0, and inside the cache."""
+    rng = np.random.default_rng(B * 1000 + S + Hkv + D)
+    dtype = torch.float32 if mode == 'float32' else torch.bfloat16
+    q = _randn(rng, (B, 1, Hq, D), card, dtype)
+    ks = vs = None
+    if mode == 'int8':
+        kc, vc = (torch.from_numpy(rng.integers(-127, 128, (B, Hkv, S, D))
+                                   .astype(np.int8)).to(card)
+                  for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.02, (Hkv, D))
+                                   .astype(np.float32)).to(card)
+                  for _ in range(2))
+    else:
+        kc, vc = (_randn(rng, (B, Hkv, S, D), card, dtype)
+                  for _ in range(2))
+    cl = rng.integers(1, S + 1, B)
+    cl[0] = S + 5
+    if B > 1:
+        cl[1] = 0
+    cl = torch.from_numpy(cl.astype(np.int32)).to(card)
+    before = _build.LAUNCHES['decode_attention_headmajor']
+    got = k_hm.decode_attention_headmajor(q, kc, vc, cl, None, ks, vs)
+    want = k_hm.decode_attention_headmajor_plain(q, kc, vc, cl, None, ks, vs)
+    assert _build.LAUNCHES['decode_attention_headmajor'] == before + 1
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (1e-2, 1e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    if B > 1:
+        assert not got[1].any(), 'a count-0 row must return zeros'
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('causal', [True, False], ids=['causal', 'full'])
+@pytest.mark.parametrize('D', [64, 128])
+def test_flash_segment_kernel(card, dtype, causal, D):
+    """K5s against its plain version: a packed stream of 5 sequences in
+    the model's (B, S, H, D) layout (so the kernel reads strided views),
+    one query segment with no key, and Sq != Sk."""
+    rng = np.random.default_rng(D + int(causal))
+    lens = [70, 1, 130, 33, 66]
+    T = sum(lens)
+    seg = np.repeat(np.arange(len(lens)), lens).astype(np.int32)
+    qseg = seg.copy()
+    qseg[75:90] = 99                               # no key has id 99
+    H, Hkv = 4, 2
+
+    def bshd(s, h):
+        return _randn(rng, (1, s, h, D), card, dtype).transpose(1, 2)
+
+    q, k, v = bshd(T, H), bshd(T, Hkv), bshd(T, Hkv)
+    qs = torch.from_numpy(qseg[None]).to(card)
+    kseg = torch.from_numpy(seg[None]).to(card)
+    before = dict(_build.LAUNCHES)
+    got, lse = k_flash.flash_attention_fwd(q, k, v, causal, None, qs, kseg)
+    want, want_lse = k_flash.flash_attention_fwd_plain(q, k, v, causal, None,
+                                                       qs, kseg)
+    assert _build.LAUNCHES['flash_attention_fwd_seg'] == before[
+        'flash_attention_fwd_seg'] + 1
+    assert _build.LAUNCHES['flash_attention_fwd'] == before[
+        'flash_attention_fwd']
+    rtol, atol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert not got[:, :, 75:90].any(), 'an empty segment returns 0'
+    # Sq != Sk: the last 100 queries against every key
+    got, _ = k_flash.flash_attention_fwd(q[:, :, -100:], k, v, causal, None,
+                                         qs[:, -100:], kseg)
+    want, _ = k_flash.flash_attention_fwd_plain(q[:, :, -100:], k, v, causal,
+                                                None, qs[:, -100:], kseg)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_int8_serving_and_fused_ops_run_their_kernels(card):
+    """On the card: an int8 ServingEngine launches K8q once per layer and
+    decode forward (K8 never); a fused_multi_transformer decode step K9
+    once per layer; a block_multihead_attention varlen prefill of 128
+    tokens or more K5s once, its decode K8q once."""
+    from paddle_tpu_torch.incubate.nn import functional as TF
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+
+    cfg = llama_tiny(vocab_size=128, hidden_size=64, layers=2)
+    model = LlamaForCausalLM(cfg, device=card, seed=0)
+    eng = ServingEngine(model, max_slots=2, block_size=4, max_new_tokens=6,
+                        decode_window=3, max_context_len=64,
+                        kv_cache_dtype='int8')
+    before = dict(_build.LAUNCHES)
+    outs = eng.serve([np.arange(3, 12), np.arange(5, 25)])
+    assert all(len(o) in (15, 26) for o in outs)
+    n_dec = eng.stats()['decode_forwards']
+    assert _build.LAUNCHES['paged_decode_attention_int8'] - before[
+        'paged_decode_attention_int8'] == 2 * n_dec
+    assert _build.LAUNCHES['paged_decode_attention'] == before[
+        'paged_decode_attention']
+    assert eng.allocator.in_use() == 0
+
+    rng = np.random.default_rng(1)
+    E, H, L, B = 64, 4, 2, 2
+    w = dict(
+        ln_scales=[torch.ones(E, device=card)] * L, ln_biases=[None] * L,
+        qkv_weights=[_randn(rng, (3, H, E // H, E), card, torch.float32, 0.1)
+                     for _ in range(L)],
+        qkv_biases=[None] * L,
+        linear_weights=[_randn(rng, (E, E), card, torch.float32, 0.1)] * L,
+        linear_biases=[None] * L,
+        ffn_ln_scales=[torch.ones(E, device=card)] * L,
+        ffn_ln_biases=[None] * L,
+        ffn1_weights=[_randn(rng, (E, 128), card, torch.float32, 0.1)] * L,
+        ffn1_biases=[None] * L,
+        ffn2_weights=[_randn(rng, (128, E), card, torch.float32, 0.1)] * L,
+        ffn2_biases=[None] * L)
+    caches = [torch.zeros(2, B, H, 16, E // H, device=card)
+              for _ in range(L)]
+    x = _randn(rng, (B, 5, E), card, torch.float32)
+    with torch.no_grad():
+        TF.fused_multi_transformer(x, **w, cache_kvs=caches,
+                                   norm_type='rmsnorm')
+    before = dict(_build.LAUNCHES)
+    out, _ = TF.fused_multi_transformer_decode_step(
+        x[:, :1], **w, cache_kvs=caches, time_step=5, norm_type='rmsnorm')
+    assert torch.isfinite(out).all()
+    assert _build.LAUNCHES['decode_attention_headmajor'] - before[
+        'decode_attention_headmajor'] == L
+    assert _build.LAUNCHES['rms_norm'] - before['rms_norm'] == 2 * L
+
+    # head size 64: the flash kernels are built for 64 and 128
+    Hkv, D, BS = 2, 64, 16
+    lens = [100, 60]
+    NB = 20
+    kc = torch.zeros(NB, Hkv, BS, D, dtype=torch.int8, device=card)
+    vc = torch.zeros_like(kc)
+    ds = torch.full((Hkv, D), 0.05, device=card)
+    tbl = torch.arange(1, 17, dtype=torch.int32, device=card).reshape(2, 8)
+    qkv = _randn(rng, (sum(lens), (H + 2 * Hkv) * D), card, torch.float32)
+    enc = torch.tensor(lens, dtype=torch.int32)
+    zeros = torch.zeros(2, dtype=torch.int32)
+    cu = torch.tensor([0, lens[0], sum(lens)], dtype=torch.int32)
+    scales = dict(cache_k_dequant_scales=ds, cache_v_dequant_scales=ds)
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        TF.block_multihead_attention(qkv, kc, vc, enc, zeros, enc,
+                                     cu_seqlens_q=cu, block_tables=tbl,
+                                     block_size=BS, num_heads=H, **scales)
+    assert _build.LAUNCHES['flash_attention_fwd_seg'] - before[
+        'flash_attention_fwd_seg'] == 1
+    before = dict(_build.LAUNCHES)
+    step = _randn(rng, (2, (H + 2 * Hkv) * D), card, torch.float32)
+    out, *_ = TF.block_multihead_attention(
+        step, kc, vc, zeros, enc, torch.ones(2, dtype=torch.int32),
+        block_tables=tbl, block_size=BS, num_heads=H, **scales)
+    assert torch.isfinite(out).all()
+    assert _build.LAUNCHES['paged_decode_attention_int8'] - before[
+        'paged_decode_attention_int8'] == 1

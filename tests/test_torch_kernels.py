@@ -107,7 +107,8 @@ class TestPagedAttentionPlain:
                                       (q, kc, vc, tbl, lens)], scale=0.3))
         got = ops.paged_decode_attention(*args, scale=0.3)
         np.testing.assert_allclose(got.numpy(), want, **PAGED_TOL)
-        with pytest.raises(NotImplementedError, match='int8'):
+        # scales go with int8 pages only (K8q): on float pages they raise
+        with pytest.raises(TypeError, match='int8'):
             ops.paged_decode_attention(*args, k_scale=torch.ones(2, 16),
                                        v_scale=torch.ones(2, 16))
 

@@ -182,5 +182,6 @@ class TestLogits:
                 LlamaForCausalLM(dataclasses.replace(llama_tiny(), **knob),
                                  device='cpu')
         tm = LlamaForCausalLM(llama_tiny(), device='cpu')
+        # pools are bf16, float32 or int8 (int8 since the int8-KV slice)
         with pytest.raises(NotImplementedError, match='int8'):
-            tm.init_paged_cache(4, 4, dtype=torch.int8)
+            tm.init_paged_cache(4, 4, dtype=torch.float16)

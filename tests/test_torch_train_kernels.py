@@ -248,8 +248,10 @@ class TestFlashAttention:
 class TestRefusals:
     def test_unported_options_raise(self):
         q = torch.zeros(1, 128, 2, 16)
+        # segment ids run forward only (K5s): with a gradient they raise
+        qg = q.clone().requires_grad_()
         with pytest.raises(NotImplementedError, match='segment'):
-            ops.flash_attention(q, q, q, causal=True,
+            ops.flash_attention(qg, q, q, causal=True,
                                 segment_ids=torch.zeros(1, 128))
         with pytest.raises(NotImplementedError, match='window'):
             ops.flash_attention(q, q, q, causal=True, window_size=16)
