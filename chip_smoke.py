@@ -12,7 +12,10 @@ Phases, in order (any failure exits non-zero and prints no result):
               register and shared-memory report;
   3. kernels  each kernel held against its plain PyTorch version on the
               card at the shapes the serving, decode and training paths
-              give it (bf16, and float32 where a path runs it), with a
+              give it (bf16, and float32 where a path runs it; the window
+              and segment modes of flash attention as kernels of their
+              own, K5w / K6w at S = 4096 with a window of 1024, K6s over
+              a packed 4096-token stream), with a
               stated tolerance, and timed with CUDA events (kernel,
               plain version, and the one PyTorch call that computes the
               same function, where there is one) against its bound, the
@@ -63,7 +66,20 @@ Phases, in order (any failure exits non-zero and prints no result):
               tokens): 2 warm-up and 5 timed steps on one repeated
               batch (tokens/s, ms per step, peak memory, per-step
               losses that must fall), exact launch counts per step, and
-              one step traced with torch.profiler.
+              one step traced with torch.profiler;
+ 10. swa      sliding-window and packed training at Mistral-7B-v0.1's
+              published widths (window 4096, 32 heads, 8 kv heads,
+              intermediate 14336): (a) TrainEngine + AdamW, 4 layers,
+              bf16, 1 x 8192 tokens, as phase 9 (exact K5w / K6w
+              launches, a falling loss, one step traced); (b) float32
+              gradients, 2 layers, 1 x 1024 tokens, window 256 on layer
+              1 only, kernels against plain versions; (c) float32 and
+              bf16 gradients of flash_attn_unpadded over a packed
+              4096-token stream (K5s, K6s) against the plain versions;
+              (d) greedy decode: 2 layers float32 (window 512, 640-token
+              prompt) token-equal through kernels and plain versions,
+              then 4 layers bf16 over a 4608-token prompt (ms per decode
+              step, K7 L per step over a window starting past 0).
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, a JSON object with one record per kernel, and
@@ -737,6 +753,200 @@ def check_flash(torch, timer, B, H, Hkv, S, D, dtype):
         'bound_ms': b_b, 'bound_by': by_b,
     }
     return fwd, bwd
+
+
+def band_pairs(S, W):
+    """(query, key) pairs of one head inside a causal window of W over S
+    positions: query i sees min(i + 1, W) keys."""
+    return W * (W + 1) // 2 + (S - W) * W if S >= W else S * (S + 1) // 2
+
+
+def check_flash_window(torch, timer, H, Hkv, dtype, S=4096, W=1024, D=128):
+    """K5w and K6w, the window mode of flash attention, in the model's
+    layout (B = 1): at S = 4096 with a window of 1024, three quarters of
+    the queries reach the band's lower edge, so the tile skips on both
+    sides run. The backward kernels are fed the plain forward's out and
+    lse, so each direction is checked alone."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as k
+
+    F = torch.nn.functional
+    gen = torch.Generator(device='cuda').manual_seed(H * 100 + Hkv + W)
+
+    def bshd(h):
+        return torch.randn(1, S, h, D, device='cuda', generator=gen) \
+            .to(dtype).transpose(1, 2)
+
+    q, kk, v, do = bshd(H), bshd(Hkv), bshd(Hkv), bshd(H)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = k.flash_attention_fwd(q, kk, v, True, scale, window=W)
+    ref_out, ref_lse = k.flash_attention_fwd_plain(q, kk, v, True, scale,
+                                                   window=W)
+    grads = k.flash_attention_bwd(q, kk, v, ref_out, ref_lse, do, True,
+                                  scale, window=W)
+    ref_grads = k.flash_attention_bwd_plain(q, kk, v, ref_out, ref_lse, do,
+                                            True, scale, window=W)
+    torch.cuda.synchronize()
+    tol = TENSOR_TOL[dname(torch, dtype)]
+    what = f'flash attention window {W} H={H} Hkv={Hkv} S={S} {dtype}'
+    err_f = max(within(out, ref_out, tol, what + ' out'),
+                within(lse, ref_lse, STAT_TOL, what + ' lse'))
+    err_b = max(within(g, r, tol, f'{what} {n}') for n, g, r in
+                zip(('dq', 'dk', 'dv'), grads, ref_grads))
+    del out, lse, grads, ref_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    item = q.element_size()
+    pairs = H * band_pairs(S, W)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    q_bytes, kv_bytes = H * S * D * item, Hkv * S * D * item
+    b_f, by_f = bound_ms(2 * q_bytes + 2 * kv_bytes + H * S * 4,
+                         4 * D * pairs, peak)
+    b_b, by_b = bound_ms(4 * q_bytes + 4 * kv_bytes + H * S * 4,
+                         10 * D * pairs, peak)
+    shape = (f'B=1 H={H} Hkv={Hkv} S={S} D={D} causal window {W} '
+             f'{dname(torch, dtype)}')
+    pos = torch.arange(S, device='cuda')
+    back = pos[:, None] - pos[None, :]
+    band = ((back >= 0) & (back < W))[None, None]
+    gqa = H != Hkv
+    lib_in = [t.detach().requires_grad_() for t in (q, kk, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=band,
+                                             scale=scale, enable_gqa=gqa)
+    lib = ('F.scaled_dot_product_attention with the band as a bool mask')
+    fwd = {
+        'shape': shape, 'max_abs_err': err_f,
+        'tolerance': f'out: {tol_text(tol)}; lse: {tol_text(STAT_TOL)}',
+        'ms': timer(lambda: k.flash_attention_fwd(q, kk, v, True, scale,
+                                                  window=W)),
+        'plain_ms': timer(lambda: k.flash_attention_fwd_plain(
+            q, kk, v, True, scale, window=W), iters=5),
+        'library_ms': timer(lambda: F.scaled_dot_product_attention(
+            q, kk, v, attn_mask=band, scale=scale, enable_gqa=gqa)),
+        'library': lib, 'bound_ms': b_f, 'bound_by': by_f,
+    }
+    bwd = {
+        'shape': shape, 'max_abs_err': err_b, 'tolerance': tol_text(tol),
+        'ms': timer(lambda: k.flash_attention_bwd(
+            q, kk, v, ref_out, ref_lse, do, True, scale, window=W)),
+        'plain_ms': timer(lambda: k.flash_attention_bwd_plain(
+            q, kk, v, ref_out, ref_lse, do, True, scale, window=W),
+            iters=5),
+        'library_ms': timer(lambda: torch.autograd.grad(
+            lib_out, lib_in, do, retain_graph=True)),
+        'library': 'backward of ' + lib, 'bound_ms': b_b, 'bound_by': by_b,
+    }
+    del lib_out, lib_in
+    return fwd, bwd
+
+
+def check_flash_seg_bwd(torch, timer, Hkv, dtype, H=32, D=128):
+    """K6s over a packed T = 4096 stream of segments (1000, 1900, 96,
+    1100), causal, in the model's layout; 16 queries carry an id no key
+    has: their dq must be exactly 0, and k and v get no gradient from
+    them (zeroing their dout leaves dk and dv bit-equal). The kernels
+    are fed the plain forward's out and lse."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as k
+
+    F = torch.nn.functional
+    g = torch.Generator(device='cuda').manual_seed(4096 + Hkv)
+    lens = [1000, 1900, 96, 1100]
+    T = sum(lens)
+    seg = torch.repeat_interleave(
+        torch.arange(len(lens), device='cuda', dtype=torch.int32),
+        torch.tensor(lens, device='cuda'))[None]
+    qseg = seg.clone()
+    qseg[0, 1000:1016] = 99
+
+    def bshd(h):
+        return torch.randn(1, T, h, D, device='cuda', generator=g) \
+            .to(dtype).transpose(1, 2)
+
+    q, kk, v, do = bshd(H), bshd(Hkv), bshd(Hkv), bshd(H)
+    scale = 1.0 / math.sqrt(D)
+    out, lse = k.flash_attention_fwd_plain(q, kk, v, True, scale, qseg, seg)
+    grads = k.flash_attention_bwd(q, kk, v, out, lse, do, True, scale, qseg,
+                                  seg)
+    ref = k.flash_attention_bwd_plain(q, kk, v, out, lse, do, True, scale,
+                                      qseg, seg)
+    do0 = do.clone()
+    do0[:, :, 1000:1016] = 0
+    again = k.flash_attention_bwd(q, kk, v, out, lse, do0, True, scale, qseg,
+                                  seg)
+    torch.cuda.synchronize()
+    tol = TENSOR_TOL[dname(torch, dtype)]
+    what = f'flash backward with segment ids T={T} H={H} Hkv={Hkv} {dtype}'
+    err = max(within(gk, r, tol, f'{what} {n}') for n, gk, r in
+              zip(('dq', 'dk', 'dv'), grads, ref))
+    if grads[0][:, :, 1000:1016].abs().max().item() != 0.0:
+        raise AssertionError(f'{what}: queries with no key in their '
+                             f'segment must have dq = 0')
+    if not all(torch.equal(a, b) for a, b in zip(grads[1:], again[1:])):
+        raise AssertionError(f'{what}: queries with no key in their '
+                             f'segment moved dk or dv')
+    del grads, ref, again
+    pairs = H * (sum(n * (n + 1) // 2 for n in lens) - sum(range(1, 17)))
+    item = q.element_size()
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    b_, by = bound_ms(4 * H * T * D * item + 4 * Hkv * T * D * item
+                      + 2 * T * 4 + H * T * 4, 10 * D * pairs, peak)
+    qpos = torch.arange(T, device='cuda')
+    mask = ((qseg[0][:, None] == seg[0][None, :])
+            & (qpos[:, None] >= qpos[None, :]))[None, None]
+    gqa = H != Hkv
+    lib_in = [t.detach().requires_grad_() for t in (q, kk, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask,
+                                             scale=scale, enable_gqa=gqa)
+    rec = {
+        'shape': (f'B=1 T={T} (segments {lens}) H={H} Hkv={Hkv} D={D} '
+                  f'causal {dname(torch, dtype)}'),
+        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'ms': timer(lambda: k.flash_attention_bwd(q, kk, v, out, lse, do,
+                                                  True, scale, qseg, seg)),
+        'plain_ms': timer(lambda: k.flash_attention_bwd_plain(
+            q, kk, v, out, lse, do, True, scale, qseg, seg), iters=5),
+        'library_ms': timer(lambda: torch.autograd.grad(
+            lib_out, lib_in, do, retain_graph=True)),
+        'library': ('backward of F.scaled_dot_product_attention with the '
+                    'block-diagonal causal mask as a bool tensor'),
+        'bound_ms': b_, 'bound_by': by,
+    }
+    del lib_out, lib_in
+    return rec
+
+
+def window_vs_causal(torch, timer, card, S=8192, W=4096, H=32, Hkv=8,
+                     D=128):
+    """K5w / K6w at phase 10's own shape (Mistral-7B's heads, S = 8192,
+    its window of 4096) beside K5 / K6 causal at the same shape, bf16:
+    the band's work is band_pairs / causal pairs of causal (about 0.75
+    here). Printed, not asserted."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as k
+
+    gen = torch.Generator(device='cuda').manual_seed(S + W)
+
+    def bshd(h):
+        return torch.randn(1, S, h, D, device='cuda', generator=gen) \
+            .to(torch.bfloat16).transpose(1, 2)
+
+    q, kk, v, do = bshd(H), bshd(Hkv), bshd(Hkv), bshd(H)
+    ms = {}
+    for label, w in (('causal', None), ('window', W)):
+        out, lse = k.flash_attention_fwd(q, kk, v, True, None, window=w)
+        ms[label] = (
+            timer(lambda: k.flash_attention_fwd(q, kk, v, True, None,
+                                                window=w), iters=5),
+            timer(lambda: k.flash_attention_bwd(q, kk, v, out, lse, do, True,
+                                                None, window=w), iters=3,
+                  warmup=1))
+        del out, lse
+    work = band_pairs(S, W) / (S * (S + 1) // 2)
+    print(f'kernel window vs causal, B=1 H={H} Hkv={Hkv} S={S} D={D} bf16: '
+          f'K5w {ms["window"][0]:.3f} ms vs K5 {ms["causal"][0]:.3f} ms '
+          f'({ms["window"][0] / ms["causal"][0]:.3f}); K6w '
+          f'{ms["window"][1]:.3f} ms vs K6 {ms["causal"][1]:.3f} ms '
+          f'({ms["window"][1] / ms["causal"][1]:.3f}); the band\'s work is '
+          f'{work:.3f} of causal (window {W}) [{card}]', flush=True)
+    return ms
 
 
 def decode_logits(torch, model, prompt, gen):
@@ -1699,7 +1909,7 @@ def kernel_group(key):
     return 'other PyTorch kernels'
 
 
-def profile_train_step(torch, eng, ids, card):
+def profile_train_step(torch, eng, ids, card, label='train'):
     """Trace one train step (forward, backward, AdamW update, one loss
     transfer): device time by kernel and by group, the share of the
     step's wall time the device was busy, and the AdamW update's share
@@ -1725,18 +1935,19 @@ def profile_train_step(torch, eng, ids, card):
         eng.sync()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    print(f'train profile: AdamW update {events[0].elapsed_time(events[1]):.1f}'
-          f' ms of the step (CUDA events around apply_gradients)')
+    print(f'{label} profile: AdamW update '
+          f'{events[0].elapsed_time(events[1]):.1f} ms of the step (CUDA '
+          f'events around apply_gradients)')
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if str(e.device_type).endswith('CUDA')
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
-        print('train profile: the profiler recorded no device time; '
-              'device-busy share not measured')
+        print(f'{label} profile: the profiler recorded no device time; '
+              f'device-busy share not measured')
         return
     busy = sum(r[0] for r in rows) / 1e3
-    print(f'train profile: one step under the profiler: wall '
+    print(f'{label} profile: one step under the profiler: wall '
           f'{wall * 1e3:.1f} ms, device busy {busy:.1f} ms '
           f'({busy / (wall * 1e3):.3f}) [{card}]')
     groups = {}
@@ -1744,34 +1955,35 @@ def profile_train_step(torch, eng, ids, card):
         g = groups.setdefault(kernel_group(key), [0.0, 0])
         g[0] += t_us / 1e3
         g[1] += n
-    for label, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f'train profile:   {ms:9.3f} ms {ms / busy:6.3f}  {n:6d}x  '
-              f'{label}')
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f'{label} profile:   {ms:9.3f} ms {ms / busy:6.3f}  {n:6d}x  '
+              f'{group}')
     for t_us, n, key in rows[:15]:
-        print(f'train profile:   {t_us / 1e3:9.3f} ms  {n:6d}x  {key[:90]}')
+        print(f'{label} profile:   {t_us / 1e3:9.3f} ms  {n:6d}x  '
+              f'{key[:90]}')
 
 
-def train_phase(torch, np, card, warmup=2, steps=5):
-    """TrainEngine + AdamW(1e-4, weight decay 0.01) at the JAX bench's
-    training configuration (bench.py: Llama-2-7B widths, 4 layers, bf16,
-    no remat, 6 x 2048 tokens), on one repeated batch."""
+def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5):
+    """TrainEngine + AdamW(1e-4, weight decay 0.01) over `cfg` on one
+    repeated batch of B x S tokens: `warmup` then `steps` timed steps
+    (tokens/s, ms per step, peak memory, per-step losses that must
+    fall from about ln V + sigma^2 / 2), exact launch counts per step
+    (`flash`: the forward and backward keys the attention runs), and
+    one step traced with torch.profiler. Returns the launch counts."""
     from paddle_tpu_torch import ops
-    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.training import TrainEngine
 
-    cfg = dataclasses.replace(llama_7b(), num_hidden_layers=4,
-                              max_position_embeddings=2048,
-                              dtype='bfloat16')
-    L, B, S = cfg.num_hidden_layers, 6, 2048
+    L = cfg.num_hidden_layers
     t = time.perf_counter()
     model = LlamaForCausalLM(cfg, seed=0)
     eng = TrainEngine(model, AdamW(learning_rate=1e-4, weight_decay=0.01),
                       log_window=steps)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f'train: llama_7b width, {L} layers, {n_params} parameters, bf16 '
-          f'(norm weights float32), float32 AdamW moments, built in '
+    print(f'{label}: {L} layers, {n_params} parameters, bf16 (norm weights '
+          f'float32), float32 AdamW moments, built in '
           f'{time.perf_counter() - t:.1f} s')
     ids = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (B, S + 1))).to(model.device)
@@ -1791,20 +2003,21 @@ def train_phase(torch, np, card, warmup=2, steps=5):
     peak = torch.cuda.max_memory_allocated()
     losses = warm['losses'] + logs['losses']
     n = warmup + steps
+    fwd_key, bwd_key = flash
     want = dict.fromkeys(ops.LAUNCHES, 0)
-    want.update(flash_attention_fwd=L * n, flash_attention_bwd=2 * L * n,
+    want.update({fwd_key: L * n, bwd_key: 2 * L * n},
                 rms_norm=(2 * L + 1) * n, rms_norm_bwd=(2 * L + 1) * n,
                 softmax_xent_fwd=n, softmax_xent_bwd=n)
-    print(f'train: {steps} timed steps of {B} x {S} tokens after {warmup} '
+    print(f'{label}: {steps} timed steps of {B} x {S} tokens after {warmup} '
           f'warm-up: {steps * B * S / wall:.1f} tokens/s, '
           f'{wall / steps * 1e3:.1f} ms per step, peak memory '
           f'{peak / 2**30:.2f} GiB [{card}]')
-    print(f'train: losses per step {[round(x, 5) for x in losses]}')
-    print(f'train: launches {launches} over {n} steps (per step: flash fwd '
-          f'L, flash bwd 2L (dq, dk/dv), rms fwd and bwd 2L+1, xent fwd and '
-          f'bwd 1; L = {L})', flush=True)
+    print(f'{label}: losses per step {[round(x, 5) for x in losses]}')
+    print(f'{label}: launches {launches} over {n} steps (per step: '
+          f'{fwd_key} L, {bwd_key} 2L (dq, dk/dv), rms fwd and bwd 2L+1, '
+          f'xent fwd and bwd 1; L = {L})', flush=True)
     if launches != want:
-        raise AssertionError(f'train launch counts {launches} != {want}')
+        raise AssertionError(f'{label} launch counts {launches} != {want}')
     # random-init logits are N(0, sigma^2) with sigma^2 = std^2 * hidden
     # (the final norm's output has unit RMS), so the first loss is about
     # ln V + sigma^2 / 2, not ln V
@@ -1818,11 +2031,232 @@ def train_phase(torch, np, card, warmup=2, steps=5):
     if not losses[-1] < losses[0]:
         raise AssertionError(f'the loss did not fall on a repeated batch: '
                              f'{losses}')
-    print(f'train: first loss {losses[0]:.4f} vs ln V + sigma^2 / 2 = '
+    print(f'{label}: first loss {losses[0]:.4f} vs ln V + sigma^2 / 2 = '
           f'{first:.4f} (ln V = {math.log(cfg.vocab_size):.4f}); last '
           f'{losses[-1]:.4f}')
-    profile_train_step(torch, eng, ids, card)
+    profile_train_step(torch, eng, ids, card, label)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def train_phase(torch, np, card):
+    """TrainEngine + AdamW at the JAX bench's training configuration
+    (bench.py: Llama-2-7B widths, 4 layers, bf16, no remat, 6 x 2048
+    tokens), on one repeated batch."""
+    from paddle_tpu_torch.models.llama import llama_7b
+
+    cfg = dataclasses.replace(llama_7b(), num_hidden_layers=4,
+                              max_position_embeddings=2048,
+                              dtype='bfloat16')
+    return train_run(torch, np, card, cfg, 6, 2048, 'train',
+                     ('flash_attention_fwd', 'flash_attention_bwd'))
+
+
+def mistral_7b(**kw):
+    """Mistral-7B-v0.1's published widths (its config.json on the
+    Hugging Face hub, mistralai/Mistral-7B-v0.1): a plain LlamaConfig
+    with a sliding window on every layer."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(**dict(
+        dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+             num_hidden_layers=32, num_attention_heads=32,
+             num_key_value_heads=8, max_position_embeddings=32768,
+             rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=4096),
+        **kw))
+
+
+def rel_l2(torch, got, ref):
+    return ((got.float() - ref.float()).norm()
+            / ref.float().norm().clamp_min(1e-30)).item()
+
+
+def swa_grads(torch, np, card, rel_tol=1e-4):
+    """(b) One training step's loss and gradients through the kernels
+    against the plain versions at Mistral-7B widths, 2 layers, 1 x 1024
+    tokens, float32, window 256 with max_window_layers 1 (layer 0 full
+    attention, K5 / K6; layer 1 windowed, K5w / K6w): the loss within
+    1e-5 of itself, each parameter's gradient within `rel_tol` in
+    relative L2, as grads_phase holds the causal path."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = mistral_7b(num_hidden_layers=2, sliding_window=256,
+                     max_window_layers=1, dtype='float32')
+    model = LlamaForCausalLM(cfg, seed=0)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 1025))).to(model.device)
+    (lk, gk), counts = count_launches(
+        torch, lambda: loss_and_grads(torch, model, ids, plain=False))
+    lp, gp = loss_and_grads(torch, model, ids, plain=True)
+    want = {'flash_attention_fwd': 1, 'flash_attention_bwd': 2,
+            'flash_attention_fwd_window': 1, 'flash_attention_bwd_window': 2}
+    got = {k: counts[k] for k in want}
+    rel = {n: rel_l2(torch, gk[n], gp[n]) for n in gp}
+    worst = max(rel, key=rel.get)
+    print(f'swa grads float32: Mistral-7B widths, 2 layers (window 256 on '
+          f'layer 1), 1 x 1024 tokens: loss kernels {lk:.6f} plain '
+          f'{lp:.6f} (|diff| {abs(lk - lp):.3g}); worst gradient |kernels - '
+          f'plain| / |plain| {rel[worst]:.3g} ({worst}), median '
+          f'{float(np.median(list(rel.values()))):.3g} over {len(rel)} '
+          f'parameters; flash launches {got} [{card}]', flush=True)
+    if got != want:
+        raise AssertionError(f'swa grads: flash launches {got} != {want}')
+    if not (abs(lk - lp) <= 1e-5 * abs(lp) and rel[worst] <= rel_tol):
+        raise AssertionError(f'swa grads: float32 loss {lk} vs {lp} or '
+                             f'gradient relative error {rel[worst]} > '
+                             f'{rel_tol}')
+    del model, gk, gp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def packed_grads(torch, np, card, rel_tol=1e-4, H=32, D=128):
+    """(c) Gradients of (out.float() ** 2).sum() through
+    flash_attn_unpadded(causal=True) over a packed T = 4096 stream of
+    segments (1000, 1900, 96, 1100) at 32 heads of 128, kernels (K5s,
+    K6s) against the plain versions: float32 within `rel_tol` in
+    relative L2 (out and each gradient), bf16 printed. Exactly one K5s
+    and two K6s launches per call. Returns the float32 kernel run's
+    launch counts."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    lens = [1000, 1900, 96, 1100]
+    cu = torch.tensor(np.cumsum([0] + lens), dtype=torch.int32,
+                      device='cuda')
+    T = sum(lens)
+    g = torch.Generator(device='cuda').manual_seed(T)
+    base = [torch.randn(T, H, D, device='cuda', generator=g)
+            for _ in range(3)]
+    total = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def run(plain):
+            ts = [b.to(dtype, copy=True).requires_grad_() for b in base]
+            with plain_kernels() if plain else contextlib.nullcontext():
+                out, _ = PF.flash_attn_unpadded(*ts, cu, cu, max(lens),
+                                                max(lens), causal=True)
+                (out.float() ** 2).sum().backward()
+            return [out.detach()] + [t.grad for t in ts]
+
+        got, counts = count_launches(torch, lambda: run(False))
+        ref, pcounts = count_launches(torch, lambda: run(True))
+        want = {'flash_attention_fwd_seg': 1, 'flash_attention_bwd_seg': 2}
+        launched = {k: v for k, v in counts.items() if v}
+        if launched != want or any(pcounts.values()):
+            raise AssertionError(f'packed grads: launches {launched} (plain '
+                                 f'{pcounts}) != {want}')
+        rel = [rel_l2(torch, a, b) for a, b in zip(got, ref)]
+        print(f'packed grads {dname(torch, dtype)}: flash_attn_unpadded, '
+              f'T={T} (segments {lens}), H={H} D={D} causal: |kernels - '
+              f'plain| / |plain| out {rel[0]:.3g}, dq {rel[1]:.3g}, dk '
+              f'{rel[2]:.3g}, dv {rel[3]:.3g}; launches {launched} [{card}]',
+              flush=True)
+        if dtype == torch.float32:
+            total = counts
+            if not max(rel) <= rel_tol:
+                raise AssertionError(f'packed grads float32: relative error '
+                                     f'{max(rel)} > {rel_tol}')
+        elif not all(bool(torch.isfinite(t).all()) for t in got):
+            raise AssertionError('packed grads bf16: non-finite output')
+    return total
+
+
+def swa_decode(torch, np, card, P=4608, N=32):
+    """(d) Greedy decode of sliding-window models: at Mistral-7B widths,
+    2 layers, float32, window 512 and a 640-token prompt, 16 tokens
+    through the kernels equal to the plain versions'; then bf16, 4
+    layers, the published window (4096) and a 4608-token prompt, 32
+    tokens (ms per decode step), with exactly L launches of K7 per
+    decode step, each over a window that starts past position 0.
+    Returns the launch counts of the kernel runs."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    total = {}
+    cfg = mistral_7b(num_hidden_layers=2, sliding_window=512,
+                     dtype='float32')
+    model = LlamaForCausalLM(cfg, seed=1)
+    ids = torch.from_numpy(np.random.default_rng(7).integers(
+        3, cfg.vocab_size, (1, 640))).to(model.device)
+    toks, counts = count_launches(
+        torch, lambda: model.generate(ids, max_new_tokens=16))
+    expect_launches(counts, 2, 16, 15)
+    add_counts(total, counts)
+    with plain_kernels():
+        ptoks = model.generate(ids, max_new_tokens=16)
+    print(f'swa decode float32: Mistral-7B widths, 2 layers, window 512, '
+          f'640-token prompt, 16 greedy tokens: kernels and plain versions '
+          f'equal {bool(torch.equal(toks, ptoks))} [{card}]', flush=True)
+    if not torch.equal(toks, ptoks):
+        raise AssertionError('swa decode: the token streams through the '
+                             'kernels and the plain versions differ')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = mistral_7b(num_hidden_layers=4, dtype='bfloat16')
+    L = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, seed=2)
+    ids = torch.from_numpy(np.random.default_rng(8).integers(
+        3, cfg.vocab_size, (1, P))).to(model.device)
+    starts = []
+    inner = ops.decode_attention
+
+    def recording(q, k_cache, v_cache, valid_len, *a, start=None, **kw):
+        starts.append(start)
+        return inner(q, k_cache, v_cache, valid_len, *a, start=start, **kw)
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = model.generate(ids, max_new_tokens=n)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    timed(2)                                     # warm
+    (_, t1), _ = count_launches(torch, lambda: timed(1))
+    with mock.patch.object(ops, 'decode_attention', recording):
+        (out, tn), counts = count_launches(torch, lambda: timed(N))
+    expect_launches(counts, L, N, N - 1)
+    add_counts(total, counts)
+    low = min(int(s.min()) for s in starts)
+    step_ms = (tn - t1) / (N - 1) * 1e3
+    print(f'swa decode bf16: Mistral-7B widths, {L} layers, window '
+          f'{cfg.sliding_window}, {P}-token prompt, {N} greedy tokens: '
+          f'{step_ms:.3f} ms per decode step ((generate of {N} - generate '
+          f'of 1) / {N - 1}; prefill {t1 * 1e3:.1f} ms), K7 launches '
+          f'{counts["decode_attention"]} ({L} per decode step), lowest '
+          f'window start {low} [{card}]', flush=True)
+    if len(starts) != L * (N - 1) or low <= 0:
+        raise AssertionError(f'swa decode: {len(starts)} decode-attention '
+                             f'calls, lowest window start {low}')
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError('swa decode: a token id outside the vocab')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def swa_phase(torch, np, card):
+    """Phase 10: sliding-window and packed training at Mistral-7B
+    widths, and the decode of sliding-window models. Returns the launch
+    counts of each path's kernel runs."""
+    t = time.perf_counter()
+    cfg = mistral_7b(num_hidden_layers=4, dtype='bfloat16')
+    paths = {
+        'swa train': train_run(
+            torch, np, card, cfg, 1, 8192, 'swa train',
+            ('flash_attention_fwd_window', 'flash_attention_bwd_window')),
+        'swa grads': swa_grads(torch, np, card),
+        'packed grads': packed_grads(torch, np, card),
+        'swa decode': swa_decode(torch, np, card),
+    }
+    print(f'swa: phase took {time.perf_counter() - t:.1f} s', flush=True)
+    return paths
 
 
 def main():
@@ -1901,6 +2335,17 @@ def main():
         cases['flash_attention_fwd_seg'] = [
             check_flash_seg(torch, timer, dt) for dt in (bf16, f32)]
         torch.cuda.empty_cache()
+        # the window and segment modes' backward: Mistral's GQA 32/8 bf16
+        # first (the main path), then MHA, each in bf16 and float32
+        for Hkv, dt in ((8, bf16), (8, f32), (32, bf16), (32, f32)):
+            fwd, bwd = check_flash_window(torch, timer, 32, Hkv, dt)
+            cases.setdefault('flash_attention_fwd_window', []).append(fwd)
+            cases.setdefault('flash_attention_bwd_window', []).append(bwd)
+            cases.setdefault('flash_attention_bwd_seg', []).append(
+                check_flash_seg_bwd(torch, timer, Hkv, dt))
+            torch.cuda.empty_cache()
+        window_vs_causal(torch, timer, card)
+        torch.cuda.empty_cache()
         # head-major decode attention: the fused decode step's b8 bf16
         # MHA first (the main path)
         cases['decode_attention_headmajor'] = [
@@ -1952,6 +2397,9 @@ def main():
         # 9. training at the JAX bench's configuration
         train_launches = train_phase(torch, np, card)
 
+        # 10. sliding-window and packed training, sliding-window decode
+        swa_launches = swa_phase(torch, np, card)
+
         records = []
         for name, src, rep in (
                 ('rms_norm', 'rms_norm.cu', 'rms_norm.py:53'),
@@ -1963,7 +2411,13 @@ def main():
                  'flash_attention.py:121'),
                 ('flash_attention_fwd_seg', 'flash_attention.cu',
                  'flash_attention.py:121'),
+                ('flash_attention_fwd_window', 'flash_attention.cu',
+                 'flash_attention.py:121'),
                 ('flash_attention_bwd', 'flash_attention.cu',
+                 'flash_attention.py:323'),
+                ('flash_attention_bwd_seg', 'flash_attention.cu',
+                 'flash_attention.py:323'),
+                ('flash_attention_bwd_window', 'flash_attention.cu',
                  'flash_attention.py:323'),
                 ('paged_decode_attention', 'paged_attention.cu',
                  'paged_attention.py:140'),
@@ -1983,6 +2437,8 @@ def main():
                        'decode': decode_launches.get(name, 0),
                        'fused': fused_launches.get(name, 0),
                        'train': train_launches[name]}
+            by_path.update((path, counts.get(name, 0))
+                           for path, counts in swa_launches.items())
             records.append({
                 'name': name, 'route': 'cuda',
                 'source': f'paddle_tpu_torch/csrc/{src}',

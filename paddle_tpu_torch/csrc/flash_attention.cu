@@ -7,33 +7,50 @@
 // contiguous; query head h reads kv head h / (H / Hkv). Causal masking is
 // bottom-right (query i sees keys j <= i + Sk - Sq). The forward returns
 // out (q's dtype) and lse = m + log(l) per query (float32); a query that
-// sees no key returns 0. With segment ids (the forward's K5s mode, the
-// qseg / kseg operands of _fwd: (B, Sq) and (B, Sk) int32) a query also
-// sees only the keys of its own segment, combined with the causal mask
-// (packed sequences: block_multihead_attention's varlen prefill); a
-// query with no visible key in its segment returns 0, as the TPU body
-// forces p to 0 on masked pairs. The backward takes delta = sum_d(dout * out) and
+// sees no key returns 0. The backward takes delta = sum_d(dout * out) and
 // p = exp(s - lse), and returns dq, dk, dv in the input dtypes, with dk
 // and dv summed over each GQA group inside the kernel (one kv head per
 // block walks the group's query heads; no atomics).
+//
+// Modes, each a kernel of its own in PERF.md's table, all in the same
+// three kernels:
+// - segment ids (K5s forward, K6s backward: the qseg / kseg operands of
+//   _fwd and _bwd, (B, Sq) and (B, Sk) int32): a query also sees only the
+//   keys of its own segment (packed sequences: flash_attn_unpadded,
+//   block_multihead_attention's varlen prefill). Every masked pair gets
+//   p = 0, as the TPU bodies force, so a query with no visible key in its
+//   segment returns 0, gets dq = 0 and gives no gradient to any k or v.
+// - a sliding window (K5w forward, K6w backward: the `window` mode of
+//   _fwd and _bwd): a query also sees only the keys with
+//   qpos + Sk - Sq - kpos < window (its last `window` positions, itself
+//   included). Segments and a window compose.
 //
 // Bound: operations. At Llama shapes (S = 2048, D = 128) the forward does
 // 4*S*S*D/2 causal float operations per head against 4*S*D*2 bytes of
 // inputs and output: hundreds of operations per byte, far past the ~295
 // at which the card's bf16 tensor cores (989 TFLOP/s) become the limit.
-// Design (a first, simple version): every product runs on the CUDA cores
-// in float32 (the same kernel for bf16 and float32 inputs, so the float32
-// path differs from the plain version by summation order only), from
-// 64-row tiles held in shared memory as float32 with an odd leading
-// dimension (D + 1, 65), so that both a row walk and a column walk touch
-// 32 banks. A 16 x 16 grid of threads gives each thread a strided
-// (4 x RN) slice of every product; online softmax in float32 never
-// materialises the S x S scores, and key tiles wholly above the causal
-// diagonal are skipped. With segment ids, a key tile whose range of ids
-// does not meet the query tile's is skipped before it is loaded, so a
-// packed stream of sorted segments costs about the sum of its segments'
-// causal work. Tensor cores (mma / wgmma on bf16 tiles) and TMA
-// loads are the next step; this version is far from the bound.
+// A window of w keys cuts the work to about 4*S*w*D per head, a packed
+// stream to the sum of its segments' causal work; both stay far past
+// that line. Design (a first, simple version): every product runs on the
+// CUDA cores in float32 (the same kernel for bf16 and float32 inputs, so
+// the float32 path differs from the plain version by summation order
+// only), from 64-row tiles held in shared memory as float32 with an odd
+// leading dimension (D + 1, 65), so that both a row walk and a column
+// walk touch 32 banks. A 16 x 16 grid of threads gives each thread a
+// strided (4 x RN) slice of every product; online softmax in float32
+// never materialises the S x S scores. Work outside the mask is skipped
+// by whole tiles, before they are loaded: a query tile walks only the
+// key tiles [lo, hi) its rows can see (the causal diagonal ends the
+// range, the window's lower edge starts it, as _fwd_kernel's two block
+// skips), and a key tile of the dk/dv pass only the query tiles whose
+// rows reach it, so a query tile costs O(64 * window) and not
+// O(64 * qpos). With segment ids, the block stages the ids of its rows
+// and of each tile it visits in shared memory and skips the tile when
+// the two ranges of ids do not meet, so a stream of sorted segments costs
+// about the sum of its segments' causal work. The per-element masks
+// (band, segments, causal) are applied inside the live tiles. Tensor
+// cores (mma / wgmma on bf16 tiles) and TMA loads are the next step; this
+// version is far from the bound.
 
 #include <climits>
 
@@ -60,8 +77,9 @@ struct Shape {
   int heads, kv_heads, sq, sk;
   float scale;
   int causal;
+  int window;  // a query sees its last `window` positions; 0 = no window
   // segment ids (batch, sq) and (batch, sk) int32, contiguous; null for
-  // none (the backward takes none)
+  // none
   const int* qseg;
   const int* kseg;
 };
@@ -131,17 +149,73 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
+// The causal and window masks of one (query, key) pair (segments apart).
 __device__ __forceinline__ bool visible(const Shape& sh, int qpos, int kpos) {
-  return kpos < sh.sk && (!sh.causal || qpos + sh.sk - sh.sq >= kpos);
+  const int back = qpos + sh.sk - sh.sq - kpos;  // how far the key lies back
+  return kpos < sh.sk && (!sh.causal || back >= 0) &&
+         (sh.window == 0 || back < sh.window);
 }
 
-// Key tiles [0, n) a causal query tile starting at q0 can see.
-__device__ __forceinline__ int live_key_tiles(const Shape& sh, int q0, int bq,
-                                              int bk) {
-  const int nk = (sh.sk + bk - 1) / bk;
-  if (!sh.causal) return nk;
-  const int last = q0 + bq - 1 + sh.sk - sh.sq;
-  return last < 0 ? 0 : min(nk, last / bk + 1);
+struct TileRange {
+  int lo, hi;
+};
+
+// Key tiles [lo, hi) of width bk that a query tile [q0, q0 + bq) can see:
+// the causal diagonal ends the range, and the window's lower edge starts
+// it (a key tile wholly before its first query's band is dead for every
+// query of the tile, as _fwd_kernel's window skip).
+__device__ __forceinline__ TileRange key_tiles(const Shape& sh, int q0,
+                                               int bq, int bk) {
+  const int off = sh.sk - sh.sq;
+  TileRange r{0, (sh.sk + bk - 1) / bk};
+  if (sh.causal) {
+    const int last = q0 + bq - 1 + off;
+    r.hi = last < 0 ? 0 : min(r.hi, last / bk + 1);
+  }
+  if (sh.window) {
+    const int first = q0 + off - sh.window + 1;  // first query's first key
+    r.lo = first > 0 ? first / bk : 0;
+  }
+  return r;
+}
+
+// Query tiles [lo, hi) of height bq whose rows see some key of the key
+// tile [k0, k0 + bk): causally the rows from k0 - off on, and in a window
+// the rows up to the one whose band still reaches the tile's last key.
+__device__ __forceinline__ TileRange query_tiles(const Shape& sh, int k0,
+                                                 int bk, int bq) {
+  const int off = sh.sk - sh.sq;
+  TileRange r{0, (sh.sq + bq - 1) / bq};
+  if (sh.causal) {
+    const int need = k0 - off - bq + 1;
+    r.lo = need > 0 ? (need + bq - 1) / bq : 0;
+  }
+  if (sh.window) {
+    const int qlast = min(k0 + bk, sh.sk) - 1 + sh.window - 1 - off;
+    r.hi = qlast < 0 ? 0 : min(r.hi, qlast / bq + 1);
+  }
+  return r;
+}
+
+// Segment ids of rows [r0, r0 + n) into shared `dst` (0 past `limit`);
+// the caller synchronises before reading them.
+__device__ __forceinline__ void stage_ids(int* dst, const int* ids, int r0,
+                                          int n, int limit) {
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    dst[i] = r0 + i < limit ? ids[r0 + i] : 0;
+}
+
+// The range [lo, hi] of the staged ids of the rows below `limit` (empty,
+// lo > hi, for none). Every thread computes the same range, so a block
+// that skips a tile on it skips together.
+__device__ __forceinline__ void id_range(const int* s, int r0, int n,
+                                         int limit, int& lo, int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int i = 0; i < n && r0 + i < limit; ++i) {
+    lo = min(lo, s[i]);
+    hi = max(hi, s[i]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -186,18 +260,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   // the range of the query ids (rows past sq take no part)
   __shared__ int s_qseg[BQ], s_kseg[BK];
   const bool seg = sh.qseg != nullptr;
+  const int* ks = seg ? sh.kseg + static_cast<int64_t>(b) * sh.sk : nullptr;
   int qlo = 0, qhi = 0;
   if (seg) {
-    const int* qs = sh.qseg + static_cast<int64_t>(b) * sh.sq;
-    for (int i = threadIdx.x; i < BQ; i += kThreads)
-      s_qseg[i] = q0 + i < sh.sq ? qs[q0 + i] : 0;
+    stage_ids(s_qseg, sh.qseg + static_cast<int64_t>(b) * sh.sq, q0, BQ,
+              sh.sq);
     __syncthreads();
-    qlo = INT_MAX;
-    qhi = INT_MIN;
-    for (int i = 0; i < BQ && q0 + i < sh.sq; ++i) {
-      qlo = min(qlo, s_qseg[i]);
-      qhi = max(qhi, s_qseg[i]);
-    }
+    id_range(s_qseg, q0, BQ, sh.sq, qlo, qhi);
   }
   float o[RM][RD], m[RM], l[RM];
 #pragma unroll
@@ -208,22 +277,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int j = 0; j < RD; ++j) o[i][j] = 0.f;
   }
 
-  const int nk = live_key_tiles(sh, q0, BQ, BK);
-  for (int ik = 0; ik < nk; ++ik) {
+  const TileRange kr = key_tiles(sh, q0, BQ, BK);
+  for (int ik = kr.lo; ik < kr.hi; ++ik) {
     const int k0 = ik * BK;
     __syncthreads();  // the previous tile's p, v and ids are consumed
     if (seg) {
-      const int* ks = sh.kseg + static_cast<int64_t>(b) * sh.sk;
-      for (int i = threadIdx.x; i < BK; i += kThreads)
-        s_kseg[i] = k0 + i < sh.sk ? ks[k0 + i] : 0;
+      stage_ids(s_kseg, ks, k0, BK, sh.sk);
       __syncthreads();
-      int klo = INT_MAX, khi = INT_MIN;
-      for (int i = 0; i < BK && k0 + i < sh.sk; ++i) {
-        klo = min(klo, s_kseg[i]);
-        khi = max(khi, s_kseg[i]);
-      }
-      // no key of the tile can share a query's segment: every thread
-      // reaches the same verdict, so the block skips the tile together
+      int klo, khi;
+      id_range(s_kseg, k0, BK, sh.sk, klo, khi);
+      // no key of the tile can share a query's segment
       if (khi < qlo || klo > qhi) continue;
     }
     load_tile<T, D, BK>(sk, kb, st.seq(kK), k0, sh.sk, 1.f);
@@ -335,11 +398,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   const T* vb = v + st.off(kV, b, hk);
   const int64_t row_base = (static_cast<int64_t>(b) * sh.heads + h) * sh.sq;
 
+  // segment ids of the tile's queries and of the current key tile
+  __shared__ int s_qseg[BQ], s_kseg[BK];
+  const bool seg = sh.qseg != nullptr;
+  const int* ks = seg ? sh.kseg + static_cast<int64_t>(b) * sh.sk : nullptr;
+  if (seg)
+    stage_ids(s_qseg, sh.qseg + static_cast<int64_t>(b) * sh.sq, q0, BQ,
+              sh.sq);
   load_tile<T, D, BQ>(sq, q + st.off(kQ, b, h), st.seq(kQ), q0, sh.sq,
                       sh.scale);
   load_tile<T, D, BQ>(sdo, dout + st.off(kDO, b, h), st.seq(kDO), q0, sh.sq,
                       1.f);
   __syncthreads();
+  int qlo = 0, qhi = 0;
+  if (seg) id_range(s_qseg, q0, BQ, sh.sq, qlo, qhi);
   {  // delta and lse of the tile's rows: one warp per 8 rows
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const T* ob = out + st.off(kO, b, h);
@@ -365,10 +437,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
 
-  const int nk = live_key_tiles(sh, q0, BQ, BK);
-  for (int ik = 0; ik < nk; ++ik) {
+  const TileRange kr = key_tiles(sh, q0, BQ, BK);
+  for (int ik = kr.lo; ik < kr.hi; ++ik) {
     const int k0 = ik * BK;
-    __syncthreads();  // the previous tile's ds and k are consumed
+    __syncthreads();  // the previous tile's ds, k and ids are consumed
+    if (seg) {
+      stage_ids(s_kseg, ks, k0, BK, sh.sk);
+      __syncthreads();
+      int klo, khi;
+      id_range(s_kseg, k0, BK, sh.sk, klo, khi);
+      if (khi < qlo || klo > qhi) continue;
+    }
     load_tile<T, D, BK>(sk, kb, st.seq(kK), k0, sh.sk, 1.f);
     load_tile<T, D, BK>(sv, vb, st.seq(kV), k0, sh.sk, 1.f);
     __syncthreads();
@@ -384,9 +463,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int r = ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < RN; ++j) {
-        const float p = visible(sh, q0 + r, k0 + tx + 16 * j)
-                            ? __expf(s[i][j] - s_lse[r])
-                            : 0.f;
+        // a masked pair has p = 0, also in a row whose lse is ~ -1e30
+        const bool ok = visible(sh, q0 + r, k0 + tx + 16 * j) &&
+                        (!seg || s_qseg[r] == s_kseg[tx + 16 * j]);
+        const float p = ok ? __expf(s[i][j] - s_lse[r]) : 0.f;
         s[i][j] = p * (dp[i][j] - s_delta[r]);  // ds
       }
     }
@@ -449,15 +529,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int group = sh.heads / sh.kv_heads;
   const int k0 = ik * BK;
   const int ty = tid_y(), tx = tid_x();
-  const int nq = (sh.sq + BQ - 1) / BQ;
-  int iq0 = 0;  // the first query tile that sees this key tile
-  if (sh.causal) {
-    const int need = k0 - (sh.sk - sh.sq) - BQ + 1;
-    iq0 = need > 0 ? (need + BQ - 1) / BQ : 0;
-  }
+  // the query tiles whose rows see some key of this tile
+  const TileRange qr = query_tiles(sh, k0, BK, BQ);
+  // segment ids of the tile's keys and of the current query tile
+  __shared__ int s_qseg[BQ], s_kseg[BK];
+  const bool seg = sh.qseg != nullptr;
+  const int* qs = seg ? sh.qseg + static_cast<int64_t>(b) * sh.sq : nullptr;
+  if (seg)
+    stage_ids(s_kseg, sh.kseg + static_cast<int64_t>(b) * sh.sk, k0, BK,
+              sh.sk);
 
   load_tile<T, D, BK>(sk, k + st.off(kK, b, hk), st.seq(kK), k0, sh.sk, 1.f);
   load_tile<T, D, BK>(sv, v + st.off(kV, b, hk), st.seq(kV), k0, sh.sk, 1.f);
+  __syncthreads();
+  int klo = 0, khi = 0;
+  if (seg) id_range(s_kseg, k0, BK, sh.sk, klo, khi);
   float ak[RK][RD], av[RK][RD];
 #pragma unroll
   for (int i = 0; i < RK; ++i)
@@ -469,9 +555,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     const T* qb = q + st.off(kQ, b, h);
     const T* dob = dout + st.off(kDO, b, h);
     const int64_t row_base = (static_cast<int64_t>(b) * sh.heads + h) * sh.sq;
-    for (int iq = iq0; iq < nq; ++iq) {
+    for (int iq = qr.lo; iq < qr.hi; ++iq) {
       const int q0 = iq * BQ;
-      __syncthreads();  // the previous tile's q, dout and ds are consumed
+      __syncthreads();  // the previous tile's q, dout, ds and ids are consumed
+      if (seg) {
+        stage_ids(s_qseg, qs, q0, BQ, sh.sq);
+        __syncthreads();
+        int qlo, qhi;
+        id_range(s_qseg, q0, BQ, sh.sq, qlo, qhi);
+        if (qhi < klo || qlo > khi) continue;
+      }
       load_tile<T, D, BQ>(sq, qb, st.seq(kQ), q0, sh.sq, sh.scale);
       load_tile<T, D, BQ>(sdo, dob, st.seq(kDO), q0, sh.sq, 1.f);
       if (threadIdx.x < BQ) {
@@ -492,10 +585,10 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int r = ty + 16 * i, qpos = q0 + r;
 #pragma unroll
         for (int j = 0; j < RK; ++j) {
-          const float p =
-              (qpos < sh.sq && visible(sh, qpos, k0 + tx + 16 * j))
-                  ? __expf(s[i][j] - s_lse[r])
-                  : 0.f;
+          const bool ok = qpos < sh.sq &&
+                          visible(sh, qpos, k0 + tx + 16 * j) &&
+                          (!seg || s_qseg[r] == s_kseg[tx + 16 * j]);
+          const float p = ok ? __expf(s[i][j] - s_lse[r]) : 0.f;
           s[i][j] = p;
           dp[i][j] = p * (dp[i][j] - s_delta[r]);  // ds
           sp[r * LP + tx + 16 * j] = p;
@@ -589,6 +682,7 @@ cudaError_t check_args(int device, int batch, const Shape& sh, int d,
   if (e != cudaSuccess) return e;
   if (batch < 0 || sh.heads <= 0 || sh.kv_heads <= 0 ||
       sh.heads % sh.kv_heads != 0 || sh.sq < 0 || sh.sk < 0 ||
+      sh.window < 0 || (sh.qseg == nullptr) != (sh.kseg == nullptr) ||
       (d != 64 && d != 128) || sh.heads > 65535 || batch > 65535)
     return cudaErrorInvalidValue;
   for (int t = 0; t < kNumTensors; ++t)
@@ -604,16 +698,16 @@ cudaError_t check_args(int device, int batch, const Shape& sh, int d,
 // `strides` holds the (batch, head, sequence) strides of q, k, v and out in
 // elements. lse: (batch, heads, sq) float32, contiguous. d is 64 or 128.
 // qseg, kseg: (batch, sq) and (batch, sk) int32 segment ids, contiguous,
-// or both null.
+// or both null. window: a query sees its last `window` positions (itself
+// included); 0 for no window.
 extern "C" int pt_flash_attention_fwd(int device, const void* q, const void* k,
                                       const void* v, void* out, void* lse,
                                       const void* qseg, const void* kseg,
                                       const long long* strides, int batch,
                                       int heads, int kv_heads, int sq, int sk,
                                       int d, float scale, int causal,
-                                      int dtype, void* stream) {
-  if ((qseg == nullptr) != (kseg == nullptr)) return cudaErrorInvalidValue;
-  const Shape sh{heads, kv_heads, sq, sk, scale, causal,
+                                      int window, int dtype, void* stream) {
+  const Shape sh{heads, kv_heads, sq, sk, scale, causal, window,
                  static_cast<const int*>(qseg), static_cast<const int*>(kseg)};
   Strides st;
   cudaError_t e = check_args(device, batch, sh, d, strides, 4, &st);
@@ -636,16 +730,20 @@ extern "C" int pt_flash_attention_fwd(int device, const void* q, const void* k,
 // The backward, as two launches on `stream`: dq (which also writes delta,
 // (batch, heads, sq) float32 scratch), then dk and dv. `strides` holds the
 // (batch, head, sequence) strides of q, k, v, out, dout, dq, dk and dv;
-// dq is shaped like q, dk and dv like k; lse comes from the forward.
+// dq is shaped like q, dk and dv like k; lse comes from the forward, which
+// took the same qseg, kseg and window.
 extern "C" int pt_flash_attention_bwd(int device, const void* q, const void* k,
                                       const void* v, const void* out,
                                       const void* dout, const void* lse,
                                       void* delta, void* dq, void* dk,
-                                      void* dv, const long long* strides,
-                                      int batch, int heads, int kv_heads,
-                                      int sq, int sk, int d, float scale,
-                                      int causal, int dtype, void* stream) {
-  const Shape sh{heads, kv_heads, sq, sk, scale, causal, nullptr, nullptr};
+                                      void* dv, const void* qseg,
+                                      const void* kseg,
+                                      const long long* strides, int batch,
+                                      int heads, int kv_heads, int sq, int sk,
+                                      int d, float scale, int causal,
+                                      int window, int dtype, void* stream) {
+  const Shape sh{heads, kv_heads, sq, sk, scale, causal, window,
+                 static_cast<const int*>(qseg), static_cast<const int*>(kseg)};
   Strides st;
   cudaError_t e = check_args(device, batch, sh, d, strides, kNumTensors, &st);
   if (e != cudaSuccess) return e;

@@ -19,9 +19,12 @@ kernels, forward and backward. It generates through
 caches (bf16 / float32, or int8 `QuantKVCache`): every single-token step
 runs the decode-attention kernel. `quantize_weights(8 or 4)` gives a
 model whose projections run the weight-only int8 / int4 kernels.
-Configurations the port does not run (sequence parallelism,
-sliding-window attention, remat, tensor parallelism) raise
-NotImplementedError.
+Sliding-window models (`sliding_window`, on the layers at or past
+`max_window_layers`: Mistral- and Qwen2-style) train through the flash
+kernels' window mode and decode through the decode-attention kernel
+with the window as a later start; the serving engine refuses them, as
+the JAX one does. Configurations the port does not run (sequence
+parallelism, remat, tensor parallelism) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -184,7 +187,8 @@ def apply_rotary(x, cos, sin):
 # ---------------------------------------------------------------------------
 
 def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
-                     block_tables=None, kvalid=None, kv_start=None):
+                     block_tables=None, kvalid=None, kv_start=None,
+                     window=None):
     """KV-cached attention step: write the S new K/V rows into the cache,
     then attend over it. Returns (out (B, S, H, D), cache); caches are
     updated in place.
@@ -201,6 +205,10 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
     takes the plain masked attention, which dequantizes a whole int8
     cache first. An int8 cache calibrates its scales on the index-0
     multi-token prefill only and quantizes every later row against them.
+    `window` (int) is sliding-window attention over the cache: only the
+    last `window` positions are attended; on the kernel path it is a
+    later per-row start (`ops.dispatch_decode_attention`), on the masked
+    path a band in the mask.
 
     A `RowQuantKVCache` (the serving engine's temporary cache over int8
     pools) stores each new row as int8 codes with its own scale
@@ -215,6 +223,10 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
         if kvalid is not None or kv_start is not None:
             raise NotImplementedError(
                 'kvalid / kv_start over a PagedKVCache are not ported yet')
+        if window is not None:
+            raise NotImplementedError(
+                'sliding windows over a PagedKVCache are not ported yet '
+                '(sliding-window models decode over contiguous caches)')
         return _paged_cached_attention(q, k, v, cache, kv_write_pos,
                                        block_tables)
     B, S, H, D = q.shape
@@ -249,7 +261,7 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
     if (S == 1 and D % 8 == 0 and not rowquant
             and (kvalid is None or kv_start is not None)):
         out = ops.dispatch_decode_attention(
-            q, ck, cv, int(cache_index) + 1, start=kv_start,
+            q, ck, cv, int(cache_index) + 1, start=kv_start, window=window,
             k_scale=kscale, v_scale=vscale)
         return out, cache
     # valid keys: position <= the query's position, and kvalid / kv_start
@@ -262,6 +274,8 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
     if kv_start is not None:
         st = kv_start.reshape(-1)
         mask = mask & (kpos[None, :] >= st[:, None])[:, None, None, :]
+    if window is not None:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)[None, None]
     if quant:
         ck = (ck.float() * kscale[None, None]).to(q.dtype)
         cv = (cv.float() * vscale[None, None]).to(q.dtype)
@@ -320,10 +334,18 @@ def _normal(shape, std, dtype, device, generator):
 
 
 class LlamaAttention(torch.nn.Module):
-    """GQA attention with RoPE; (in, out) projection matrices."""
+    """GQA attention with RoPE; (in, out) projection matrices. A
+    sliding window applies on the layers at or past
+    `config.max_window_layers` (Qwen2's rule; Mistral's 0 windows every
+    layer)."""
 
-    def __init__(self, config: LlamaConfig, dtype, device, generator):
+    def __init__(self, config: LlamaConfig, dtype, device, generator,
+                 layer_idx=0):
         super().__init__()
+        self.sliding_window = (
+            config.sliding_window
+            if (config.sliding_window is not None
+                and layer_idx >= config.max_window_layers) else None)
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.head_dim
@@ -352,8 +374,9 @@ class LlamaAttention(torch.nn.Module):
                 kv_write_pos=None, block_tables=None, kvalid=None,
                 kv_start=None):
         """x: (B, S, hidden); cos/sin: (B, S, head_dim // 2). Returns
-        (out, cache): uncached (cache None) is causal attention over x,
-        masked by `kvalid` (B, >= S) 0/1 when it is given."""
+        (out, cache): uncached (cache None) is causal attention over x
+        (banded by the layer's sliding window), masked by `kvalid`
+        (B, >= S) 0/1 when it is given."""
         B, S, _ = x.shape
         q, k, v = x @ self.q_proj, x @ self.k_proj, x @ self.v_proj
         if self.q_bias is not None:
@@ -363,18 +386,22 @@ class LlamaAttention(torch.nn.Module):
         k = apply_rotary(k.reshape(B, S, self.num_kv_heads, self.head_dim),
                          cos, sin)
         v = v.reshape(B, S, self.num_kv_heads, self.head_dim)
+        win = self.sliding_window
         if cache is None and kvalid is None:
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 window_size=win)
         elif cache is None:
-            # pad rows of a left-padded batch are never attended
-            causal = torch.ones(S, S, dtype=torch.bool,
-                                device=x.device).tril()
-            mask = causal[None, None] & (kvalid[:, :S] > 0)[:, None, None, :]
+            # pad rows of a left-padded batch are never attended; the
+            # window's band folds into the same mask
+            pos = torch.arange(S, device=x.device)
+            back = pos[:, None] - pos[None, :]
+            keep = back >= 0 if win is None else (back >= 0) & (back < win)
+            mask = keep[None, None] & (kvalid[:, :S] > 0)[:, None, None, :]
             out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
         else:
             out, cache = cached_attention(q, k, v, cache, cache_index,
                                           kv_write_pos, block_tables,
-                                          kvalid, kv_start)
+                                          kvalid, kv_start, win)
         return out.reshape(B, S, self.num_heads * self.head_dim) \
             @ self.o_proj, cache
 
@@ -396,12 +423,14 @@ class LlamaMLP(torch.nn.Module):
 
 
 class LlamaDecoderLayer(torch.nn.Module):
-    def __init__(self, config: LlamaConfig, dtype, device, generator):
+    def __init__(self, config: LlamaConfig, dtype, device, generator,
+                 layer_idx=0):
         super().__init__()
         self.input_layernorm = RMSNorm(config.hidden_size,
                                        epsilon=config.rms_norm_eps,
                                        device=device)
-        self.self_attn = LlamaAttention(config, dtype, device, generator)
+        self.self_attn = LlamaAttention(config, dtype, device, generator,
+                                        layer_idx)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 epsilon=config.rms_norm_eps,
                                                 device=device)
@@ -432,8 +461,8 @@ class LlamaModel(torch.nn.Module):
                                     config.initializer_range, dtype, device,
                                     generator)
         self.layers = torch.nn.ModuleList(
-            [LlamaDecoderLayer(config, dtype, device, generator)
-             for _ in range(config.num_hidden_layers)])
+            [LlamaDecoderLayer(config, dtype, device, generator, i)
+             for i in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             device=device)
         rs = config.rope_scaling
@@ -480,8 +509,7 @@ class LlamaForCausalLM(GenerationMixin, torch.nn.Module):
     def __init__(self, config: LlamaConfig, device=None, seed=0):
         super().__init__()
         for knob, why in (('sequence_parallel', 'sequence parallelism'),
-                          ('remat', 'remat (activation recomputation)'),
-                          ('sliding_window', 'sliding-window attention')):
+                          ('remat', 'remat (activation recomputation)')):
             if getattr(config, knob):
                 raise NotImplementedError(
                     f'{why} is not ported yet (config.{knob}='

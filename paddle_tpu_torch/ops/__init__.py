@@ -58,33 +58,30 @@ def flash_attention(q, k, v, causal=False, scale=None, segment_ids=None,
     segment_ids (B, Sq) and kv_segment_ids (B, Sk, default segment_ids)
     int: packed sequences, a query attending only keys of its own
     segment (with `causal`, both masks), a query with no such key
-    returning 0. That mode is the forward alone (kernel K5s): it runs
-    when nothing needs a gradient and raises NotImplementedError
-    otherwise (its backward, K6s, is not ported)."""
+    returning 0 (kernels K5s forward, K6s backward).
+
+    window_size: sliding-window attention, each query attending only
+    its last `window_size` keys, itself included; requires causal=True
+    (kernels K5w forward, K6w backward; with segment ids, K5s / K6s
+    with the band)."""
     if window_size is not None:
-        raise NotImplementedError(
-            'flash_attention: sliding windows (the window mode of K5/K6) '
-            'are not ported yet')
+        window_size = int(window_size)
+        if not causal:
+            raise ValueError(
+                'window_size requires causal=True (decoder sliding-window '
+                'attention); use an explicit mask for bidirectional bands')
+        if window_size < 1:
+            raise ValueError(f'window_size must be >= 1, got {window_size}')
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if kv_segment_ids is not None and segment_ids is None:
         raise ValueError('kv_segment_ids requires segment_ids')
+    qseg = kseg = None
     if segment_ids is not None:
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            raise NotImplementedError(
-                'flash_attention with segment ids has no backward yet (K6s '
-                'of PERF.md is not ported): run it under torch.no_grad()')
-        kseg = segment_ids if kv_segment_ids is None else kv_segment_ids
-        fwd = (_flash.flash_attention_fwd
-               if on_card(q, 'flash_attention_fwd_seg')
-               else _flash.flash_attention_fwd_plain)
-        out, _ = fwd(q.transpose(1, 2), k.transpose(1, 2),
-                     v.transpose(1, 2), bool(causal), scale,
-                     segment_ids.to(torch.int32), kseg.to(torch.int32))
-        return out.transpose(1, 2)
+        kv = segment_ids if kv_segment_ids is None else kv_segment_ids
+        qseg, kseg = segment_ids.to(torch.int32), kv.to(torch.int32)
     out = _flash.FlashAttentionFn.apply(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        bool(causal), scale)
+        bool(causal), scale, qseg, kseg, window_size)
     return out.transpose(1, 2)
 
 

@@ -34,13 +34,16 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC']
 
 # launches per kernel: each wrapper adds one where it launches its kernel
-# (flash_attention_bwd launches twice per call: dq, then dk and dv). A
+# (the flash backward launches twice per call: dq, then dk and dv). A
 # mode of a TPU kernel that is a kernel of its own in PERF.md's table
-# counts under its own key: K5s (flash_attention_fwd_seg), K8q
+# counts under its own key: K5s / K6s (flash_attention_fwd_seg /
+# _bwd_seg), K5w / K6w (flash_attention_fwd_window / _bwd_window), K8q
 # (paged_decode_attention_int8), K9 (decode_attention_headmajor).
 LAUNCHES = {'rms_norm': 0, 'rms_norm_bwd': 0, 'softmax_xent_fwd': 0,
             'softmax_xent_bwd': 0, 'flash_attention_fwd': 0,
-            'flash_attention_fwd_seg': 0, 'flash_attention_bwd': 0,
+            'flash_attention_fwd_seg': 0, 'flash_attention_fwd_window': 0,
+            'flash_attention_bwd': 0, 'flash_attention_bwd_seg': 0,
+            'flash_attention_bwd_window': 0,
             'paged_decode_attention': 0, 'paged_decode_attention_int8': 0,
             'decode_attention': 0, 'decode_attention_headmajor': 0,
             'quant_matmul': 0, 'quant_matmul_int4': 0}
@@ -56,10 +59,10 @@ _SIGNATURES = {
     'pt_softmax_xent_fwd': [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     'pt_softmax_xent_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     'pt_flash_attention_fwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _VP],
+                               _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _VP],
     'pt_flash_attention_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                               _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _I,
-                               _I, _VP],
+                               _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                               _I, _F, _I, _I, _I, _VP],
     'pt_paged_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                   _VP, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                   _I, _VP],

@@ -13,12 +13,20 @@ The kernels take any strides over (batch, head, sequence) with D
 contiguous, so the (B, S, H, D) tensors of the model pass as transposed
 views without a copy, and they return views of (B, S, H, D) buffers.
 Causal masking is bottom-right (query i sees keys j <= i + Sk - Sq); a
-query that sees no key returns 0. The forward also takes segment ids (K5s
-of PERF.md, the `qseg` / `kseg` mode of the TPU `_fwd`): (B, Sq) and
-(B, Sk) int32, a query seeing only keys of its own segment, combined
-with the causal mask; a kernel launch in that mode counts under
-`flash_attention_fwd_seg`. Its backward (K6s) and the sliding-window
-mode are not ported: `ops.flash_attention` raises on them.
+query that sees no key returns 0.
+
+Two modes of the TPU kernels, each a kernel of its own in PERF.md's
+table and counted under its own `LAUNCHES` key:
+- segment ids (K5s forward, K6s backward; the `qseg` / `kseg` operands of
+  the TPU `_fwd` / `_bwd`): (B, Sq) and (B, Sk) int32, a query seeing
+  only keys of its own segment, combined with the other masks; counted
+  under `flash_attention_fwd_seg` / `flash_attention_bwd_seg`;
+- a sliding window (K5w forward, K6w backward; their `window` mode): a
+  query sees only its last `window` positions, itself included
+  (q + Sk - Sq - k < window); counted under `flash_attention_fwd_window`
+  / `flash_attention_bwd_window`. A call with both counts as `_seg`.
+Every masked pair has probability 0, so a query with no visible key
+returns 0, has dq = 0 and gives no gradient to any key or value.
 """
 from __future__ import annotations
 
@@ -33,14 +41,16 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)   # head widths the kernels are built for
 
 
-def _visible(Sq, Sk, causal, device, qseg=None, kseg=None):
-    """Which keys each query sees: (Sq, Sk) bool (bottom-right causal),
-    or (B, 1, Sq, Sk) with segment ids (B, Sq) / (B, Sk)."""
-    if not causal:
-        ok = torch.ones(Sq, Sk, dtype=torch.bool, device=device)
-    else:
-        qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
-        ok = qpos >= torch.arange(Sk, device=device)[None, :]
+def _visible(Sq, Sk, causal, device, qseg=None, kseg=None, window=None):
+    """Which keys each query sees: (Sq, Sk) bool (bottom-right causal,
+    the window's band), or (B, 1, Sq, Sk) with segment ids (B, Sq) /
+    (B, Sk)."""
+    back = (torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+            - torch.arange(Sk, device=device)[None, :])
+    ok = (back >= 0 if causal
+          else torch.ones(Sq, Sk, dtype=torch.bool, device=device))
+    if window is not None:
+        ok = ok & (back < window)
     if qseg is not None:
         ok = ok & (qseg[:, :, None] == kseg[:, None, :])[:, None]
     return ok
@@ -63,20 +73,27 @@ def _check_segments(q, k, qseg, kseg):
             f'got {tuple(qseg.shape)} and {tuple(kseg.shape)}')
 
 
+def _check_window(window):
+    if window is not None and int(window) < 1:
+        raise ValueError(f'flash attention: window must be >= 1, got '
+                         f'{window}')
+
+
 def flash_attention_fwd_plain(q, k, v, causal=False, scale=None, qseg=None,
-                              kseg=None):
+                              kseg=None, window=None):
     """(out, lse): out (B, H, Sq, D) in q's dtype, lse (B, H, Sq)
     float32 (the JAX package's `_fwd` in float32); with segment ids
     qseg (B, Sq) / kseg (B, Sk), a query attends only keys of its own
-    segment."""
+    segment; with a `window`, only its last `window` positions."""
     _check_segments(q, k, qseg, kseg)
+    _check_window(window)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     group = H // k.shape[1]
     s = torch.einsum('bhqd,bhkd->bhqk', q.float() * scale,
                      _expand_kv(k, group))
-    ok = _visible(Sq, Sk, causal, q.device, qseg, kseg)
+    ok = _visible(Sq, Sk, causal, q.device, qseg, kseg, window)
     s = torch.where(ok, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
@@ -86,10 +103,13 @@ def flash_attention_fwd_plain(q, k, v, causal=False, scale=None, qseg=None,
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
-                              scale=None):
+                              scale=None, qseg=None, kseg=None, window=None):
     """(dq, dk, dv) in the inputs' dtypes (the JAX package's `_bwd` in
-    float32): delta = sum_d(do * out), p = exp(s - lse), ds = p * (dp -
-    delta); dk and dv summed over each GQA group."""
+    float32): delta = sum_d(do * out), p = exp(s - lse) on the visible
+    pairs and 0 elsewhere, ds = p * (dp - delta); dk and dv summed over
+    each GQA group. Segment ids and `window` as the forward took them."""
+    _check_segments(q, k, qseg, kseg)
+    _check_window(window)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
@@ -98,7 +118,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=False,
     kf, vf = _expand_kv(k, group), _expand_kv(v, group)
     delta = (dof * out.float()).sum(-1)
     s = torch.einsum('bhqd,bhkd->bhqk', qf * scale, kf)
-    ok = _visible(Sq, Sk, causal, q.device)
+    ok = _visible(Sq, Sk, causal, q.device, qseg, kseg, window)
     p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
     dv = torch.einsum('bhqk,bhqd->bhkd', p, dof)
     ds = p * (torch.einsum('bhqd,bhkd->bhqk', dof, vf) - delta[..., None])
@@ -155,20 +175,36 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _kernel_modes(kernel, q, k, qseg, kseg, window):
+    """The segment ids as the kernels take them (int32 on q's device,
+    contiguous, or None), the window as an int (0 for none: a window
+    past every key is the same mask, so it is capped at Sk), and the
+    launch-count suffix of the mode."""
+    _check_segments(q, k, qseg, kseg)
+    _check_window(window)
+    if qseg is not None:
+        if (qseg.dtype != torch.int32 or kseg.dtype != torch.int32
+                or qseg.device != q.device or kseg.device != q.device):
+            raise TypeError(f'{kernel} kernel: segment ids must be int32 '
+                            f'on {q.device}')
+        qseg, kseg = qseg.contiguous(), kseg.contiguous()
+    w = 0 if window is None else min(int(window), max(k.shape[2], 1))
+    suffix = '_seg' if qseg is not None else '_window' if w else ''
+    return qseg, kseg, w, suffix
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None, qseg=None,
-                        kseg=None):
+                        kseg=None, window=None):
     """The forward kernel on the card -> (out, lse) as the plain
     version returns them; out is a (B, H, Sq, D) view of a contiguous
     (B, Sq, H, D) buffer. Segment ids must be int32 on the card."""
-    _check_segments(q, k, qseg, kseg)
     code, (q, k, v) = _check('flash_attention_fwd', q, k, v)
-    seg = qseg is not None
-    if seg:
-        if (qseg.dtype != torch.int32 or kseg.dtype != torch.int32
-                or qseg.device != q.device or kseg.device != q.device):
-            raise TypeError('flash_attention_fwd kernel: segment ids must '
-                            f'be int32 on {q.device}')
-        qseg, kseg = qseg.contiguous(), kseg.contiguous()
+    qseg, kseg, w, suffix = _kernel_modes('flash_attention_fwd', q, k, qseg,
+                                          kseg, window)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
@@ -178,21 +214,24 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, qseg=None,
     lib = _build.load()
     err = lib.pt_flash_attention_fwd(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), qseg.data_ptr() if seg else 0,
-        kseg.data_ptr() if seg else 0, strides, B, H, Hkv, Sq, Sk, D,
-        float(scale), int(bool(causal)), code, _build.stream_ptr(q))
-    key = 'flash_attention_fwd_seg' if seg else 'flash_attention_fwd'
+        out.data_ptr(), lse.data_ptr(), _ptr(qseg), _ptr(kseg), strides, B,
+        H, Hkv, Sq, Sk, D, float(scale), int(bool(causal)), w, code,
+        _build.stream_ptr(q))
+    key = 'flash_attention_fwd' + suffix
     _build.check(err, key)
     _build.LAUNCHES[key] += 1
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None,
+                        qseg=None, kseg=None, window=None):
     """The backward kernels on the card (dq, then dk and dv) -> (dq, dk,
     dv) as the plain version returns them, as views of (B, S, H, D)
-    buffers."""
+    buffers. Segment ids and `window` as the forward took them."""
     code, (q, k, v, out, do) = _check('flash_attention_bwd', q, k, v, out,
                                       do)
+    qseg, kseg, w, suffix = _kernel_modes('flash_attention_bwd', q, k, qseg,
+                                          kseg, window)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
@@ -211,33 +250,38 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
     err = lib.pt_flash_attention_bwd(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, B, H, Hkv, Sq,
-        Sk, D, float(scale), int(bool(causal)), code, _build.stream_ptr(q))
-    _build.check(err, 'flash_attention_bwd')
-    _build.LAUNCHES['flash_attention_bwd'] += 2
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(qseg), _ptr(kseg),
+        strides, B, H, Hkv, Sq, Sk, D, float(scale), int(bool(causal)), w,
+        code, _build.stream_ptr(q))
+    key = 'flash_attention_bwd' + suffix
+    _build.check(err, key)
+    _build.LAUNCHES[key] += 2
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention over (B, H, S, D) tensors with its backward: the kernels
     on a CUDA tensor, the plain versions on a CPU one (the counterpart of
-    the JAX package's `_flash` custom VJP). The kernel functions are
-    looked up in this module at call time, so a harness can swap in the
-    plain ones."""
+    the JAX package's `_flash` / `_flash_seg` custom VJPs), in any mode:
+    causal or not, segment ids (qseg, kseg int32, no gradient) and a
+    window. The kernel functions are looked up in this module at call
+    time, so a harness can swap in the plain ones."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, qseg=None, kseg=None,
+                window=None):
         fwd = (flash_attention_fwd if _build.on_card(q, 'flash_attention')
                else flash_attention_fwd_plain)
-        out, lse = fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        out, lse = fwd(q, k, v, causal, scale, qseg, kseg, window)
+        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
         bwd = (flash_attention_bwd if _build.on_card(q, 'flash_attention')
                else flash_attention_bwd_plain)
-        dq, dk, dv = bwd(q, k, v, out, lse, do, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = bwd(q, k, v, out, lse, do, ctx.causal, ctx.scale, qseg,
+                         kseg, ctx.window)
+        return dq, dk, dv, None, None, None, None, None

@@ -630,3 +630,158 @@ def test_int8_serving_and_fused_ops_run_their_kernels(card):
     assert torch.isfinite(out).all()
     assert _build.LAUNCHES['paged_decode_attention_int8'] - before[
         'paged_decode_attention_int8'] == 1
+
+
+# (B, H, Hkv, Sq, Sk, D, window): a window of 1 (each query sees itself
+# alone), windows inside and past one tile, Sq != Sk both ways, GQA
+WINDOW_CASES = [
+    (1, 4, 2, 200, 200, 128, 1), (2, 4, 1, 150, 150, 64, 37),
+    (1, 4, 4, 96, 160, 128, 70), (1, 2, 2, 160, 96, 64, 20),
+    (1, 32, 8, 256, 256, 128, 100)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', WINDOW_CASES,
+                         ids=lambda c: 'B{}H{}/{}Sq{}Sk{}D{}w{}'.format(*c))
+def test_flash_window_kernels(card, dtype, case):
+    """K5w and K6w against their plain versions, each side's backward
+    from its own forward, in the model's (B, S, H, D) layout."""
+    B, H, Hkv, Sq, Sk, D, w = case
+    rng = np.random.default_rng(sum(case))
+    q = _randn(rng, (B, Sq, H, D), card, dtype).transpose(1, 2)
+    k = _randn(rng, (B, Sk, Hkv, D), card, dtype).transpose(1, 2)
+    v = _randn(rng, (B, Sk, Hkv, D), card, dtype).transpose(1, 2)
+    do = _randn(rng, (B, Sq, H, D), card, dtype).transpose(1, 2)
+    before = dict(_build.LAUNCHES)
+    out, lse = k_flash.flash_attention_fwd(q, k, v, True, None, window=w)
+    grads = k_flash.flash_attention_bwd(q, k, v, out, lse, do, True, None,
+                                        window=w)
+    after = dict(_build.LAUNCHES)
+    assert after['flash_attention_fwd_window'] == \
+        before['flash_attention_fwd_window'] + 1
+    assert after['flash_attention_bwd_window'] == \
+        before['flash_attention_bwd_window'] + 2
+    assert (after['flash_attention_fwd'], after['flash_attention_bwd']) == \
+        (before['flash_attention_fwd'], before['flash_attention_bwd'])
+    want_out, want_lse = k_flash.flash_attention_fwd_plain(
+        q, k, v, True, None, window=w)
+    want = k_flash.flash_attention_bwd_plain(q, k, v, want_out, want_lse, do,
+                                             True, None, window=w)
+    # as test_flash_attention_kernels: float32 summation order only; bf16
+    # one rounding step of the outputs and of the gradients' sums
+    rtol, atol = ((1e-4, 1e-4) if dtype == torch.float32
+                  else (2 ** -7, 2e-2))
+    seen = want_lse > -1e29
+    torch.testing.assert_close(lse[seen], want_lse[seen], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol,
+                               atol=atol)
+    for name, got, ref in zip(('dq', 'dk', 'dv'), grads, want):
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+    if w == 1 and Sq == Sk:
+        # a window of 1: each query returns its own value row
+        group = H // Hkv
+        own = v.repeat_interleave(group, dim=1)
+        torch.testing.assert_close(out.float(), own.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('causal,window', [(True, None), (False, None),
+                                           (True, 30)],
+                         ids=['causal', 'full', 'causal-window'])
+@pytest.mark.parametrize('D', [64, 128])
+def test_flash_segment_backward_kernel(card, dtype, causal, window, D):
+    """K6s against its plain version over a packed stream of 5 sequences
+    (the kernel reads strided (B, S, H, D) views), with a query segment
+    no key has: its dq is 0 and its dout moves no dk or dv; segments
+    with a window count under the segment key."""
+    rng = np.random.default_rng(D + int(causal) + (window or 0))
+    lens = [70, 1, 130, 33, 66]
+    T = sum(lens)
+    seg = np.repeat(np.arange(len(lens)), lens).astype(np.int32)
+    qseg = seg.copy()
+    qseg[75:90] = 99
+    H, Hkv = 4, 2
+
+    def bshd(h):
+        return _randn(rng, (1, T, h, D), card, dtype).transpose(1, 2)
+
+    q, k, v, do = bshd(H), bshd(Hkv), bshd(Hkv), bshd(H)
+    qs = torch.from_numpy(qseg[None]).to(card)
+    ks = torch.from_numpy(seg[None]).to(card)
+    out, lse = k_flash.flash_attention_fwd_plain(q, k, v, causal, None, qs,
+                                                 ks, window)
+    before = dict(_build.LAUNCHES)
+    got = k_flash.flash_attention_bwd(q, k, v, out, lse, do, causal, None,
+                                      qs, ks, window)
+    assert _build.LAUNCHES['flash_attention_bwd_seg'] == \
+        before['flash_attention_bwd_seg'] + 2
+    assert _build.LAUNCHES['flash_attention_bwd_window'] == \
+        before['flash_attention_bwd_window']
+    want = k_flash.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                             None, qs, ks, window)
+    rtol, atol = ((1e-4, 1e-4) if dtype == torch.float32
+                  else (2 ** -7, 2e-2))
+    for name, g, r in zip(('dq', 'dk', 'dv'), got, want):
+        torch.testing.assert_close(g.float(), r.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+    assert not got[0][:, :, 75:90].any(), 'an empty segment has dq = 0'
+    do0 = do.clone()
+    do0[:, :, 75:90] = 0
+    again = k_flash.flash_attention_bwd(q, k, v, out, lse, do0, causal, None,
+                                        qs, ks, window)
+    for g, a in zip(got[1:], again[1:]):
+        assert torch.equal(g, a), 'an empty segment moves no dk or dv'
+
+
+def test_window_and_segment_ops_differentiate_on_the_card(card):
+    """ops.flash_attention with a window, and flash_attn_unpadded, carry
+    gradients through the kernels: against the same graphs through the
+    plain versions, in float32."""
+    from paddle_tpu_torch.nn import functional as F
+
+    rng = np.random.default_rng(11)
+    B, S, H, Hkv, D = 2, 192, 4, 2, 64
+    base = [_randn(rng, (B, S, h, D), card, torch.float32)
+            for h in (H, Hkv, Hkv)]
+    do = _randn(rng, (B, S, H, D), card, torch.float32)
+
+    def grads(fn, ts):
+        ts = [t.detach().clone().requires_grad_() for t in ts]
+        out = fn(*ts)
+        (out * do.reshape(-1)[:out.numel()].reshape(out.shape)).sum() \
+            .backward()
+        return [out.detach()] + [t.grad for t in ts]
+
+    def plain_window(q, k, v):
+        return k_flash.FlashAttentionFn.apply(
+            *(t.cpu().transpose(1, 2) for t in (q, k, v)), True,
+            1 / np.sqrt(D), None, None, 40).transpose(1, 2).to(card)
+
+    before = dict(_build.LAUNCHES)
+    got = grads(lambda q, k, v: ops.flash_attention(q, k, v, causal=True,
+                                                    window_size=40), base)
+    assert _build.LAUNCHES['flash_attention_fwd_window'] == \
+        before['flash_attention_fwd_window'] + 1
+    assert _build.LAUNCHES['flash_attention_bwd_window'] == \
+        before['flash_attention_bwd_window'] + 2
+    want = grads(plain_window, base)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+    cu = torch.tensor([0, 50, 51, 192], dtype=torch.int32, device=card)
+    flat = [t[0] for t in base]
+    before = dict(_build.LAUNCHES)
+    got = grads(lambda q, k, v: F.flash_attn_unpadded(
+        q, k, v, cu, cu, 141, 141, causal=True)[0], flat)
+    assert _build.LAUNCHES['flash_attention_fwd_seg'] == \
+        before['flash_attention_fwd_seg'] + 1
+    assert _build.LAUNCHES['flash_attention_bwd_seg'] == \
+        before['flash_attention_bwd_seg'] + 2
+    want = grads(lambda q, k, v: F.flash_attn_unpadded(
+        q.cpu(), k.cpu(), v.cpu(), cu.cpu(), cu.cpu(), 141, 141,
+        causal=True)[0].to(card), flat)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)

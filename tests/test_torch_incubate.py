@@ -182,8 +182,9 @@ class TestSegmentFlashPlain:
         with pytest.raises(ValueError, match='kv_segment_ids'):
             F.scaled_dot_product_attention(q, q[:, :4], q[:, :4],
                                            segment_ids=seg)
-        with pytest.raises(NotImplementedError, match='window'):
-            ops.flash_attention(q, q, q, causal=True, window_size=4)
+        # a window is ported (K5w / K6w) and requires causal attention
+        with pytest.raises(ValueError, match='causal'):
+            ops.flash_attention(q, q, q, causal=False, window_size=4)
 
 
 class TestMaskedMultiheadAttention:

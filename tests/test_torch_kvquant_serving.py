@@ -157,24 +157,44 @@ KW = dict(max_slots=3, block_size=4, max_new_tokens=12, decode_window=4,
           buckets=(8, 16, 32), kv_cache_dtype='int8')
 
 
+PROMPTS = _prompts(6, (5, 17, 9, 30, 3, 12))
+
+
+@pytest.fixture(scope='module')
+def int8_runs():
+    """Each int8 engine run of this module, made once per module and
+    shared by the cases that need it (the preempting case compares with
+    the port's run over the full pool): run(kind, num_blocks) ->
+    (engine, outputs), kind 'jax' or 'port'."""
+    jm, tm = _models()
+    memo = {}
+
+    def run(kind, num_blocks):
+        if (kind, num_blocks) not in memo:
+            kw = dict(KW, num_blocks=num_blocks)
+            engine = (JaxEngine(jm, **kw) if kind == 'jax'
+                      else ServingEngine(tm, **kw))
+            memo[kind, num_blocks] = engine, _drive(engine, PROMPTS)
+        return memo[kind, num_blocks]
+
+    return run
+
+
 @pytest.mark.parametrize('num_blocks', [14, None], ids=['preempt', 'full'])
-def test_int8_streams_equal_jax_engine(num_blocks):
+def test_int8_streams_equal_jax_engine(int8_runs, num_blocks):
     """Token-equal to the JAX int8 engine; with 13 usable 4-token pages
     for 3 slots the pool preempts, and the preempted streams equal the
     port's own uninterrupted ones (a re-prefill rewrites the same int8
     bytes)."""
-    jm, tm = _models()
-    prompts = _prompts(6, (5, 17, 9, 30, 3, 12))
-    kw = dict(KW, num_blocks=num_blocks)
-    je, te = JaxEngine(jm, **kw), ServingEngine(tm, **kw)
-    want, got = _drive(je, prompts), _drive(te, prompts)
+    je, want = int8_runs('jax', num_blocks)
+    te, got = int8_runs('port', num_blocks)
     for i, (w, g) in enumerate(zip(want, got)):
         np.testing.assert_array_equal(g, w, err_msg=f'request {i}')
     assert te.preemption_count == je.stats()['preemptions']
     assert (te.preemption_count > 0) == (num_blocks is not None)
     assert te.allocator.in_use() == 0
     if num_blocks is not None:
-        whole = _drive(ServingEngine(tm, **KW), prompts)
+        _, whole = int8_runs('port', None)
         for i, (w, g) in enumerate(zip(whole, got)):
             np.testing.assert_array_equal(g, w, err_msg=f'request {i}')
 

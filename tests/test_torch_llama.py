@@ -176,8 +176,8 @@ class TestLogits:
                                        **LOGIT_TOL)
 
     def test_unserved_configs_raise(self):
-        for knob in (dict(sequence_parallel=True), dict(remat=True),
-                     dict(sliding_window=8)):
+        # sliding-window models are ported (tests/test_torch_window.py)
+        for knob in (dict(sequence_parallel=True), dict(remat=True)):
             with pytest.raises(NotImplementedError):
                 LlamaForCausalLM(dataclasses.replace(llama_tiny(), **knob),
                                  device='cpu')

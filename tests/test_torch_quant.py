@@ -139,16 +139,31 @@ def _jax_state(m):
     return {k: np.asarray(v) for k, v in m.state_dict().items()}
 
 
+@pytest.fixture(scope='module')
+def jax_quantized():
+    """The JAX package's quantize_weights(bits) of the untied or tied
+    model, made once per module and shared by every test held against
+    it: get(bits, tie=False) -> the quantized JAX model."""
+    memo = {}
+
+    def get(bits, tie=False):
+        if (bits, tie) not in memo:
+            memo[bits, tie] = _models(tie)[0].quantize_weights(bits)
+        return memo[bits, tie]
+
+    return get
+
+
 class TestQuantizeWeights:
     @pytest.mark.parametrize('tie', [False, True], ids=['untied', 'tied'])
     @pytest.mark.parametrize('bits', [8, 4])
-    def test_same_state_as_jax(self, bits, tie):
+    def test_same_state_as_jax(self, jax_quantized, bits, tie):
         """The same parameters quantize (embedding exempt, an untied head
         quantized, a tied head full precision), to bit-equal codes and
         scales under the same names; the original model is untouched."""
-        jm, tm = _models(tie)
+        _, tm = _models(tie)
         before = {k: v.clone() for k, v in tm.state_dict().items()}
-        want = _jax_state(jm.quantize_weights(bits))
+        want = _jax_state(jax_quantized(bits, tie))
         qm = tm.quantize_weights(bits)
         got = io.jax_state_dict(qm)
         assert set(got) == set(want)
@@ -165,12 +180,13 @@ class TestQuantizeWeights:
         assert isinstance(tm.model.layers[0].mlp.up_proj, torch.nn.Parameter)
 
     @pytest.mark.parametrize('bits', [8, 4])
-    def test_loaded_jax_quantized_state_generates_the_same(self, bits):
+    def test_loaded_jax_quantized_state_generates_the_same(
+            self, jax_quantized, bits):
         """A model the JAX package quantized loads (codes, scales) into a
         port model quantized the same way, and greedy generate is
         token-equal to the JAX model's."""
         jm, _ = _models()
-        jqm = jm.quantize_weights(bits)
+        jqm = jax_quantized(bits)
         ids = np.random.default_rng(bits).integers(
             3, CFG['vocab_size'], (2, 6)).astype(np.int32)
         want = np.asarray(jqm.generate(jnp.asarray(ids), max_new_tokens=8))
@@ -199,17 +215,17 @@ class TestQuantizeWeights:
             quantize_matmul_weights(tm, bits=3)
 
 
-def test_serving_engine_over_quantized_models_equal_jax():
+def test_serving_engine_over_quantized_models_equal_jax(jax_quantized):
     """The port's ServingEngine over a port-quantized model against the
     JAX ServingEngine over the JAX-quantized one: token-equal streams."""
-    jm, tm = _models()
+    _, tm = _models()
     kw = dict(max_slots=2, block_size=4, max_new_tokens=6, decode_window=3,
               max_context_len=32, buckets=(8, 16))
     rng = np.random.default_rng(11)
     prompts = [rng.integers(3, CFG['vocab_size'], n).astype(np.int32)
                for n in (5, 11, 3)]
     for bits in (8, 4):
-        je = JaxEngine(jm.quantize_weights(bits), **kw)
+        je = JaxEngine(jax_quantized(bits), **kw)
         te = ServingEngine(tm.quantize_weights(bits), **kw)
         jr = [je.submit(p) for p in prompts]
         tr = [te.submit(p) for p in prompts]

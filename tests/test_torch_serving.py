@@ -49,47 +49,74 @@ def _drive(engine, jobs):
     return [np.asarray(engine.result(r)) for r in rids]
 
 
-def _frequent_token(jobs, **kw):
-    """A token the port engine emits mid-stream (so an eos run really
-    stops early somewhere)."""
-    outs = _drive(ServingEngine(_models()[1], **kw), jobs)
+def _frequent_token(outs, jobs):
+    """A token the port engine emits mid-stream in its run without eos
+    (so an eos run really stops early somewhere)."""
     gen = np.concatenate([o[len(p) + 2:] for o, (p, _m, _r) in
                           zip(outs, jobs)])
     vals, counts = np.unique(gen, return_counts=True)
     return int(vals[np.argmax(counts)])
 
 
-@pytest.mark.parametrize('case', [
+CASES = {
     # a pool of 13 usable 4-token pages for 3 slots: preemption
-    dict(kw=dict(max_slots=3, block_size=4, num_blocks=14,
-                 max_new_tokens=12, decode_window=4, buckets=(8, 16, 32)),
-         lens=(5, 17, 9, 30, 3, 12), mnt=(None,) * 6, prio=(0,) * 6,
-         preempt=True),
+    'preempt': dict(kw=dict(max_slots=3, block_size=4, num_blocks=14,
+                            max_new_tokens=12, decode_window=4,
+                            buckets=(8, 16, 32)),
+                    lens=(5, 17, 9, 30, 3, 12), mnt=(None,) * 6,
+                    prio=(0,) * 6, preempt=True),
     # full pool; per-request budgets and priorities
-    dict(kw=dict(max_slots=2, block_size=8, max_new_tokens=9,
-                 decode_window=3, max_context_len=64, buckets=(16, 32)),
-         lens=(7, 22, 3, 15, 11), mnt=(9, 4, 9, 1, 6), prio=(0, 1, 0, 2, 0),
-         preempt=False),
-], ids=['preempt', 'priorities'])
-@pytest.mark.parametrize('eos', [False, True], ids=['no-eos', 'eos'])
-def test_streams_equal_jax_engine(case, eos):
-    jm, tm = _models()
-    jobs = list(zip(_prompts(len(case['lens']), case['lens']), case['mnt'],
+    'priorities': dict(kw=dict(max_slots=2, block_size=8, max_new_tokens=9,
+                               decode_window=3, max_context_len=64,
+                               buckets=(16, 32)),
+                       lens=(7, 22, 3, 15, 11), mnt=(9, 4, 9, 1, 6),
+                       prio=(0, 1, 0, 2, 0), preempt=False),
+}
+
+
+def _jobs(case):
+    return list(zip(_prompts(len(case['lens']), case['lens']), case['mnt'],
                     case['prio']))
-    kw = dict(case['kw'])
-    if eos:
-        kw['eos_token_id'] = _frequent_token(jobs, **case['kw'])
-    je, te = JaxEngine(jm, **kw), ServingEngine(tm, **kw)
-    want, got = _drive(je, jobs), _drive(te, jobs)
+
+
+@pytest.fixture(scope='module')
+def engine_runs():
+    """Each engine run of this module's cases, made once per module and
+    shared by the cases that need it (an eos case picks its eos from the
+    port's run without one): run(kind, case name, eos) -> (engine,
+    outputs), kind 'jax' or 'port'."""
+    jm, tm = _models()
+    memo = {}
+
+    def run(kind, name, eos=None):
+        if (kind, name, eos) not in memo:
+            case = CASES[name]
+            kw = dict(case['kw'], eos_token_id=eos)
+            engine = (JaxEngine(jm, **kw) if kind == 'jax'
+                      else ServingEngine(tm, **kw))
+            memo[kind, name, eos] = engine, _drive(engine, _jobs(case))
+        return memo[kind, name, eos]
+
+    return run
+
+
+@pytest.mark.parametrize('case', list(CASES), ids=list(CASES))
+@pytest.mark.parametrize('eos', [False, True], ids=['no-eos', 'eos'])
+def test_streams_equal_jax_engine(engine_runs, case, eos):
+    jobs = _jobs(CASES[case])
+    token = (_frequent_token(engine_runs('port', case)[1], jobs) if eos
+             else None)
+    je, want = engine_runs('jax', case, token)
+    te, got = engine_runs('port', case, token)
     for i, (w, g) in enumerate(zip(want, got)):
         np.testing.assert_array_equal(g, w, err_msg=f'request {i}')
     if eos:
-        stopped = [np.any(g[len(p):-1] == kw['eos_token_id'])
+        stopped = [np.any(g[len(p):-1] == token)
                    for g, (p, _m, _r) in zip(got, jobs)]
         assert any(stopped), 'eos never stopped a stream early'
     assert te.allocator.in_use() == 0
     assert te.preemption_count == je.stats()['preemptions']
-    assert (te.preemption_count > 0) == case['preempt']
+    assert (te.preemption_count > 0) == CASES[case]['preempt']
     s = te.stats()
     assert s['finished'] == len(jobs) and s['in_flight'] == 0
     assert s['blocks']['in_use'] == 0

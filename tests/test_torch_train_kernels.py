@@ -247,14 +247,9 @@ class TestFlashAttention:
 
 class TestRefusals:
     def test_unported_options_raise(self):
+        # segment ids and windows are ported with their backward (K6s,
+        # K6w): tests/test_torch_packed.py, tests/test_torch_window.py
         q = torch.zeros(1, 128, 2, 16)
-        # segment ids run forward only (K5s): with a gradient they raise
-        qg = q.clone().requires_grad_()
-        with pytest.raises(NotImplementedError, match='segment'):
-            ops.flash_attention(qg, q, q, causal=True,
-                                segment_ids=torch.zeros(1, 128))
-        with pytest.raises(NotImplementedError, match='window'):
-            ops.flash_attention(q, q, q, causal=True, window_size=16)
         with pytest.raises(NotImplementedError, match='dropout'):
             F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
         with pytest.raises(NotImplementedError):
