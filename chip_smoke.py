@@ -15,7 +15,11 @@ Phases, in order (any failure exits non-zero and prints no result):
               give it (bf16, and float32 where a path runs it; the window
               and segment modes of flash attention as kernels of their
               own, K5w / K6w at S = 4096 with a window of 1024, K6s over
-              a packed 4096-token stream), with a
+              a packed 4096-token stream; the shapes built after fault
+              E2's repair: K7, K8, K8q, K9 at GQA groups 3, 5, 6, 7 with
+              head sizes 64, 80, 96, 128, K5 / K6 at head sizes 80, 96,
+              256; K10f8, fp8 weights, at Llama-7B's and Qwen2-7B's
+              projections), with a
               stated tolerance, and timed with CUDA events (kernel,
               plain version, and the one PyTorch call that computes the
               same function, where there is one) against its bound, the
@@ -79,7 +83,20 @@ Phases, in order (any failure exits non-zero and prints no result):
               (d) greedy decode: 2 layers float32 (window 512, 640-token
               prompt) token-equal through kernels and plain versions,
               then 4 layers bf16 over a 4608-token prompt (ms per decode
-              step, K7 L per step over a window starting past 0).
+              step, K7 L per step over a window starting past 0);
+ 11. qwen2    a model at Qwen2-7B's published widths (its config.json
+              typed in, through the port's hf_qwen2_config: 28 layers,
+              28 heads over 4 kv heads, qkv biases, vocab 152064; bf16
+              weights from a seeded generator): (a) phase 4's burst
+              through ServingEngine over bf16 pools and (b) int8 pools
+              (exact K1 / K8 / K8q launches, no leaked page); (c) the
+              JAX bench's decode at b1 and b8 over 2048-position
+              caches, bf16 and int8 KV (exact K1 / K7 launches), then
+              DecodeEngine; fp8 weights of one layer through
+              nn.quant.weight_only_linear (K10f8); (d) at 2 layers in
+              float32, decode logits through the kernels against the
+              plain versions and streams of generate, DecodeEngine and
+              ServingEngine (both pool types) equal to theirs.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, a JSON object with one record per kernel, and
@@ -190,10 +207,11 @@ def check_rms_norm(torch, timer, R, N, dtype, return_r):
     }
 
 
-def check_paged(torch, timer, Hq, Hkv, D=128, BS=16):
+def check_paged(torch, timer, Hq, Hkv, D=128, BS=16, dtype=None):
     """llama_7b decode shapes: 4 rows of ragged contexts up to 1024
     positions over shuffled pages; one row's count runs past its table
-    (clamped), one table holds a -1 entry, one row has count 0."""
+    (clamped), one table holds a -1 entry, one row has count 0. bf16
+    pages, or `dtype`'s."""
     from paddle_tpu_torch.ops.hopper import paged_attention as k
 
     g = torch.Generator(device='cuda').manual_seed(Hkv)
@@ -209,32 +227,35 @@ def check_paged(torch, timer, Hq, Hkv, D=128, BS=16):
         at += u
     tbl[1, used[1]] = -1
     tbl[2] = perm[:MAXB]                      # count 0: entries unread
-    q = torch.randn(B, 1, Hq, D, device='cuda',
-                    generator=g).to(torch.bfloat16)
-    kc = torch.randn(NB, Hkv, BS, D, device='cuda',
-                     generator=g).to(torch.bfloat16)
-    vc = torch.randn(NB, Hkv, BS, D, device='cuda',
-                     generator=g).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    q = torch.randn(B, 1, Hq, D, device='cuda', generator=g).to(dtype)
+    kc = torch.randn(NB, Hkv, BS, D, device='cuda', generator=g).to(dtype)
+    vc = torch.randn(NB, Hkv, BS, D, device='cuda', generator=g).to(dtype)
     cl = torch.tensor(lens, dtype=torch.int32, device='cuda')
     out = k.paged_decode_attention(q, kc, vc, tbl, cl)
     ref = k.paged_decode_attention_plain(q, kc, vc, tbl, cl)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
     tol = 1e-2 + 1e-2 * ref.float().abs()
+    if dtype == torch.float32:
+        tol = 1e-4 + 1e-4 * ref.float().abs()
     if not bool((err <= tol).all()):
-        raise AssertionError(f'paged attention Hq={Hq} Hkv={Hkv}: max '
+        raise AssertionError(f'paged attention Hq={Hq} Hkv={Hkv} D={D}: max '
                              f'|kernel - plain| {err.max().item()}')
     if out[2].abs().max().item() != 0.0:
         raise AssertionError('paged attention: a count-0 row must be 0')
     ctx = sum(min(n, MAXB * BS) for n in lens)
-    nbytes = (ctx * Hkv * D * 2 * 2 + 2 * B * Hq * D * 2
+    item = q.element_size()
+    nbytes = (ctx * Hkv * D * 2 * item + 2 * B * Hq * D * item
               + B * MAXB * 4 + B * 4)
-    b, by = bound_ms(nbytes, 4 * ctx * Hq * D, BF16_FLOPS)
+    b, by = bound_ms(nbytes, 4 * ctx * Hq * D,
+                     BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    tight = '1e-4' if dtype == torch.float32 else '1e-2'
     return {
         'shape': (f'B={B} Hq={Hq} Hkv={Hkv} D={D} BS={BS} '
-                  f'lens={lens} bf16'),
+                  f'lens={lens} {dname(torch, dtype)}'),
         'max_abs_err': err.max().item(),
-        'tolerance': '|kernel - plain| <= 1e-2 + 1e-2 * |plain|',
+        'tolerance': f'|kernel - plain| <= {tight} + {tight} * |plain|',
         'ms': timer(lambda: k.paged_decode_attention(q, kc, vc, tbl, cl)),
         'plain_ms': timer(lambda: k.paged_decode_attention_plain(
             q, kc, vc, tbl, cl)),
@@ -243,12 +264,14 @@ def check_paged(torch, timer, Hq, Hkv, D=128, BS=16):
     }
 
 
-def check_paged_int8(torch, timer, Hq, Hkv, rowscale, D=128, BS=16):
+def check_paged_int8(torch, timer, Hq, Hkv, rowscale, D=128, BS=16,
+                     dtype=None):
     """K8q at check_paged's shapes (4 rows of ragged contexts up to 1024
     positions, one count past its table, a -1 entry, a count-0 row) over
     int8 pages: per-row (NB, Hkv, BS) scales as the int8 ServingEngine
     writes them, or per-(head, dim) (Hkv, D) scales as
-    block_multihead_attention's static cache scales; bf16 queries."""
+    block_multihead_attention's static cache scales; bf16 queries, or
+    `dtype`'s."""
     from paddle_tpu_torch.ops.hopper import paged_attention as k
 
     g = torch.Generator(device='cuda').manual_seed(Hkv + 7 * rowscale)
@@ -264,8 +287,8 @@ def check_paged_int8(torch, timer, Hq, Hkv, rowscale, D=128, BS=16):
         at += u
     tbl[1, used[1]] = -1
     tbl[2] = perm[:MAXB]                      # count 0: entries unread
-    q = torch.randn(B, 1, Hq, D, device='cuda',
-                    generator=g).to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    q = torch.randn(B, 1, Hq, D, device='cuda', generator=g).to(dtype)
     kc, vc = (torch.randint(-127, 128, (NB, Hkv, BS, D), device='cuda',
                             generator=g, dtype=torch.int8)
               for _ in range(2))
@@ -276,21 +299,22 @@ def check_paged_int8(torch, timer, Hq, Hkv, rowscale, D=128, BS=16):
     out = k.paged_decode_attention(q, kc, vc, tbl, cl, None, ks, vs)
     ref = k.paged_decode_attention_plain(q, kc, vc, tbl, cl, None, ks, vs)
     torch.cuda.synchronize()
-    tol = TENSOR_TOL['bfloat16']
-    what = (f'paged attention int8 Hq={Hq} Hkv={Hkv} '
+    tol = TENSOR_TOL[dname(torch, dtype)]
+    what = (f'paged attention int8 Hq={Hq} Hkv={Hkv} D={D} '
             f'{"row" if rowscale else "head-dim"} scales')
     err = within(out, ref, tol, what)
     if out[2].abs().max().item() != 0.0:
         raise AssertionError(f'{what}: a count-0 row must be 0')
     ctx = sum(min(n, MAXB * BS) for n in lens)
     scale_bytes = (2 * ctx * Hkv * 4 if rowscale else 2 * Hkv * D * 4)
-    nbytes = (2 * ctx * Hkv * D + scale_bytes + 2 * B * Hq * D * 2
-              + B * MAXB * 4 + B * 4)
-    b, by = bound_ms(nbytes, 4 * ctx * Hq * D, BF16_FLOPS)
+    nbytes = (2 * ctx * Hkv * D + scale_bytes
+              + 2 * B * Hq * D * q.element_size() + B * MAXB * 4 + B * 4)
+    b, by = bound_ms(nbytes, 4 * ctx * Hq * D,
+                     BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
     return {
         'shape': (f'B={B} Hq={Hq} Hkv={Hkv} D={D} BS={BS} lens={lens} '
                   f'int8 pages, {"per-row" if rowscale else "(Hkv, D)"} '
-                  f'f32 scales, bf16 q'),
+                  f'f32 scales, {dname(torch, dtype)} q'),
         'max_abs_err': err, 'tolerance': tol_text(tol),
         'ms': timer(lambda: k.paged_decode_attention(q, kc, vc, tbl, cl,
                                                      None, ks, vs)),
@@ -508,24 +532,34 @@ def check_decode(torch, timer, B, Hq, Hkv, mode, S=2048, D=128):
     }
 
 
+FP8 = {'e4m3': 'float8_e4m3fn', 'e5m2': 'float8_e5m2'}
+
+
 def check_quant_matmul(torch, timer, M, K, N, dtype, bits):
-    """K10 (bits 8) or K11 (bits 4) at a Llama-7B projection: M = 1 and 8
-    decode rows, 16 (the bucketed prefill), 2048 (a long prompt). The
-    yardstick is torch.matmul against the weight dequantized to x's
-    dtype: the same product reading 2x (K10) or 4x (K11) the weight
-    bytes in bf16; where the installed torch has a CUDA
-    torch._weight_int8pack_mm (K10's function for bf16 x), it is timed
-    too."""
+    """K10 (bits 8), K11 (bits 4) or K10f8 (bits 'e4m3' or 'e5m2') at a
+    Llama-7B or Qwen2-7B projection: M = 1 and 8 decode rows, 16 (the
+    bucketed prefill), 2048 (a long prompt). The yardstick is
+    torch.matmul against the weight dequantized to x's dtype: the same
+    product reading 2x (K10, K10f8) or 4x (K11) the weight bytes in
+    bf16; where the installed torch has a CUDA torch._weight_int8pack_mm
+    (K10's function for bf16 x), it is timed too."""
     from paddle_tpu_torch.ops.hopper import quant_matmul as k
 
-    g = torch.Generator(device='cuda').manual_seed(M + K + N + bits)
+    fp8 = bits in FP8
+    g = torch.Generator(device='cuda').manual_seed(
+        M + K + N + (len(bits) if fp8 else bits))
     w = 0.02 * torch.randn(K, N, device='cuda', generator=g)
-    quant = k.quantize_weight_int4 if bits == 4 else k.quantize_weight
-    codes, scale = quant(w)
+    if fp8:
+        codes, scale = k.quantize_weight_fp8(w, getattr(torch, FP8[bits]))
+    else:
+        quant = k.quantize_weight_int4 if bits == 4 else k.quantize_weight
+        codes, scale = quant(w)
     del w
     x = torch.randn(M, K, device='cuda', generator=g).to(dtype)
-    kern = k.quant_matmul_int4 if bits == 4 else k.quant_matmul
-    plain = k.quant_matmul_int4_plain if bits == 4 else k.quant_matmul_plain
+    kern = {4: k.quant_matmul_int4, 8: k.quant_matmul}.get(
+        bits, k.quant_matmul_fp8)
+    plain = {4: k.quant_matmul_int4_plain, 8: k.quant_matmul_plain}.get(
+        bits, k.quant_matmul_fp8_plain)
     out = kern(x, codes, scale)
     ref = plain(x, codes, scale)
     torch.cuda.synchronize()
@@ -533,7 +567,8 @@ def check_quant_matmul(torch, timer, M, K, N, dtype, bits):
     # step of the output on top
     tol = {'float32': (1e-4, 1e-4), 'bfloat16': TENSOR_TOL['bfloat16']}[
         dname(torch, dtype)]
-    what = f'quant_matmul int{bits} M={M} K={K} N={N} {dtype}'
+    kind = bits if fp8 else f'int{bits}'
+    what = f'quant_matmul {kind} M={M} K={K} N={N} {dtype}'
     err = within(out, ref, tol, what)
     del out, ref
     item = x.element_size()
@@ -546,7 +581,7 @@ def check_quant_matmul(torch, timer, M, K, N, dtype, bits):
         deq = (codes.float() * scale).to(dtype)
     iters = 20 if M <= 16 else 5
     rec = {
-        'shape': f'x ({M}, {K}) {dname(torch, dtype)}, codes int{bits} '
+        'shape': f'x ({M}, {K}) {dname(torch, dtype)}, codes {kind} '
                  f'{tuple(codes.shape)}',
         'max_abs_err': err, 'tolerance': tol_text(tol),
         'ms': timer(lambda: kern(x, codes, scale), iters=iters),
@@ -554,7 +589,7 @@ def check_quant_matmul(torch, timer, M, K, N, dtype, bits):
         'library_ms': timer(lambda: torch.matmul(x, deq), iters=iters),
         'library': (f'torch.matmul against the weight dequantized to '
                     f'{dname(torch, dtype)} (the same product at '
-                    f'{(2 if bits == 8 else 4) * item // 2}x the weight '
+                    f'{(4 if bits == 4 else 2) * item // 2}x the weight '
                     f'bytes)'),
         'bound_ms': b_, 'bound_by': by,
     }
@@ -1279,7 +1314,8 @@ def plain_kernels():
                           (hp, 'paged_decode_attention'),
                           (hd, 'decode_attention'),
                           (hh, 'decode_attention_headmajor'),
-                          (hq, 'quant_matmul'), (hq, 'quant_matmul_int4')):
+                          (hq, 'quant_matmul'), (hq, 'quant_matmul_int4'),
+                          (hq, 'quant_matmul_fp8')):
             stack.enter_context(mock.patch.object(
                 mod, name, getattr(mod, name + '_plain')))
         yield
@@ -1487,16 +1523,18 @@ def capture_logits(torch, model, fn):
     return out, torch.stack(rows)
 
 
-def agreement_phase(torch, np, card, steps=16, f32_tol=1e-3):
+def agreement_phase(torch, np, card, steps=16, f32_tol=1e-3, cfg=None,
+                    width='Llama-7B', weights=True):
     """Kernels against plain versions on a float32 model at Llama-7B
-    width with 2 layers: the logits of every forward of a generate
-    (prefill, then `steps` decode forwards) in five modes must agree
-    within `f32_tol`, with equal tokens; and DecodeEngine (padded to its
-    bucket) must be token-equal to model.generate (unpadded)."""
+    width (or `cfg`'s) with 2 layers: the logits of every forward of a
+    generate (prefill, then `steps` decode forwards) in five modes (three
+    without the quantized `weights`) must agree within `f32_tol`, with
+    equal tokens; and DecodeEngine (padded to its bucket) must be
+    token-equal to model.generate (unpadded). Returns the model."""
     from paddle_tpu_torch.inference import DecodeEngine
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 
-    cfg = dataclasses.replace(llama_7b(), num_hidden_layers=2,
+    cfg = dataclasses.replace(cfg or llama_7b(), num_hidden_layers=2,
                               dtype='float32')
     model = LlamaForCausalLM(cfg, seed=1)
     rng = np.random.default_rng(5)
@@ -1513,12 +1551,13 @@ def agreement_phase(torch, np, card, steps=16, f32_tol=1e-3):
         ('float32 caches', model, dict(input_ids=ids), None),
         ('int8 KV, scales calibrated on the prefill', model,
          dict(input_ids=ids, kv_cache_int8=True), None),
-        ('int8 weights', model.quantize_weights(8), dict(input_ids=ids),
-         'quant_matmul'),
-        ('int4 weights', model.quantize_weights(4), dict(input_ids=ids),
-         'quant_matmul_int4'),
+        ('int8 weights', model.quantize_weights(8) if weights else None,
+         dict(input_ids=ids), 'quant_matmul'),
+        ('int4 weights', model.quantize_weights(4) if weights else None,
+         dict(input_ids=ids), 'quant_matmul_int4'),
         ('left-padded batch, attention_mask', model,
          dict(input_ids=padded, attention_mask=am), None))
+    modes = [m for m in modes if m[1] is not None]
     for label, m, kw, quant in modes:
         def gen():
             return m.generate(max_new_tokens=n, **kw)
@@ -1532,7 +1571,7 @@ def agreement_phase(torch, np, card, steps=16, f32_tol=1e-3):
         if any(pcounts.values()):
             raise AssertionError(f'the plain run launched {pcounts}')
         err = (lk - lp).abs().max().item()
-        print(f'agreement float32, {label}: Llama-7B width, 2 layers, '
+        print(f'agreement float32, {label}: {width} width, 2 layers, '
               f'{steps} decode steps: max |kernels - plain| logit {err:.6g}'
               f' (bound {f32_tol:g}, max |logit| '
               f'{lp.abs().max().item():.4f}); tokens equal '
@@ -1562,9 +1601,10 @@ def agreement_phase(torch, np, card, steps=16, f32_tol=1e-3):
           f'{bool(torch.equal(got, want))}')
     if not torch.equal(got, want):
         raise AssertionError('DecodeEngine and generate disagree')
-    del model, modes
+    del modes
     gc.collect()
     torch.cuda.empty_cache()
+    return model
 
 
 def decode_phase(torch, np, card):
@@ -1637,7 +1677,9 @@ def decode_phase(torch, np, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    agreement_phase(torch, np, card)
+    agreement_phase(torch, np, card)      # its model is dropped here
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f'decode: phase took {time.perf_counter() - t_phase:.1f} s',
           flush=True)
     return total
@@ -2259,6 +2301,215 @@ def swa_phase(torch, np, card):
     return paths
 
 
+# Qwen/Qwen2-7B's config.json on the Hugging Face hub, typed in (no
+# download): 28 query heads over 4 kv heads (GQA group 7), head size 128,
+# qkv biases, rope_theta 1e6, untied embeddings, no sliding window
+QWEN2_7B = {
+    'architectures': ['Qwen2ForCausalLM'], 'attention_dropout': 0.0,
+    'bos_token_id': 151643, 'eos_token_id': 151643, 'hidden_act': 'silu',
+    'hidden_size': 3584, 'initializer_range': 0.02,
+    'intermediate_size': 18944, 'max_position_embeddings': 131072,
+    'max_window_layers': 28, 'model_type': 'qwen2',
+    'num_attention_heads': 28, 'num_hidden_layers': 28,
+    'num_key_value_heads': 4, 'rms_norm_eps': 1e-06,
+    'rope_theta': 1000000.0, 'sliding_window': 131072,
+    'tie_word_embeddings': False, 'torch_dtype': 'bfloat16',
+    'use_cache': True, 'use_sliding_window': False, 'vocab_size': 152064}
+
+
+def qwen2_config():
+    """Qwen2-7B's published widths through the port's HF converter."""
+    from paddle_tpu_torch.models import hf_qwen2_config
+
+    cfg = hf_qwen2_config(QWEN2_7B)
+    if (cfg.num_attention_heads // cfg.num_key_value_heads, cfg.head_dim,
+            cfg.attention_bias, cfg.sliding_window) != (7, 128, True, None):
+        raise AssertionError(f'hf_qwen2_config mapped Qwen2-7B to {cfg}')
+    return cfg
+
+
+def fp8_linear(torch, model, card):
+    """nn.quant's fp8 weight-only linear (K10f8) over layer 0's seven
+    projections of the Qwen2-7B-width model, at a decode row (M = 1) and
+    a 512-token prompt: weight_quantize(algo='weight_only_fp8'), then
+    weight_only_linear with the default weight_dtype, which routes fp8
+    codes to K10f8 (the q, k, v biases added). Each output against the
+    bf16 product x @ w (bounded by e4m3's rounding: 4 significant bits,
+    so |fp8 - bf16| / |bf16| <= 0.05 in L2) and against the plain
+    version. Returns the launch counts."""
+    from paddle_tpu_torch.nn import quant as nq
+    from paddle_tpu_torch.ops.hopper import quant_matmul as k
+
+    attn, mlp = model.model.layers[0].self_attn, model.model.layers[0].mlp
+    projs = [('q', attn.q_proj, attn.q_bias), ('k', attn.k_proj, attn.k_bias),
+             ('v', attn.v_proj, attn.v_bias), ('o', attn.o_proj, None),
+             ('gate', mlp.gate_proj, None), ('up', mlp.up_proj, None),
+             ('down', mlp.down_proj, None)]
+    with torch.no_grad():
+        quant = [(n, w, b, *nq.weight_quantize(w, algo='weight_only_fp8'))
+                 for n, w, b in projs]
+        dev = model.device
+        g = torch.Generator(device=dev).manual_seed(12)
+        worst = worst_plain = 0.0
+        total = {}
+        for M in (1, 512):
+            for name, w, b, codes, scale in quant:
+                x = torch.randn(M, w.shape[0], device=dev,
+                                generator=g).to(torch.bfloat16)
+                got, counts = count_launches(
+                    torch, lambda: nq.weight_only_linear(
+                        x, codes, bias=b, weight_scale=scale))
+                if codes.dtype != torch.float8_e4m3fn or counts != dict(
+                        dict.fromkeys(counts, 0), quant_matmul_fp8=1):
+                    raise AssertionError(f'fp8 linear {name}: codes '
+                                         f'{codes.dtype}, launches {counts}')
+                add_counts(total, counts)
+                dense = (x.float() @ w.float()) + (0 if b is None
+                                                   else b.float())
+                rel = ((got.float() - dense).norm() / dense.norm()).item()
+                plain = k.quant_matmul_fp8_plain(x, codes, scale).float()
+                if b is not None:
+                    plain = plain + b.float()
+                within(got, plain, TENSOR_TOL['bfloat16'],
+                       f'fp8 linear {name} M={M} against its plain version')
+                worst = max(worst, rel)
+                worst_plain = max(worst_plain,
+                                  (got.float() - plain).abs().max().item())
+    print(f'qwen2 fp8 weights: layer 0\'s 7 projections through '
+          f'nn.quant.weight_only_linear (K10f8) at M = 1 and 512: relative '
+          f'L2 error against the bf16 product at most {worst:.4f} (bound '
+          f'0.05), max |kernel - plain| {worst_plain:.4g}; launches '
+          f'{ {k_: v for k_, v in total.items() if v} } [{card}]',
+          flush=True)
+    if not worst <= 0.05:
+        raise AssertionError(f'fp8 linear: relative error {worst} > 0.05')
+    return total
+
+
+def qwen2_agreement(torch, np, card, cfg):
+    """Phase 11 (d): at Qwen2-7B's widths with 2 layers in float32, 16
+    decode-step logits through the kernels against the plain versions
+    (float32 and int8 KV caches, a left-padded batch: agreement_phase's
+    bound), DecodeEngine token-equal to generate, and ServingEngine's
+    streams over float32 and int8 pools through the kernels equal to the
+    plain versions'."""
+    from paddle_tpu_torch.inference import ServingEngine
+
+    model = agreement_phase(torch, np, card, cfg=cfg, width='Qwen2-7B',
+                            weights=False)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in (96, 40, 130, 17)]
+    for kv in ('float32', 'int8'):
+        kw = dict(SERVE_KW, max_new_tokens=16)
+        if kv == 'int8':
+            kw['kv_cache_dtype'] = 'int8'
+        got, counts = count_launches(
+            torch, lambda: ServingEngine(model, **kw).serve(prompts))
+        with plain_kernels():
+            want = ServingEngine(model, **kw).serve(prompts)
+        key = ('paged_decode_attention_int8' if kv == 'int8'
+               else 'paged_decode_attention')
+        equal = all(np_equal(a, b) for a, b in zip(got, want))
+        print(f'qwen2 agreement float32: ServingEngine over {kv} pools, 2 '
+              f'layers, {len(prompts)} requests x 16 tokens: streams '
+              f'through the kernels equal to the plain versions: {equal}; '
+              f'{key} launches {counts[key]} [{card}]', flush=True)
+        if not equal or not counts[key]:
+            raise AssertionError(f'qwen2 serving over {kv} pools: kernel '
+                                 f'and plain streams differ, or {key} never '
+                                 f'ran')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def qwen2_phase(torch, np, card):
+    """Phase 11: a model at Qwen2-7B's published widths (28 layers, GQA
+    group 7, qkv biases; bf16 weights drawn on the card from a seeded
+    generator) served and decoded: (a) phase 4's burst through
+    ServingEngine over bf16 pools (K1, K8 at group 7), (b) over int8
+    pools (K8q), each with exact launches and no leaked page; (c) the
+    JAX bench's decode at b1 and b8 over 2048-position caches, bf16 and
+    int8 KV (K7 at group 7, exact launches), then DecodeEngine; (e) fp8
+    weights through nn.quant (K10f8); (d) float32 agreement at 2 layers.
+    Returns the launch counts of its runs by path."""
+    from paddle_tpu_torch.inference import DecodeEngine, ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    t_phase = time.perf_counter()
+    cfg = qwen2_config()
+    L = cfg.num_hidden_layers
+    t = time.perf_counter()
+    model = LlamaForCausalLM(dataclasses.replace(cfg, dtype='bfloat16'),
+                             seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f'qwen2: Qwen2-7B widths (hf_qwen2_config of its config.json), '
+          f'{L} layers, heads {cfg.num_attention_heads} / '
+          f'{cfg.num_key_value_heads}, {n_params} parameters, bf16, drawn '
+          f'in {time.perf_counter() - t:.1f} s', flush=True)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 513, 8)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    paths = {}
+    for label, kv, kernel in (
+            ('qwen2 serving', None, 'paged_decode_attention'),
+            ('qwen2 int8 serving', 'int8', 'paged_decode_attention_int8')):
+        kw = dict(SERVE_KW) if kv is None else dict(SERVE_KW,
+                                                    kv_cache_dtype=kv)
+        engine = ServingEngine(model, **kw)
+        run = serve_burst(torch, engine, prompts)
+        check_burst(label, engine, prompts, cfg.vocab_size, *run, kernel,
+                    card)
+        paths[label] = run[1]
+        del engine, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    decode = {}
+    for batch, label, kv8 in ((1, 'qwen2 b1 bf16', False),
+                              (8, 'qwen2 b8 bf16', False),
+                              (1, 'qwen2 b1 int8 KV', True),
+                              (8, 'qwen2 b8 int8 KV', True)):
+        add_counts(decode, bench_decode(torch, model, batch, label, card,
+                                        kv_int8=kv8, steps=32, reps=2)[2])
+        gc.collect()
+        torch.cuda.empty_cache()
+    eng_steps = 64
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 13))).to(
+        model.device)
+    eng = DecodeEngine(model, max_new_tokens=eng_steps)
+    eng.generate(prompt)
+
+    def timed():
+        t = time.perf_counter()
+        out = eng.generate(prompt)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (out, dt), counts = count_launches(torch, timed)
+    expect_launches(counts, L, eng_steps, eng_steps - 1)
+    if out.shape != (1, 13 + eng_steps):
+        raise AssertionError(f'qwen2 DecodeEngine returned {out.shape}')
+    add_counts(decode, counts)
+    paths['qwen2 decode'] = decode
+    print(f'qwen2 DecodeEngine: {eng_steps / dt:.2f} tokens/s end to end '
+          f'(13-token prompt, {eng_steps} new tokens, {dt:.3f} s) [{card}]',
+          flush=True)
+    del eng
+    paths['qwen2 fp8 weights'] = fp8_linear(torch, model, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    qwen2_agreement(torch, np, card, cfg)
+    print(f'qwen2: phase took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return paths
+
+
 def main():
     try:
         import numpy as np
@@ -2311,7 +2562,11 @@ def main():
                          check_rms_norm(torch, timer, 12288, 4096, bf16,
                                         True),
                          check_rms_norm(torch, timer, 12288, 4096, f32,
-                                        True)],
+                                        True),
+                         # phase 11's Qwen2-7B hidden size
+                         check_rms_norm(torch, timer, 4, 3584, bf16, False),
+                         check_rms_norm(torch, timer, 2048, 3584, bf16,
+                                        False)],
             'paged_decode_attention': [check_paged(torch, timer, 32, 32),
                                        check_paged(torch, timer, 32, 8)],
             # int8 serving's per-row scales first (its main path), then
@@ -2332,6 +2587,14 @@ def main():
             cases.setdefault('flash_attention_fwd', []).append(fwd)
             cases.setdefault('flash_attention_bwd', []).append(bwd)
             torch.cuda.empty_cache()
+        # head sizes built after fault E2's repair (padded tiles): Qwen's
+        # 80 and 96 at GQA 28 / 4, and 256 (Gemma-7B's 16 heads)
+        for H, Hkv, D in ((28, 4, 80), (28, 4, 96), (16, 16, 256)):
+            for dt in (bf16, f32):
+                fwd, bwd = check_flash(torch, timer, 1, H, Hkv, 2048, D, dt)
+                cases['flash_attention_fwd'].append(fwd)
+                cases['flash_attention_bwd'].append(bwd)
+                torch.cuda.empty_cache()
         cases['flash_attention_fwd_seg'] = [
             check_flash_seg(torch, timer, dt) for dt in (bf16, f32)]
         torch.cuda.empty_cache()
@@ -2359,6 +2622,33 @@ def main():
             for B in (1, 8) for Hkv in (32, 8)
             for mode in ('bfloat16', 'float32', 'int8')]
         torch.cuda.empty_cache()
+        # the decode kernels at the GQA groups and head sizes built after
+        # fault E2's repair: groups 7 (Qwen2-7B, phase 11's main path
+        # first), 3, 5 and 6 over 4 kv heads at D = 128, 64, 80, 96, bf16
+        # and int8 (K8q in the int8 serving's per-row mode), float32 at
+        # group 7; K7 / K9 at the bench's b1 row, K8 / K8q at
+        # check_paged's 4 ragged rows
+        for g in (7, 3, 5, 6):
+            for D in (128, 64, 80, 96):
+                Hq = 4 * g
+                modes = ('bfloat16', 'int8') + (
+                    ('float32',) if g == 7 else ())
+                for mode in modes:
+                    cases['decode_attention'].append(check_decode(
+                        torch, timer, 1, Hq, 4, mode, D=D))
+                    cases['decode_attention_headmajor'].append(
+                        check_headmajor(torch, timer, 1, Hq, 4, mode, D=D))
+                for dt in (bf16,) + ((f32,) if g == 7 else ()):
+                    cases['paged_decode_attention'].append(check_paged(
+                        torch, timer, Hq, 4, D=D, dtype=dt))
+                    cases['paged_decode_attention_int8'].append(
+                        check_paged_int8(torch, timer, Hq, 4, True, D=D,
+                                         dtype=dt))
+        # K7 at phase 11's b8 decode (bf16 and int8 caches)
+        cases['decode_attention'] += [
+            check_decode(torch, timer, 8, 28, 4, mode)
+            for mode in ('bfloat16', 'int8')]
+        torch.cuda.empty_cache()
         # weight-only products: M = 1 bf16 at 4096 x 4096 first
         for bits, name in ((8, 'quant_matmul'), (4, 'quant_matmul_int4')):
             cases[name] = [
@@ -2368,6 +2658,19 @@ def main():
                              (4096, 32000))
                 for dt in (bf16, f32)]
             torch.cuda.empty_cache()
+        # fp8 codes (K10f8): K10's Llama-7B rows and Qwen2-7B's MLP
+        # projections in bf16 e4m3 (the nn.quant default), then e5m2 and
+        # a float32 x at M = 1
+        cases['quant_matmul_fp8'] = [
+            check_quant_matmul(torch, timer, M, K, N, bf16, 'e4m3')
+            for M in (1, 8, 16, 2048)
+            for K, N in ((4096, 4096), (4096, 11008), (11008, 4096),
+                         (4096, 32000))] + [
+            check_quant_matmul(torch, timer, M, K, N, bf16, 'e4m3')
+            for M in (1, 2048) for K, N in ((3584, 18944), (18944, 3584))] + [
+            check_quant_matmul(torch, timer, 1, 4096, 4096, bf16, 'e5m2'),
+            check_quant_matmul(torch, timer, 1, 4096, 4096, f32, 'e4m3')]
+        torch.cuda.empty_cache()
         for name, cs in cases.items():
             for c in cs:
                 print(f'kernel {name}: {json.dumps(c)} [{card}]', flush=True)
@@ -2399,6 +2702,11 @@ def main():
 
         # 10. sliding-window and packed training, sliding-window decode
         swa_launches = swa_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 11. Qwen2-7B widths: serving, decode, fp8 weights, agreement
+        qwen2_launches = qwen2_phase(torch, np, card)
 
         records = []
         for name, src, rep in (
@@ -2429,7 +2737,9 @@ def main():
                  'paged_attention.py:206'),
                 ('quant_matmul', 'quant_matmul.cu', 'quant_matmul.py:124'),
                 ('quant_matmul_int4', 'quant_matmul.cu',
-                 'quant_matmul.py:154')):
+                 'quant_matmul.py:154'),
+                ('quant_matmul_fp8', 'quant_matmul.cu',
+                 'quant_matmul.py:124')):
             cs = cases[name]
             head = cs[0]       # the main path's shape and dtype
             by_path = {'serving': serve_launches[name],
@@ -2437,8 +2747,9 @@ def main():
                        'decode': decode_launches.get(name, 0),
                        'fused': fused_launches.get(name, 0),
                        'train': train_launches[name]}
-            by_path.update((path, counts.get(name, 0))
-                           for path, counts in swa_launches.items())
+            for paths in (swa_launches, qwen2_launches):
+                by_path.update((path, counts.get(name, 0))
+                               for path, counts in paths.items())
             records.append({
                 'name': name, 'route': 'cuda',
                 'source': f'paddle_tpu_torch/csrc/{src}',

@@ -34,9 +34,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 }
 
 // VEC elements of T moved as one load or store (16 bytes when VEC is
-// 16 / sizeof(T), the widest a thread can issue).
+// 16 / sizeof(T), the widest a thread can issue); a wider pack is
+// aligned to 16 bytes and moves as several 16-byte loads.
 template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
+struct alignas(sizeof(T) * VEC < 16 ? sizeof(T) * VEC : 16) Pack {
   T v[VEC];
 };
 
@@ -66,6 +67,14 @@ inline cudaError_t set_device(int device) {
   cudaError_t e = cudaGetDevice(&cur);
   if (e != cudaSuccess) return e;
   return cur == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+// the smallest power of two >= n (host side: lanes per row, heads per
+// chunk)
+inline int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
 }
 
 inline bool aligned16(const void* p) {

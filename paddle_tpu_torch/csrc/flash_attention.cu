@@ -51,6 +51,15 @@
 // (band, segments, causal) are applied inside the live tiles. Tensor
 // cores (mma / wgmma on bf16 tiles) and TMA loads are the next step; this
 // version is far from the bound.
+//
+// Head sizes (fault E2 of ROADMAP.md): the TPU kernels take any D (the
+// model's dispatch sends D % 8 == 0 to them). The kernels are compiled on
+// tiles of width 64, 96, 128 or 256 and take every head size that is a
+// multiple of 8 up to 256 on the narrowest tile that holds it: the tile's
+// columns past D load as zeros, add nothing to a product, and are not
+// written (D = 80 runs on 96-wide tiles, 1.2x its products; Llama's 64
+// and 128 fill their tiles). D = 256 holds one block per SM (its
+// backward's dk/dv tiles take 206 KB of the 227 KB a block may have).
 
 #include <climits>
 
@@ -75,6 +84,7 @@ struct Strides {
 
 struct Shape {
   int heads, kv_heads, sq, sk;
+  int d;  // head size: the tile width D, or less (a zero tail)
   float scale;
   int causal;
   int window;  // a query sees its last `window` positions; 0 = no window
@@ -87,21 +97,21 @@ struct Shape {
 __device__ __forceinline__ int tid_y() { return threadIdx.x >> 4; }
 __device__ __forceinline__ int tid_x() { return threadIdx.x & 15; }
 
-// Rows [row0, row0 + ROWS) of a (limit, D) matrix with row stride
+// Rows [row0, row0 + ROWS) of a (limit, dr) matrix with row stride
 // `stride` into a ROWS x (D + 1) float tile, times `mul`; rows at or past
-// `limit` read as 0. 16-byte loads, neighbouring threads on neighbouring
-// addresses.
+// `limit`, and the columns at or past dr (a head narrower than the tile),
+// read as 0. 16-byte loads, neighbouring threads on neighbouring addresses.
 template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int64_t stride, int row0, int limit,
-                                          float mul) {
+                                          float mul, int dr) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = D / kVec;
   for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kThreads) {
     const int r = idx / kPerRow, c = (idx % kPerRow) * kVec;
     float* d = dst + r * (D + 1) + c;
     const int gr = row0 + r;
-    if (gr < limit) {
+    if (gr < limit && c < dr) {
       const pt::Pack<T, kVec> p =
           *reinterpret_cast<const pt::Pack<T, kVec>*>(src + gr * stride + c);
 #pragma unroll
@@ -231,7 +241,7 @@ constexpr size_t fwd_smem() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : 2)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, const Strides st,
@@ -255,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const T* vb = v + st.off(kV, b, hk);
 
   load_tile<T, D, BQ>(sq, q + st.off(kQ, b, h), st.seq(kQ), q0, sh.sq,
-                      sh.scale);
+                      sh.scale, sh.d);
   // segment ids of the tile's queries and of the current key tile, and
   // the range of the query ids (rows past sq take no part)
   __shared__ int s_qseg[BQ], s_kseg[BK];
@@ -289,8 +299,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       // no key of the tile can share a query's segment
       if (khi < qlo || klo > qhi) continue;
     }
-    load_tile<T, D, BK>(sk, kb, st.seq(kK), k0, sh.sk, 1.f);
-    load_tile<T, D, BK>(sv, vb, st.seq(kV), k0, sh.sk, 1.f);
+    load_tile<T, D, BK>(sk, kb, st.seq(kK), k0, sh.sk, 1.f, sh.d);
+    load_tile<T, D, BK>(sv, vb, st.seq(kV), k0, sh.sk, 1.f, sh.d);
     __syncthreads();
     float s[RM][RN];
 #pragma unroll
@@ -345,7 +355,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float inv = 1.f / safe;
 #pragma unroll
     for (int j = 0; j < RD; ++j)
-      ob[qpos * st.seq(kO) + tx + 16 * j] = pt::from_f32<T>(o[i][j] * inv);
+      if (tx + 16 * j < sh.d)
+        ob[qpos * st.seq(kO) + tx + 16 * j] = pt::from_f32<T>(o[i][j] * inv);
     if (tx == 0) lb[qpos] = m[i] + logf(safe);
   }
 }
@@ -371,7 +382,7 @@ constexpr size_t dq_smem() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : 2)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ out,
                         const T* __restrict__ dout,
@@ -406,9 +417,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     stage_ids(s_qseg, sh.qseg + static_cast<int64_t>(b) * sh.sq, q0, BQ,
               sh.sq);
   load_tile<T, D, BQ>(sq, q + st.off(kQ, b, h), st.seq(kQ), q0, sh.sq,
-                      sh.scale);
+                      sh.scale, sh.d);
   load_tile<T, D, BQ>(sdo, dout + st.off(kDO, b, h), st.seq(kDO), q0, sh.sq,
-                      1.f);
+                      1.f, sh.d);
   __syncthreads();
   int qlo = 0, qhi = 0;
   if (seg) id_range(s_qseg, q0, BQ, sh.sq, qlo, qhi);
@@ -419,7 +430,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int qpos = q0 + r;
       float acc = 0.f;
       if (qpos < sh.sq)
-        for (int d = lane; d < D; d += 32)
+        for (int d = lane; d < sh.d; d += 32)
           acc += sdo[r * LD + d] * pt::to_f32(ob[qpos * st.seq(kO) + d]);
       for (int o = 16; o > 0; o >>= 1)
         acc += __shfl_xor_sync(0xffffffffu, acc, o);
@@ -448,8 +459,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       id_range(s_kseg, k0, BK, sh.sk, klo, khi);
       if (khi < qlo || klo > qhi) continue;
     }
-    load_tile<T, D, BK>(sk, kb, st.seq(kK), k0, sh.sk, 1.f);
-    load_tile<T, D, BK>(sv, vb, st.seq(kV), k0, sh.sk, 1.f);
+    load_tile<T, D, BK>(sk, kb, st.seq(kK), k0, sh.sk, 1.f, sh.d);
+    load_tile<T, D, BK>(sv, vb, st.seq(kV), k0, sh.sk, 1.f, sh.d);
     __syncthreads();
     float s[RM][RN], dp[RM][RN];
 #pragma unroll
@@ -487,8 +498,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (qpos >= sh.sq) continue;
 #pragma unroll
     for (int j = 0; j < RD; ++j)
-      db[qpos * st.seq(kDQ) + tx + 16 * j] =
-          pt::from_f32<T>(acc[i][j] * sh.scale);
+      if (tx + 16 * j < sh.d)
+        db[qpos * st.seq(kDQ) + tx + 16 * j] =
+            pt::from_f32<T>(acc[i][j] * sh.scale);
   }
 }
 
@@ -507,7 +519,7 @@ constexpr size_t dkv_smem() {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, D > 128 ? 1 : 2)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
@@ -539,8 +551,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     stage_ids(s_kseg, sh.kseg + static_cast<int64_t>(b) * sh.sk, k0, BK,
               sh.sk);
 
-  load_tile<T, D, BK>(sk, k + st.off(kK, b, hk), st.seq(kK), k0, sh.sk, 1.f);
-  load_tile<T, D, BK>(sv, v + st.off(kV, b, hk), st.seq(kV), k0, sh.sk, 1.f);
+  load_tile<T, D, BK>(sk, k + st.off(kK, b, hk), st.seq(kK), k0, sh.sk, 1.f,
+                      sh.d);
+  load_tile<T, D, BK>(sv, v + st.off(kV, b, hk), st.seq(kV), k0, sh.sk, 1.f,
+                      sh.d);
   __syncthreads();
   int klo = 0, khi = 0;
   if (seg) id_range(s_kseg, k0, BK, sh.sk, klo, khi);
@@ -565,8 +579,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         id_range(s_qseg, q0, BQ, sh.sq, qlo, qhi);
         if (qhi < klo || qlo > khi) continue;
       }
-      load_tile<T, D, BQ>(sq, qb, st.seq(kQ), q0, sh.sq, sh.scale);
-      load_tile<T, D, BQ>(sdo, dob, st.seq(kDO), q0, sh.sq, 1.f);
+      load_tile<T, D, BQ>(sq, qb, st.seq(kQ), q0, sh.sq, sh.scale, sh.d);
+      load_tile<T, D, BQ>(sdo, dob, st.seq(kDO), q0, sh.sq, 1.f, sh.d);
       if (threadIdx.x < BQ) {
         const int qpos = q0 + threadIdx.x;
         s_lse[threadIdx.x] = qpos < sh.sq ? lse[row_base + qpos] : 0.f;
@@ -615,6 +629,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (kpos >= sh.sk) continue;
 #pragma unroll
     for (int j = 0; j < RD; ++j) {
+      if (tx + 16 * j >= sh.d) continue;
       dkb[kpos * st.seq(kDK) + tx + 16 * j] = pt::from_f32<T>(ak[i][j]);
       dvb[kpos * st.seq(kDV) + tx + 16 * j] = pt::from_f32<T>(av[i][j]);
     }
@@ -675,6 +690,53 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the tile width for head size d, or 0 when none is built
+int tile_width(int d) {
+  if (d <= 0 || d % 8 != 0 || d > 256) return 0;
+  return d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128 : 256;
+}
+
+template <typename T>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
+                float* lse, const Strides& st, const Shape& sh, int batch,
+                cudaStream_t s) {
+  switch (tile_width(sh.d)) {
+    case 64:
+      return launch_fwd<T, 64>(q, k, v, out, lse, st, sh, batch, s);
+    case 96:
+      return launch_fwd<T, 96>(q, k, v, out, lse, st, sh, batch, s);
+    case 128:
+      return launch_fwd<T, 128>(q, k, v, out, lse, st, sh, batch, s);
+    case 256:
+      return launch_fwd<T, 256>(q, k, v, out, lse, st, sh, batch, s);
+    default:
+      return cudaErrorNotSupported;
+  }
+}
+
+template <typename T>
+cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
+                const void* dout, const float* lse, float* delta, void* dq,
+                void* dk, void* dv, const Strides& st, const Shape& sh,
+                int batch, cudaStream_t s) {
+  switch (tile_width(sh.d)) {
+    case 64:
+      return launch_bwd<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                               st, sh, batch, s);
+    case 96:
+      return launch_bwd<T, 96>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                               st, sh, batch, s);
+    case 128:
+      return launch_bwd<T, 128>(q, k, v, out, dout, lse, delta, dq, dk,
+                                dv, st, sh, batch, s);
+    case 256:
+      return launch_bwd<T, 256>(q, k, v, out, dout, lse, delta, dq, dk,
+                                dv, st, sh, batch, s);
+    default:
+      return cudaErrorNotSupported;
+  }
+}
+
 cudaError_t check_args(int device, int batch, const Shape& sh, int d,
                        const long long* strides, int n_tensors,
                        Strides* st) {
@@ -683,7 +745,7 @@ cudaError_t check_args(int device, int batch, const Shape& sh, int d,
   if (batch < 0 || sh.heads <= 0 || sh.kv_heads <= 0 ||
       sh.heads % sh.kv_heads != 0 || sh.sq < 0 || sh.sk < 0 ||
       sh.window < 0 || (sh.qseg == nullptr) != (sh.kseg == nullptr) ||
-      (d != 64 && d != 128) || sh.heads > 65535 || batch > 65535)
+      d != sh.d || d <= 0 || sh.heads > 65535 || batch > 65535)
     return cudaErrorInvalidValue;
   for (int t = 0; t < kNumTensors; ++t)
     for (int i = 0; i < 3; ++i)
@@ -696,7 +758,8 @@ cudaError_t check_args(int device, int batch, const Shape& sh, int d,
 // q: (batch, heads, sq, d), k and v: (batch, kv_heads, sk, d) and out like
 // q, all of dtype `dtype` with d contiguous and 16-byte aligned rows;
 // `strides` holds the (batch, head, sequence) strides of q, k, v and out in
-// elements. lse: (batch, heads, sq) float32, contiguous. d is 64 or 128.
+// elements. lse: (batch, heads, sq) float32, contiguous. d is a multiple
+// of 8 up to 256 (else cudaErrorNotSupported).
 // qseg, kseg: (batch, sq) and (batch, sk) int32 segment ids, contiguous,
 // or both null. window: a query sees its last `window` positions (itself
 // included); 0 for no window.
@@ -707,7 +770,7 @@ extern "C" int pt_flash_attention_fwd(int device, const void* q, const void* k,
                                       int heads, int kv_heads, int sq, int sk,
                                       int d, float scale, int causal,
                                       int window, int dtype, void* stream) {
-  const Shape sh{heads, kv_heads, sq, sk, scale, causal, window,
+  const Shape sh{heads, kv_heads, sq, sk, d, scale, causal, window,
                  static_cast<const int*>(qseg), static_cast<const int*>(kseg)};
   Strides st;
   cudaError_t e = check_args(device, batch, sh, d, strides, 4, &st);
@@ -715,16 +778,10 @@ extern "C" int pt_flash_attention_fwd(int device, const void* q, const void* k,
   if (batch == 0 || sq == 0) return cudaSuccess;
   float* lp = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != pt::kF32 && dtype != pt::kBF16) return cudaErrorInvalidValue;
   if (dtype == pt::kF32)
-    return d == 64 ? launch_fwd<float, 64>(q, k, v, out, lp, st, sh, batch, s)
-                   : launch_fwd<float, 128>(q, k, v, out, lp, st, sh, batch, s);
-  if (dtype == pt::kBF16)
-    return d == 64
-               ? launch_fwd<__nv_bfloat16, 64>(q, k, v, out, lp, st, sh,
-                                               batch, s)
-               : launch_fwd<__nv_bfloat16, 128>(q, k, v, out, lp, st, sh,
-                                                batch, s);
-  return cudaErrorInvalidValue;
+    return fwd<float>(q, k, v, out, lp, st, sh, batch, s);
+  return fwd<__nv_bfloat16>(q, k, v, out, lp, st, sh, batch, s);
 }
 
 // The backward, as two launches on `stream`: dq (which also writes delta,
@@ -742,7 +799,7 @@ extern "C" int pt_flash_attention_bwd(int device, const void* q, const void* k,
                                       int heads, int kv_heads, int sq, int sk,
                                       int d, float scale, int causal,
                                       int window, int dtype, void* stream) {
-  const Shape sh{heads, kv_heads, sq, sk, scale, causal, window,
+  const Shape sh{heads, kv_heads, sq, sk, d, scale, causal, window,
                  static_cast<const int*>(qseg), static_cast<const int*>(kseg)};
   Strides st;
   cudaError_t e = check_args(device, batch, sh, d, strides, kNumTensors, &st);
@@ -751,16 +808,10 @@ extern "C" int pt_flash_attention_bwd(int device, const void* q, const void* k,
   const float* lp = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != pt::kF32 && dtype != pt::kBF16) return cudaErrorInvalidValue;
   if (dtype == pt::kF32)
-    return d == 64 ? launch_bwd<float, 64>(q, k, v, out, dout, lp, dl, dq, dk,
-                                           dv, st, sh, batch, s)
-                   : launch_bwd<float, 128>(q, k, v, out, dout, lp, dl, dq,
-                                            dk, dv, st, sh, batch, s);
-  if (dtype == pt::kBF16)
-    return d == 64 ? launch_bwd<__nv_bfloat16, 64>(q, k, v, out, dout, lp, dl,
-                                                   dq, dk, dv, st, sh, batch, s)
-                   : launch_bwd<__nv_bfloat16, 128>(q, k, v, out, dout, lp, dl,
-                                                    dq, dk, dv, st, sh, batch,
-                                                    s);
-  return cudaErrorInvalidValue;
+    return bwd<float>(q, k, v, out, dout, lp, dl, dq, dk, dv, st, sh, batch,
+                      s);
+  return bwd<__nv_bfloat16>(q, k, v, out, dout, lp, dl, dq, dk, dv, st, sh,
+                            batch, s);
 }

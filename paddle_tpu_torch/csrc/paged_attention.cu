@@ -37,6 +37,19 @@
 // and is gone. Left for a later PR: split-K over the context (at batch 4
 // and 32 kv heads there are fewer blocks than the card's 132 SMs) and
 // cp.async or TMA prefetch of the next tile.
+//
+// Groups and head sizes (fault E2 of ROADMAP.md): the TPU kernel takes
+// any group Hq % Hkv == 0 and any D % 8 == 0 (the model's dispatch). The
+// kernel is compiled for G = 1, 2, 4 or 8 query heads per block; a kv
+// head whose group is not one of those has its heads cut into chunks of
+// the smallest of them that holds the group (8 for larger groups: a
+// grid of (batch row, kv head x chunk) blocks, the last chunk's missing
+// heads riding along with zero queries, unwritten). A row of D elements
+// takes the smallest power of two of threads that holds its loads, the
+// threads past D idle (D = 80 of bf16: 10 loads on 16 threads). A
+// float32 row wider than 128 loads 8 elements (two 16-byte loads) per
+// thread, so D up to 256 fits a warp in every dtype. The groups and
+// widths of Llama's shapes run as before: one chunk, no idle thread.
 
 #include "common.cuh"
 
@@ -57,14 +70,13 @@ __device__ __forceinline__ float dequant(float x, float row, float col) {
   return x;
 }
 
-template <typename T, typename KV, int G, int SM>
+template <typename T, typename KV, int G, int SM, int VEC>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const T* __restrict__ q, const KV* __restrict__ kc,
     const KV* __restrict__ vc, const float* __restrict__ kscale,
     const float* __restrict__ vscale, const int* __restrict__ tables,
     const int* __restrict__ lens, T* __restrict__ out, int hq, int hkv, int d,
-    int nb, int bs, int maxb, float scale) {
-  constexpr int VEC = pt::KVVec<KV>::n;
+    int nb, int bs, int maxb, float scale, int lpr, int nchunk) {
   using P = pt::Pack<KV, VEC>;
   extern __shared__ float smem[];
   float* s_p = smem;                // [G][kTile] scores, then probabilities
@@ -73,19 +85,23 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   float* s_l = s_m + G;              // [G] running sum
   float* s_red = s_l + G;            // [rows][G][d] partial outputs
 
-  const int b = blockIdx.x, kvh = blockIdx.y;
+  const int b = blockIdx.x, kvh = blockIdx.y / nchunk;
+  const int group = hq / hkv;
+  const int g0 = (blockIdx.y % nchunk) * G;  // the chunk's first head
+  const int gn = min(G, group - g0);         // heads written
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int lpr = d / VEC;                // threads per K/V row
+  // lpr threads per K/V row, a power of two; those past d hold nothing
   const int chunk = threadIdx.x % lpr;    // this thread's VEC-wide slice of d
   const int row = threadIdx.x / lpr;      // this thread's first row of a tile
   const int rows = kThreads / lpr;        // rows a tile pass covers
+  const bool act = chunk * VEC < d;
 
   const int len = min(max(lens[b], 0), maxb * bs);
   const int* tbl = tables + static_cast<int64_t>(b) * maxb;
   const int64_t head_stride = static_cast<int64_t>(bs) * d;
   const int64_t page_stride = head_stride * hkv;
   const int64_t kv_off = kvh * head_stride + chunk * VEC;
-  const int64_t q_off = (static_cast<int64_t>(b) * hq + kvh * G) * d;
+  const int64_t q_off = (static_cast<int64_t>(b) * hq + kvh * group + g0) * d;
 
   float qr[G][VEC];
   float acc[G][VEC];
@@ -93,7 +109,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   for (int g = 0; g < G; ++g) {
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      qr[g][j] = pt::to_f32(q[q_off + g * d + chunk * VEC + j]) * scale;
+      qr[g][j] = act && g < gn
+                     ? pt::to_f32(q[q_off + g * d + chunk * VEC + j]) * scale
+                     : 0.f;
       acc[g][j] = 0.f;
     }
   }
@@ -102,8 +120,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   float ks[VEC], vs[VEC];
 #pragma unroll
   for (int j = 0; j < VEC; ++j) {
-    ks[j] = SM == kHeadDimScale ? kscale[kvh * d + chunk * VEC + j] : 1.f;
-    vs[j] = SM == kHeadDimScale ? vscale[kvh * d + chunk * VEC + j] : 1.f;
+    ks[j] = SM == kHeadDimScale && act ? kscale[kvh * d + chunk * VEC + j]
+                                       : 1.f;
+    vs[j] = SM == kHeadDimScale && act ? vscale[kvh * d + chunk * VEC + j]
+                                       : 1.f;
   }
   const int64_t srow_off = static_cast<int64_t>(kvh) * bs;
   if (threadIdx.x < G) {
@@ -116,7 +136,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     for (int r = row; r < kTile; r += rows) {
       const int pos = t0 + r;
       float sc[G];
-      if (pos < len) {
+      if (pos < len && act) {
         const int page = min(max(tbl[pos / bs], 0), nb - 1);
         const P k = *reinterpret_cast<const P*>(
             kc + page * page_stride + kv_off +
@@ -189,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     }
     for (int r = row; r < kTile; r += rows) {
       const int pos = t0 + r;
-      if (pos >= len) break;
+      if (pos >= len || !act) break;
       const int page = min(max(tbl[pos / bs], 0), nb - 1);
       const P v = *reinterpret_cast<const P*>(
           vc + page * page_stride + kv_off +
@@ -218,10 +238,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   for (int g = 0; g < G; ++g) {
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
-      s_red[(row * G + g) * d + chunk * VEC + j] = acc[g][j];
+      if (act) s_red[(row * G + g) * d + chunk * VEC + j] = acc[g][j];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * d; i += kThreads) {
+  for (int i = threadIdx.x; i < gn * d; i += kThreads) {
     const int g = i / d, c = i % d;
     float sum = 0.f;
     for (int k = 0; k < rows; ++k) sum += s_red[(k * G + g) * d + c];
@@ -238,40 +258,49 @@ struct Args {
   float scale;
 };
 
-template <typename T, typename KV, int G, int SM>
+template <typename T, typename KV, int G, int SM, int VEC>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int kVec = pt::KVVec<KV>::n;
-  const int rows = kThreads / (a.d / kVec);
+  // a row is lpr = 1..32 threads wide, a power of two, so a warp holds
+  // whole rows
+  const int lpr = pt::pow2_at_least(a.d / VEC);
+  if (lpr > 32) return cudaErrorNotSupported;
+  const int group = a.hq / a.hkv;
+  const int nchunk = (group + G - 1) / G;
+  if (static_cast<int64_t>(a.hkv) * nchunk > 65535)
+    return cudaErrorInvalidValue;
+  const int rows = kThreads / lpr;
   const size_t smem = sizeof(float) * (G * kTile + 3 * G +
                                        static_cast<size_t>(rows) * G * a.d);
-  paged_decode_kernel<T, KV, G, SM>
-      <<<dim3(a.batch, a.hkv), kThreads, smem, stream>>>(
+  paged_decode_kernel<T, KV, G, SM, VEC>
+      <<<dim3(a.batch, a.hkv * nchunk), kThreads, smem, stream>>>(
           static_cast<const T*>(a.q), static_cast<const KV*>(a.kc),
           static_cast<const KV*>(a.vc), a.ks, a.vs, a.tables, a.lens,
           static_cast<T*>(a.out), a.hq, a.hkv, a.d, a.nb, a.bs, a.maxb,
-          a.scale);
+          a.scale, lpr, nchunk);
   return cudaGetLastError();
 }
 
+// G: the smallest of 1, 2, 4, 8 that holds the group (8 for larger
+// groups, in chunks); float32 rows wider than 128 load 8 elements per
+// thread and take at most 4 heads per chunk (registers)
 template <typename T, typename KV, int SM>
 cudaError_t by_group(const Args& a, cudaStream_t s) {
   constexpr int kVec = pt::KVVec<KV>::n;
-  const int lpr = a.d / kVec;
-  // a row is 2..32 threads wide, a power of two, so a warp holds whole rows
-  if (a.d % kVec != 0 || lpr < 2 || lpr > 32 || (lpr & (lpr - 1)) != 0)
-    return cudaErrorInvalidValue;
-  switch (a.hq / a.hkv) {
-    case 1:
-      return launch<T, KV, 1, SM>(a, s);
-    case 2:
-      return launch<T, KV, 2, SM>(a, s);
-    case 4:
-      return launch<T, KV, 4, SM>(a, s);
-    case 8:
-      return launch<T, KV, 8, SM>(a, s);
-    default:
-      return cudaErrorInvalidValue;
+  const int group = a.hq / a.hkv;
+  if (a.d > 256 || a.d % kVec != 0) return cudaErrorNotSupported;
+  if (a.d > 32 * kVec) {
+    if constexpr (kVec == 4) {
+      if (a.d % 8) return cudaErrorNotSupported;
+      if (group <= 1) return launch<T, KV, 1, SM, 8>(a, s);
+      if (group <= 2) return launch<T, KV, 2, SM, 8>(a, s);
+      return launch<T, KV, 4, SM, 8>(a, s);
+    }
+    return cudaErrorNotSupported;
   }
+  if (group <= 1) return launch<T, KV, 1, SM, kVec>(a, s);
+  if (group <= 2) return launch<T, KV, 2, SM, kVec>(a, s);
+  if (group <= 4) return launch<T, KV, 4, SM, kVec>(a, s);
+  return launch<T, KV, 8, SM, kVec>(a, s);
 }
 
 template <typename T>
@@ -294,7 +323,8 @@ cudaError_t by_mode(const Args& a, int mode, cudaStream_t s) {
 // `dtype` (scale_mode 0), or int8 with float32 scales kscale, vscale of
 // shape (nb, hkv, bs) (scale_mode 1, per row) or (hkv, d) (scale_mode 2);
 // all contiguous. tables: (batch, maxb) int32; lens: (batch,) int32.
-// hq / hkv must be 1, 2, 4 or 8.
+// Any hq % hkv == 0; d a multiple of 8 (bf16, int8) or 4 (f32) up to 256
+// (a float32 d above 128 a multiple of 8), else cudaErrorNotSupported.
 extern "C" int pt_paged_decode_attention(
     int device, const void* q, const void* kc, const void* vc,
     const void* kscale, const void* vscale, const void* tables,

@@ -1,14 +1,17 @@
 // Weight-only quantized matrix product for Hopper (sm_90a): int8 codes
-// (K10) and packed int4 codes (K11), one template on the code width.
+// (K10), packed int4 codes (K11) and fp8 codes (K10f8: e4m3 or e5m2), one
+// template on the code type.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas/quant_matmul.py::
-// quant_matmul (pallas_call at :139) and ::quant_matmul_int4 (:175):
+// quant_matmul (pallas_call at :139; int8 codes, and fp8 codes, which its
+// _kernel :85-110 casts to float32 in VMEM) and ::quant_matmul_int4
+// (:175):
 //
 //   out[m, n] = (sum_k x[m, k] * code[k, n]) * scale[n]
 //
 // accumulated in float32 over the raw codes, the column scale applied
-// to the accumulator, cast to x's dtype. int8 codes are (K, N) row-major;
-// int4 codes are (ceil(K / 2), N) bytes holding two sign-extended 4-bit
+// to the accumulator, cast to x's dtype. int8 and fp8 codes are (K, N)
+// row-major, one byte each; int4 codes are (ceil(K / 2), N) bytes holding two sign-extended 4-bit
 // codes along K (row 2r in the low nibble, 2r + 1 in the high one). An
 // odd K reads x as if padded with a zero column, as the TPU kernel pads.
 //
@@ -31,6 +34,15 @@
 // takes a tiled path: 64 x 64 output tiles, x and the dequantized codes
 // staged in shared memory as float32, float32 FMAs on the CUDA cores.
 // Tensor cores (int8 or bf16 wgmma) are left for a later version.
+//
+// fp8 codes (K10f8) move the bytes of int8 ones, so their bound is K10's.
+// They are decoded in registers: the 4 bytes of a lane's load go two at
+// a time through sm_89's e4m3x2 / e5m2x2 -> f16x2 conversion (one cvt
+// per pair), then to float32, exactly (every e4m3 and e5m2 value is a
+// half); the tiled path converts its staged bytes one at a time.
+
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 
 #include <algorithm>
 
@@ -45,6 +57,39 @@ constexpr int kStrip = 32 * kCols;      // columns per block
 constexpr int kStage = 256;             // K rows of x staged at a time
 constexpr int kUnroll = 8;              // code rows a warp loads at once
 
+// code types of the C entry (ops/hopper/quant_matmul.py names them)
+enum Codes : int { kE4M3 = 1, kE5M2 = 2, kInt4 = 4, kInt8 = 8 };
+
+template <int C>
+__host__ __device__ constexpr __nv_fp8_interpretation_t fp8_kind() {
+  return C == kE4M3 ? __NV_E4M3 : __NV_E5M2;
+}
+
+// the four fp8 codes of a 4-byte word, byte c to f[c]
+template <int C>
+__device__ __forceinline__ void fp8x4(uint32_t w, float (&f)[4]) {
+  const __half2 lo(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), fp8_kind<C>()));
+  const __half2 hi(__nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w >> 16), fp8_kind<C>()));
+  const float2 a = __half22float2(lo), b = __half22float2(hi);
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
+}
+
+// one code of an int8 or fp8 weight as float
+template <int C>
+__device__ __forceinline__ float code_f32(int8_t b) {
+  if constexpr (C == kInt8) {
+    return static_cast<float>(b);
+  } else {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(
+        static_cast<__nv_fp8_storage_t>(b), fp8_kind<C>())));
+  }
+}
+
 // the two codes of a byte: row 2r (low nibble), row 2r + 1 (high nibble)
 __device__ __forceinline__ float lo4(int8_t b) {
   return static_cast<float>(static_cast<int8_t>(b << 4) >> 4);
@@ -53,17 +98,18 @@ __device__ __forceinline__ float hi4(int8_t b) {
   return static_cast<float>(b >> 4);
 }
 
-// x (m, k), codes (rows, n) with rows = k (int8) or ceil(k / 2) (int4).
+// x (m, k), codes (rows, n) with rows = k (int8, fp8) or ceil(k / 2)
+// (int4).
 // Grid: (column strips, K splits); each split owns code rows
 // [split * rows_per_split, ...). One split writes out; several write
 // float32 partial sums part[split][m][n] for the combine pass.
-template <typename T, int BITS, int MT>
+template <typename T, int C, int MT>
 __global__ void __launch_bounds__(kSkinnyThreads) qmm_skinny_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ scale, T* __restrict__ out,
     float* __restrict__ part, int m, int k, int n, int rows,
     int rows_per_split) {
-  constexpr int KPR = BITS == 4 ? 2 : 1;  // K rows per code row
+  constexpr int KPR = C == kInt4 ? 2 : 1;  // K rows per code row
   constexpr int kStageRows = kStage / KPR;
   __shared__ float xs[MT][kStage];
   __shared__ float red[MT][kStrip];
@@ -122,15 +168,24 @@ __global__ void __launch_bounds__(kSkinnyThreads) qmm_skinny_kernel(
           const int r = r0 + u * kWarps;
           if (r >= s1) break;
           const int kk = (r - s0) * KPR;
+          if constexpr (C == kE4M3 || C == kE5M2) {
+            float f[kCols];
+            fp8x4<C>(word[u], f);
 #pragma unroll
-          for (int i = 0; i < MT; ++i) {
+            for (int i = 0; i < MT; ++i)
 #pragma unroll
-            for (int c = 0; c < kCols; ++c) {
-              const int8_t b = static_cast<int8_t>(word[u] >> (8 * c));
-              if (BITS == 4)
-                acc[i][c] += xs[i][kk] * lo4(b) + xs[i][kk + 1] * hi4(b);
-              else
-                acc[i][c] += xs[i][kk] * static_cast<float>(b);
+              for (int c = 0; c < kCols; ++c) acc[i][c] += xs[i][kk] * f[c];
+          } else {
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+#pragma unroll
+              for (int c = 0; c < kCols; ++c) {
+                const int8_t b = static_cast<int8_t>(word[u] >> (8 * c));
+                if (C == kInt4)
+                  acc[i][c] += xs[i][kk] * lo4(b) + xs[i][kk + 1] * hi4(b);
+                else
+                  acc[i][c] += xs[i][kk] * static_cast<float>(b);
+              }
             }
           }
         }
@@ -182,7 +237,7 @@ constexpr int kBM = 64, kBN = 64, kBK = 32;  // tiled path: tile and K step
 // 256 threads, each a 4 x 4 grid of outputs (rows ty + 16 i, columns
 // tx + 16 j) of a 64 x 64 tile; x staged transposed so both operands are
 // read without bank conflicts.
-template <typename T, int BITS>
+template <typename T, int C>
 __global__ void __launch_bounds__(256) qmm_tiled_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ scale, T* __restrict__ out, int m, int k,
@@ -200,7 +255,7 @@ __global__ void __launch_bounds__(256) qmm_tiled_kernel(
                        ? pt::to_f32(x[static_cast<int64_t>(gm) * k + gk])
                        : 0.f;
     }
-    if (BITS == 4) {
+    if constexpr (C == kInt4) {
       // kBK / 2 code rows, each two K rows; k0 is even
       const int rows = (k + 1) / 2;
       for (int i = threadIdx.x; i < (kBK / 2) * kBN; i += 256) {
@@ -216,8 +271,7 @@ __global__ void __launch_bounds__(256) qmm_tiled_kernel(
         const int kk = i / kBN, nn = i % kBN;
         const int gk = k0 + kk, gn = n0 + nn;
         ws[kk][nn] = (gk < k && gn < n)
-                         ? static_cast<float>(
-                               w[static_cast<int64_t>(gk) * n + gn])
+                         ? code_f32<C>(w[static_cast<int64_t>(gk) * n + gn])
                          : 0.f;
       }
     }
@@ -259,10 +313,10 @@ struct Args {
   int m, k, n, rows, nsplit, rows_per_split;
 };
 
-template <typename T, int BITS, int MT>
+template <typename T, int C, int MT>
 cudaError_t skinny(const Args& a, cudaStream_t s) {
   const dim3 grid((a.n + kStrip - 1) / kStrip, a.nsplit);
-  qmm_skinny_kernel<T, BITS, MT><<<grid, kSkinnyThreads, 0, s>>>(
+  qmm_skinny_kernel<T, C, MT><<<grid, kSkinnyThreads, 0, s>>>(
       static_cast<const T*>(a.x), a.w, a.scale, static_cast<T*>(a.out),
       a.part, a.m, a.k, a.n, a.rows, a.rows_per_split);
   cudaError_t e = cudaGetLastError();
@@ -275,39 +329,56 @@ cudaError_t skinny(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <typename T, int BITS>
+template <typename T, int C>
 cudaError_t run(const Args& a, cudaStream_t s) {
-  if (a.m <= 1) return skinny<T, BITS, 1>(a, s);
-  if (a.m <= 2) return skinny<T, BITS, 2>(a, s);
-  if (a.m <= 4) return skinny<T, BITS, 4>(a, s);
-  if (a.m <= 8) return skinny<T, BITS, 8>(a, s);
-  if (a.m <= 16) return skinny<T, BITS, 16>(a, s);
+  if (a.m <= 1) return skinny<T, C, 1>(a, s);
+  if (a.m <= 2) return skinny<T, C, 2>(a, s);
+  if (a.m <= 4) return skinny<T, C, 4>(a, s);
+  if (a.m <= 8) return skinny<T, C, 8>(a, s);
+  if (a.m <= 16) return skinny<T, C, 16>(a, s);
   const dim3 grid((a.n + kBN - 1) / kBN, (a.m + kBM - 1) / kBM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  qmm_tiled_kernel<T, BITS><<<grid, 256, 0, s>>>(
+  qmm_tiled_kernel<T, C><<<grid, 256, 0, s>>>(
       static_cast<const T*>(a.x), a.w, a.scale, static_cast<T*>(a.out), a.m,
       a.k, a.n);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t by_codes(const Args& a, int codes, cudaStream_t s) {
+  switch (codes) {
+    case kInt4:
+      return run<T, kInt4>(a, s);
+    case kInt8:
+      return run<T, kInt8>(a, s);
+    case kE4M3:
+      return run<T, kE4M3>(a, s);
+    default:
+      return run<T, kE5M2>(a, s);
+  }
+}
+
 }  // namespace
 
-// x, out: (m, k) and (m, n) of `dtype`, contiguous; w: int8 codes, (k, n)
-// for bits 8 or (ceil(k / 2), n) for bits 4; scale: (n,) float32. For
+// x, out: (m, k) and (m, n) of `dtype`, contiguous; w: codes of one byte,
+// (k, n) for `codes` 8 (int8), 1 (fp8 e4m3) or 2 (fp8 e5m2), or
+// (ceil(k / 2), n) for 4 (packed int4); scale: (n,) float32. For
 // m <= 16 the skinny path splits the code rows in nsplit slices of
 // rows_per_split rows (a multiple of 8), with part a float32 scratch of
 // (nsplit, m, n) when nsplit > 1; m > 16 takes the tiled path and ignores
 // both.
 extern "C" int pt_quant_matmul(int device, const void* x, const void* w,
                                const void* scale, void* out, void* part,
-                               int m, int k, int n, int bits, int nsplit,
+                               int m, int k, int n, int codes, int nsplit,
                                int rows_per_split, int dtype, void* stream) {
   cudaError_t e = pt::set_device(device);
   if (e != cudaSuccess) return e;
-  if (m < 0 || k < 0 || n < 0 || (bits != 4 && bits != 8)) {
+  if (m < 0 || k < 0 || n < 0 ||
+      (codes != kInt4 && codes != kInt8 && codes != kE4M3 &&
+       codes != kE5M2)) {
     return cudaErrorInvalidValue;
   }
-  const int rows = bits == 4 ? (k + 1) / 2 : k;
+  const int rows = codes == kInt4 ? (k + 1) / 2 : k;
   if (m <= 16 && (nsplit < 1 || rows_per_split < 1 ||
                   static_cast<int64_t>(nsplit) * rows_per_split < rows ||
                   (nsplit > 1 && part == nullptr)))
@@ -317,10 +388,7 @@ extern "C" int pt_quant_matmul(int device, const void* x, const void* w,
                out, static_cast<float*>(part), m, k, n, rows,
                m <= 16 ? nsplit : 1, rows_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == pt::kF32)
-    return bits == 4 ? run<float, 4>(a, s) : run<float, 8>(a, s);
-  if (dtype == pt::kBF16)
-    return bits == 4 ? run<__nv_bfloat16, 4>(a, s)
-                     : run<__nv_bfloat16, 8>(a, s);
+  if (dtype == pt::kF32) return by_codes<float>(a, codes, s);
+  if (dtype == pt::kBF16) return by_codes<__nv_bfloat16>(a, codes, s);
   return cudaErrorInvalidValue;
 }

@@ -290,7 +290,10 @@ def _paged_cached_attention(q, k, v, cache, kv_write_pos, block_tables):
     with the paged-attention kernel. Over a QuantPagedKVCache the new row
     is quantized against its own absmax (`quantize_kv_row`, the rule the
     serving prefill applies too) and its codes and scale are written;
-    the kernel then reads the int8 pages with their per-row scales."""
+    the kernel then reads the int8 pages with their per-row scales. The
+    dispatch rule is the JAX package's: the kernel for head_dim % 8 ==
+    0 (any GQA group), the masked path over the gathered pages
+    otherwise."""
     B, S, H, D = q.shape
     if S != 1:
         raise NotImplementedError(
@@ -319,9 +322,23 @@ def _paged_cached_attention(q, k, v, cache, kv_write_pos, block_tables):
         kp[page, :, slot, :] = k[:, 0].to(kp.dtype)
         vp[page, :, slot, :] = v[:, 0].to(vp.dtype)
     counts = (wp + 1).to(torch.int32)
-    out = ops.paged_decode_attention(q, kp, vp, block_tables, counts,
-                                     k_scale=kss, v_scale=vss)
-    return out, cache
+    if D % 8 == 0:
+        out = ops.paged_decode_attention(q, kp, vp, block_tables, counts,
+                                         k_scale=kss, v_scale=vss)
+        return out, cache
+    # other head sizes take the JAX package's masked path: the row's
+    # pages gathered into a contiguous cache, masked by its count
+    tbl = block_tables.long()
+    gk, gv = kp[tbl], vp[tbl]                # (B, MAXB, Hkv, BS, D)
+    if quant:
+        gk = dequantize_kv_row(gk, kss[tbl], q.dtype)
+        gv = dequantize_kv_row(gv, vss[tbl], q.dtype)
+    Hkv = kp.shape[1]
+    ck = gk.transpose(2, 3).reshape(B, maxb * BS, Hkv, D)
+    cv = gv.transpose(2, 3).reshape(B, maxb * BS, Hkv, D)
+    mask = (torch.arange(maxb * BS, device=q.device)[None, :]
+            < counts[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(q, ck, cv, attn_mask=mask), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Weight-only quantized matrix products (counterpart of
-paddle_tpu/nn/quant): int8 and packed int4 weights with per-output-column
-float32 scales, served by kernels K10 / K11 (`ops.quant_matmul`,
-`ops.quant_matmul_int4`).
+paddle_tpu/nn/quant): int8, fp8 (e4m3) and packed int4 weights with
+per-output-column float32 scales, served by kernels K10 / K10f8 / K11
+(`ops.quant_matmul`, `ops.quant_matmul_fp8`, `ops.quant_matmul_int4`).
 """
 from __future__ import annotations
 
@@ -14,9 +14,10 @@ _ALGOS = {'weight_only_int8': 8, 'llm.int8': 8, 'weight_only_int4': 4}
 
 
 def weight_quantize(x, algo='weight_only_int8'):
-    """(codes, scale) of a float weight (K, N): int8 codes (K, N), or for
+    """(codes, scale) of a float weight (K, N): int8 codes (K, N); for
     'weight_only_int4' packed codes (ceil(K / 2), N), two 4-bit codes per
-    byte along K; scale (N,) float32."""
+    byte along K; for 'fp8' / 'weight_only_fp8' / 'float8_e4m3fn'
+    float8_e4m3fn codes (K, N); scale (N,) float32."""
     if algo in ('fp8', 'weight_only_fp8', 'float8_e4m3fn'):
         return _qmm.quantize_weight_fp8(x)
     bits = _ALGOS.get(algo)
@@ -29,8 +30,8 @@ def weight_quantize(x, algo='weight_only_int8'):
 
 def weight_dequantize(x, scale, algo='weight_only_int8',
                       out_dtype=torch.float32, out_features=None):
-    """codes * scale in `out_dtype`. For packed int4, `out_features`
-    drops the zero row an odd K was padded with."""
+    """codes * scale in `out_dtype` (int8 or fp8 codes). For packed
+    int4, `out_features` drops the zero row an odd K was padded with."""
     if algo == 'weight_only_int4':
         codes = _qmm.unpack_int4(x)
         if out_features is not None:
@@ -42,15 +43,32 @@ def weight_dequantize(x, scale, algo='weight_only_int8',
 def weight_only_linear(x, weight, bias=None, weight_scale=None,
                        weight_dtype='int8'):
     """x (..., K) times quantized `weight` (codes) with per-column
-    `weight_scale`, plus `bias`: kernel K10 for 'int8', K11 for 'int4'."""
+    `weight_scale`, plus `bias`: kernel K11 for weight_dtype 'int4';
+    otherwise the codes' dtype picks the kernel, as the JAX package's
+    kernel casts whatever codes it is given: K10f8 for fp8 codes, K10
+    for int8 ones."""
     K = x.shape[-1]
     lead = x.shape[:-1]
-    mm = ops.quant_matmul_int4 if weight_dtype == 'int4' else ops.quant_matmul
+    if weight_dtype == 'int4':
+        mm = ops.quant_matmul_int4
+    elif weight.dtype in _qmm.FP8_MAX:
+        mm = ops.quant_matmul_fp8
+    else:
+        mm = ops.quant_matmul
     out = mm(x.reshape(-1, K).contiguous(), weight, weight_scale)
     out = out.reshape(*lead, -1)
     if bias is not None:
         out = out + bias
     return out
+
+
+def llm_int8_linear(x, weight, bias=None, weight_scale=None,
+                    threshold=6.0):
+    """LLM.int8's linear, as the JAX package defines it: the weight-only
+    int8 product (kernel K10), which accumulates in float32 and so needs
+    no outlier split; `threshold` is taken and not used."""
+    return weight_only_linear(x, weight, bias=bias,
+                              weight_scale=weight_scale)
 
 
 class QuantizedWeight(torch.nn.Module):
@@ -92,5 +110,5 @@ class QuantizedWeight(torch.nn.Module):
         return f'bits={self.bits}, shape={self.shape}'
 
 
-__all__ = ['QuantizedWeight', 'weight_dequantize', 'weight_only_linear',
-           'weight_quantize']
+__all__ = ['QuantizedWeight', 'llm_int8_linear', 'weight_dequantize',
+           'weight_only_linear', 'weight_quantize']

@@ -166,6 +166,16 @@ def quant_matmul(x, wq, scale):
     return fn(x, wq, scale)
 
 
+def quant_matmul_fp8(x, wq, scale):
+    """Weight-only fp8 product (kernel K10f8): codes (K, N) of
+    torch.float8_e4m3fn or torch.float8_e5m2; otherwise as
+    `quant_matmul`."""
+    _no_grad_through(x, 'quant_matmul_fp8')
+    fn = (_qmm.quant_matmul_fp8 if on_card(x, 'quant_matmul_fp8')
+          else _qmm.quant_matmul_fp8_plain)
+    return fn(x, wq, scale)
+
+
 def quant_matmul_int4(x, wq_packed, scale):
     """Weight-only packed-int4 product (kernel K11): codes
     (ceil(K / 2), N), two 4-bit codes per byte along K; otherwise as
@@ -179,4 +189,5 @@ def quant_matmul_int4(x, wq_packed, scale):
 __all__ = ['LAUNCHES', 'decode_attention', 'decode_attention_headmajor',
            'dispatch_decode_attention',
            'flash_attention', 'paged_decode_attention', 'quant_matmul',
-           'quant_matmul_int4', 'rms_norm', 'softmax_cross_entropy']
+           'quant_matmul_fp8', 'quant_matmul_int4', 'rms_norm',
+           'softmax_cross_entropy']

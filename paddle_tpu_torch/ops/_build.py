@@ -38,7 +38,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # mode of a TPU kernel that is a kernel of its own in PERF.md's table
 # counts under its own key: K5s / K6s (flash_attention_fwd_seg /
 # _bwd_seg), K5w / K6w (flash_attention_fwd_window / _bwd_window), K8q
-# (paged_decode_attention_int8), K9 (decode_attention_headmajor).
+# (paged_decode_attention_int8), K9 (decode_attention_headmajor), K10f8
+# (quant_matmul_fp8).
 LAUNCHES = {'rms_norm': 0, 'rms_norm_bwd': 0, 'softmax_xent_fwd': 0,
             'softmax_xent_bwd': 0, 'flash_attention_fwd': 0,
             'flash_attention_fwd_seg': 0, 'flash_attention_fwd_window': 0,
@@ -46,7 +47,8 @@ LAUNCHES = {'rms_norm': 0, 'rms_norm_bwd': 0, 'softmax_xent_fwd': 0,
             'flash_attention_bwd_window': 0,
             'paged_decode_attention': 0, 'paged_decode_attention_int8': 0,
             'decode_attention': 0, 'decode_attention_headmajor': 0,
-            'quant_matmul': 0, 'quant_matmul_int4': 0}
+            'quant_matmul': 0, 'quant_matmul_int4': 0,
+            'quant_matmul_fp8': 0}
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -28,7 +28,7 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
-GROUPS = (1, 2, 4, 8)   # query heads per kv head the kernel is built for
+MAX_HEAD_DIM = 256      # widest head the kernel is built for
 TILE = 64               # positions per tile in the kernel
 MIN_SPLIT = 64          # fewest positions a context split is given
 BLOCKS_PER_SM = 8       # blocks the context splits aim to put on an SM
@@ -61,6 +61,20 @@ def _check_shapes(q, k_cache, v_cache, k_scale, v_scale):
         raise ValueError('decode_attention: int8 caches need k_scale and '
                          'v_scale')
     return B, S, Hq, Hkv, D
+
+
+def check_built(kernel, cache_dtype, D):
+    """Raise NotImplementedError for a head size the kernel is not
+    built for. Every GQA group is built; D must be a multiple of the
+    load width (4 elements of a float32 cache, 8 of bf16 or int8) up to
+    MAX_HEAD_DIM, and a float32 row wider than 128 a multiple of 8."""
+    vec = 4 if cache_dtype == torch.float32 else 8
+    if D % vec or D > MAX_HEAD_DIM or (vec == 4 and D > 128 and D % 8):
+        raise NotImplementedError(
+            f'{kernel} kernel: head_dim {D} is not built for '
+            f'{cache_dtype} caches (built: multiples of {vec} up to '
+            f'{MAX_HEAD_DIM}' + (', above 128 multiples of 8)'
+                                 if vec == 4 else ')'))
 
 
 def _per_row(x, B, device):
@@ -136,10 +150,10 @@ def decode_attention(q, k_cache, v_cache, valid_len, scale=None,
     """The CUDA kernel (same arguments as the plain version). Raises on
     what it does not take: non-CUDA or mixed devices, caches of another
     dtype than q (other than int8 with scales), a q or scales that are
-    not contiguous, caches whose head dim is not contiguous or whose
-    rows are not 16-byte aligned, a GQA group outside 1/2/4/8, or a head
-    size above 128 or whose row is not a power of two of 16-byte loads
-    (8-byte for int8)."""
+    not contiguous, or caches whose head dim is not contiguous or whose
+    rows are not 16-byte aligned (8-byte for int8); NotImplementedError
+    for a head size that is not built (`check_built`). Every GQA group
+    is built."""
     return launch(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale,
                   start, 'decode_attention')
 
@@ -165,20 +179,15 @@ def launch(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale, start,
         raise TypeError(f'{kernel} kernel: scales must be float32')
     dense = [q] + ([k_scale, v_scale] if quant else [])
     item = k_cache.element_size()
+    align = 8 if quant else 16        # the bytes of one K/V load
     if (not all(t.is_contiguous() for t in dense)
             or k_cache.stride() != v_cache.stride()
             or k_cache.stride(-1) != 1
-            or any(st * item % 16 for st in k_cache.stride()[:3])):
+            or any(st * item % align for st in k_cache.stride()[:3])):
         raise ValueError(f'{kernel} kernel: q and the scales must be '
                          f'contiguous, and the caches share strides with '
-                         f'D contiguous and 16-byte aligned rows')
-    vec = 4 if k_cache.dtype == torch.float32 else 8
-    if (Hq // Hkv not in GROUPS or D % vec or D > 128
-            or D // vec not in (2, 4, 8, 16, 32)):
-        raise ValueError(
-            f'{kernel} kernel: needs Hq/Hkv in {GROUPS} and D a multiple '
-            f'of {vec} between {2 * vec} and 128 with D/{vec} a power of '
-            f'two; got Hq={Hq}, Hkv={Hkv}, D={D}')
+                         f'D contiguous and {align}-byte aligned rows')
+    check_built(kernel, k_cache.dtype, D)
     code = _build.dtype_code(q, kernel)
     vl_ptr, vl_all, vl_keep = _row_arg(valid_len, B, dev, 'valid_len')
     st_ptr, st_all, st_keep = _row_arg(start, B, dev, 'start')

@@ -38,7 +38,7 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)   # head widths the kernels are built for
+MAX_HEAD_DIM = 256      # head widths built: multiples of 8 up to this
 
 
 def _visible(Sq, Sk, causal, device, qseg=None, kseg=None, window=None):
@@ -146,6 +146,15 @@ def _bhsd_buffer(B, H, S, D, like):
                        device=like.device).transpose(1, 2)
 
 
+def check_built(kernel, D):
+    """Raise NotImplementedError for a head size the kernels are not
+    built for (multiples of 8 up to MAX_HEAD_DIM are)."""
+    if D % 8 or not 0 < D <= MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f'{kernel} kernel: head_dim {D} is not built (built: '
+            f'multiples of 8 up to {MAX_HEAD_DIM})')
+
+
 def _check(kernel, q, k, v, *more):
     _build.require_cuda(q, kernel)
     code = _build.dtype_code(q, kernel)
@@ -158,10 +167,7 @@ def _check(kernel, q, k, v, *more):
     if H % k.shape[1]:
         raise ValueError(f'{kernel} kernel: query heads ({H}) must be a '
                          f'multiple of kv heads ({k.shape[1]})')
-    if D not in HEAD_DIMS:
-        raise NotImplementedError(
-            f'{kernel} kernel: head_dim {D} is not built (built: '
-            f'{HEAD_DIMS})')
+    check_built(kernel, D)
     for t in (k, v, *more):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f'{kernel} kernel: every tensor must be '

@@ -26,9 +26,9 @@ import math
 import torch
 
 from .. import _build
+from . import decode_attention as _decode
 
 NEG_INF = -1e30
-GROUPS = (1, 2, 4, 8)   # query heads per kv head the kernel is built for
 # scale modes of the C entry (csrc/paged_attention.cu)
 NO_SCALE, ROW_SCALE, HEAD_DIM_SCALE = 0, 1, 2
 
@@ -121,8 +121,10 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables,
     """The CUDA kernel (same arguments as the plain version). Raises on
     what it does not take: non-CUDA or mixed devices, float pools of
     another dtype than q, scales that are not float32, non-contiguous
-    inputs, a GQA group outside 1/2/4/8, or a head size whose row is not
-    2..32 loads wide (16 bytes each, 8 for int8)."""
+    inputs; NotImplementedError for a head size that is not built
+    (multiples of 8 for bf16 and int8 pages, of 4 for float32, up to
+    256, as `decode_attention.check_built`). Every GQA group is
+    built."""
     B, Hq, D, NB, Hkv, BS, maxb, mode = _check_shapes(
         q, key_cache, value_cache, block_tables, context_lens, k_scale,
         v_scale)
@@ -152,13 +154,7 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('paged_decode_attention kernel: inputs must be '
                          'contiguous')
-    vec = 8 if mode != NO_SCALE else 16 // q.element_size()
-    lpr = D // vec
-    if Hq // Hkv not in GROUPS or D % vec or lpr not in (2, 4, 8, 16, 32):
-        raise ValueError(
-            f'paged_decode_attention kernel: needs Hq/Hkv in {GROUPS} '
-            f'and D a multiple of {vec} between {2 * vec} and {32 * vec} '
-            f'with D/{vec} a power of two; got Hq={Hq}, Hkv={Hkv}, D={D}')
+    _decode.check_built('paged_decode_attention', key_cache.dtype, D)
     code = _build.dtype_code(q, 'paged_decode_attention')
     out = torch.empty_like(q)
     lib = _build.load()

@@ -36,6 +36,13 @@ def card():
 # outputs may differ by one rounding step (2^-8 relative)
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -7)}
 
+# (Hq, Hkv, D) the decode kernels (K7, K8, K8q, K9) took only after fault
+# E2's repair: GQA groups 3, 5, 6, 7 at D = 80, 96, 128 (Llama-3.2-3B,
+# Qwen2.5-14B, Qwen2-1.5B, Qwen2-7B), Qwen2-0.5B's 14 / 2 at D = 64, a
+# group of 16 (two chunks of 8), D = 256 and D = 40
+E2_DECODE = [(2 * g, 2, D) for g in (3, 5, 6, 7) for D in (80, 96, 128)] \
+    + [(28, 4, 128), (14, 2, 64), (16, 1, 128), (4, 2, 256), (3, 1, 40)]
+
 
 @pytest.mark.parametrize('dtype,wdtype', [
     (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
@@ -62,7 +69,7 @@ def test_rms_norm_kernel(card, shape, dtype, wdtype):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('Hq,Hkv,D', [(32, 32, 128), (32, 8, 128),
-                                      (4, 2, 16), (8, 4, 64)])
+                                      (4, 2, 16), (8, 4, 64)] + E2_DECODE)
 def test_paged_kernel(card, dtype, Hq, Hkv, D):
     rng = np.random.default_rng(Hq * 100 + Hkv + D)
     B, BS, MAXB = 4, 16, 20
@@ -85,12 +92,22 @@ def test_paged_kernel(card, dtype, Hq, Hkv, D):
 
 
 def test_paged_kernel_refuses_unbuilt_group(card):
-    q = torch.zeros(1, 1, 6, 64, device=card)
-    kc = torch.zeros(2, 2, 16, 64, device=card)
+    """Every group is built (group 3 launches); a head size that is not
+    (past 256, or not a multiple of the load width) raises
+    NotImplementedError before any launch."""
     tbl = torch.zeros(1, 1, dtype=torch.int32, device=card)
     lens = torch.ones(1, dtype=torch.int32, device=card)
-    with pytest.raises(ValueError, match='Hq/Hkv'):
-        k_paged.paged_decode_attention(q, kc, kc, tbl, lens)
+    q = torch.zeros(1, 1, 6, 64, device=card)
+    kc = torch.zeros(2, 2, 16, 64, device=card)
+    k_paged.paged_decode_attention(q, kc, kc, tbl, lens)
+    before = dict(_build.LAUNCHES)
+    for D, dtype in ((264, torch.float32), (12, torch.bfloat16),
+                     (132, torch.float32)):
+        q = torch.zeros(1, 1, 6, D, device=card, dtype=dtype)
+        kc = torch.zeros(2, 2, 16, D, device=card, dtype=dtype)
+        with pytest.raises(NotImplementedError, match=f'head_dim {D}'):
+            k_paged.paged_decode_attention(q, kc, kc, tbl, lens)
+    assert _build.LAUNCHES == before
 
 
 def test_kernels_refuse_float16(card):
@@ -124,9 +141,14 @@ def test_kernels_refuse_float16(card):
 
 
 def test_flash_kernel_refuses_unbuilt_head_dim(card):
-    q = torch.zeros(1, 2, 128, 96, device=card)
-    with pytest.raises(NotImplementedError, match='head_dim 96'):
-        k_flash.flash_attention_fwd(q, q, q, True)
+    """Head sizes that are a multiple of 8 up to 256 are built; others
+    raise NotImplementedError before any launch."""
+    before = dict(_build.LAUNCHES)
+    for D in (100, 264):
+        q = torch.zeros(1, 2, 128, D, device=card)
+        with pytest.raises(NotImplementedError, match=f'head_dim {D}'):
+            k_flash.flash_attention_fwd(q, q, q, True)
+    assert _build.LAUNCHES == before
 
 
 def _randn(rng, shape, card, dtype, scale=1.0):
@@ -226,7 +248,12 @@ def test_softmax_xent_kernels(card, dtype, R, V):
 FLASH_CASES = [
     (2, 4, 4, 128, 128, 128, True), (1, 4, 2, 200, 200, 128, True),
     (2, 4, 1, 77, 150, 64, True), (1, 2, 2, 150, 77, 64, True),
-    (1, 4, 2, 96, 160, 128, False), (1, 32, 8, 256, 256, 128, True)]
+    (1, 4, 2, 96, 160, 128, False), (1, 32, 8, 256, 256, 128, True),
+    # head sizes built on a padded tile after fault E2's repair: Qwen's
+    # 80 and 96 (GQA 28 / 4), 40, and 256 (one block per SM)
+    (1, 28, 4, 200, 200, 80, True), (2, 4, 2, 77, 150, 96, True),
+    (1, 4, 1, 150, 77, 96, False), (1, 2, 2, 130, 130, 40, True),
+    (1, 4, 2, 150, 150, 256, True)]
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -312,7 +339,9 @@ def test_training_ops_differentiate_on_the_card(card):
 @pytest.mark.parametrize('B,S,Hq,Hkv,D', [(1, 2048, 32, 32, 128),
                                           (8, 2048, 32, 8, 128),
                                           (4, 37, 4, 2, 16),
-                                          (3, 300, 8, 1, 64)])
+                                          (3, 300, 8, 1, 64),
+                                          (1, 2048, 28, 4, 128)] + [
+    (3, 300, Hq, Hkv, D) for Hq, Hkv, D in E2_DECODE])
 def test_decode_attention_kernel(card, mode, B, S, Hq, Hkv, D):
     """K7 against its plain version: per-row windows with an empty one
     (start past valid_len), valid_len past S, a start below 0, in one
@@ -357,13 +386,20 @@ def test_decode_attention_kernel(card, mode, B, S, Hq, Hkv, D):
 
 
 def test_decode_attention_kernel_refusals(card):
-    q = torch.zeros(1, 1, 6, 64, device=card)
-    kc = torch.zeros(1, 16, 2, 64, device=card)
-    with pytest.raises(ValueError, match='Hq/Hkv'):
-        k_decode.decode_attention(q, kc, kc, 4)
+    """Every group is built; a head size that is not (past 256, or a
+    float32 row past 128 that is not a multiple of 8) raises
+    NotImplementedError before any launch."""
+    before = dict(_build.LAUNCHES)
+    for D in (264, 132):
+        q = torch.zeros(1, 1, 6, D, device=card)
+        kc = torch.zeros(1, 16, 2, D, device=card)
+        with pytest.raises(NotImplementedError, match=f'head_dim {D}'):
+            k_decode.decode_attention(q, kc, kc, 4)
+    assert _build.LAUNCHES == before
+    q = torch.zeros(1, 1, 2, 64, device=card)
+    kc = torch.zeros(1, 16, 2, 64, device=card, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match='dtype'):
-        k_decode.decode_attention(q[:, :, :2], kc.bfloat16(), kc.bfloat16(),
-                                  4)
+        k_decode.decode_attention(q, kc, kc, 4)
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -391,6 +427,41 @@ def test_quant_matmul_kernels(card, dtype, bits, M, K, N):
     assert got.dtype == dtype and got.shape == (M, N)
     # float32: sums of up to 11008 products taken in another order;
     # bf16: one rounding step of the output on top
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else TOL[dtype]
+    amax = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol * amax)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('fp8', [torch.float8_e4m3fn, torch.float8_e5m2],
+                         ids=['e4m3', 'e5m2'])
+@pytest.mark.parametrize('M,K,N', [(1, 3584, 18944), (8, 18944, 3584),
+                                   (3, 333, 77), (40, 129, 130),
+                                   (16, 4095, 4096), (2, 130, 131)])
+def test_quant_matmul_fp8_kernel(card, dtype, fp8, M, K, N):
+    """K10f8 against its plain version: Qwen2-7B's MLP projections at
+    decode rows (the skinny path, K split across blocks), ragged M / K /
+    N (scalar column tails, rows not 4-byte aligned) and M > 16 (the
+    tiled path); launched by nn.quant.weight_only_linear on fp8 codes
+    with the default weight_dtype."""
+    from paddle_tpu_torch.nn import quant as nq
+    rng = np.random.default_rng(M * 7 + K + N)
+    w = _randn(rng, (K, N), card, torch.float32, 0.02)
+    codes, scale = k_qmm.quantize_weight_fp8(w, dtype=fp8)
+    assert codes.dtype == fp8
+    x = _randn(rng, (M, K), card, dtype)
+    before = dict(_build.LAUNCHES)
+    got = k_qmm.quant_matmul_fp8(x, codes, scale)
+    linear = nq.weight_only_linear(x, codes, weight_scale=scale)
+    want = k_qmm.quant_matmul_fp8_plain(x, codes, scale)
+    assert _build.LAUNCHES['quant_matmul_fp8'] == \
+        before['quant_matmul_fp8'] + 2
+    assert _build.LAUNCHES['quant_matmul'] == before['quant_matmul']
+    assert got.dtype == dtype and got.shape == (M, N)
+    torch.testing.assert_close(linear, got, rtol=0, atol=0)
+    # float32: sums of up to 18944 products taken in another order (the
+    # fp8 -> float32 decode is exact); bf16: one rounding step on top
     rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else TOL[dtype]
     amax = want.float().abs().max().item()
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
@@ -434,7 +505,7 @@ def test_generate_on_the_card_runs_the_decode_kernels(card):
 @pytest.mark.parametrize('rowscale', [True, False],
                          ids=['row-scales', 'head-dim-scales'])
 @pytest.mark.parametrize('Hq,Hkv,D', [(32, 32, 128), (32, 8, 128),
-                                      (4, 2, 16), (8, 1, 64)])
+                                      (4, 2, 16), (8, 1, 64)] + E2_DECODE)
 def test_paged_int8_kernel(card, dtype, rowscale, Hq, Hkv, D):
     """K8q against its plain version: int8 pages with per-row (NB, Hkv,
     BS) or per-(head, dim) (Hkv, D) scales, a count past the table, a
@@ -473,7 +544,8 @@ def test_paged_int8_kernel(card, dtype, rowscale, Hq, Hkv, D):
                                           (8, 2048, 32, 32, 128),
                                           (8, 2048, 32, 8, 128),
                                           (3, 37, 4, 2, 16),
-                                          (2, 300, 8, 1, 64)])
+                                          (2, 300, 8, 1, 64)] + [
+    (2, 300, Hq, Hkv, D) for Hq, Hkv, D in E2_DECODE])
 def test_headmajor_kernel(card, mode, B, S, Hq, Hkv, D):
     """K9 against its plain version over (B, Hkv, S, D) caches: counts
     past S (clipped), 0, and inside the cache."""

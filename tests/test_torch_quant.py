@@ -1,6 +1,7 @@
 """The port's weight-only quantization against the JAX package's: the
-quantizers (bit-equal codes and scales), the plain versions of kernels
-K10 / K11 against the Pallas kernels in interpret mode and against the
+quantizers (bit-equal codes and scales; fp8 codes compared as bytes),
+the plain versions of kernels K10 / K10f8 / K11 against the Pallas
+kernels in interpret mode and against the
 JAX package's default (XLA) route, `quantize_weights`, quantized states
 carried across with `load_jax_state`, and generation and serving over
 quantized models.
@@ -35,6 +36,20 @@ MM_TOL = dict(rtol=1e-5, atol=1e-4)
 CFG = dict(vocab_size=96, hidden_size=64, layers=2)
 
 
+FP8_SEED = {'e4m3': 3, 'e5m2': 5}
+FP8_TORCH = {'float8_e4m3fn': torch.float8_e4m3fn,
+             'float8_e5m2': torch.float8_e5m2}
+
+
+def _codes(codes):
+    """JAX codes as a tensor (fp8 codes through their bytes: numpy has
+    no fp8 type torch reads)."""
+    a = np.array(codes)
+    if a.dtype.name in FP8_TORCH:
+        return torch.from_numpy(a.view(np.uint8)).view(FP8_TORCH[a.dtype.name])
+    return torch.from_numpy(a)
+
+
 def _w(K, N, seed):
     return np.random.default_rng(seed).normal(
         scale=0.05, size=(K, N)).astype(np.float32)
@@ -53,6 +68,23 @@ class TestQuantizers:
         np.testing.assert_array_equal(
             tq.unpack_int4(tc).numpy(), np.asarray(jq._unpack_int4(jc)))
 
+    @pytest.mark.parametrize('fp8', ['e4m3', 'e5m2'])
+    def test_fp8_codes_and_scales_bit_equal(self, fp8):
+        """quantize_weight_fp8 in both fp8 types: codes bit-equal (as
+        uint8), scales equal, on a weight with a zero column (scale 1e-12)
+        and one outlier."""
+        w = _w(65, 33, 3)
+        w[:, 5] = 0.0
+        w[7, 9] = 1.5
+        jd, td = {'e4m3': (jnp.float8_e4m3fn, torch.float8_e4m3fn),
+                  'e5m2': (jnp.float8_e5m2, torch.float8_e5m2)}[fp8]
+        jc, js = jq.quantize_weight_fp8(jnp.asarray(w), dtype=jd)
+        tc, ts = tq.quantize_weight_fp8(torch.from_numpy(w), dtype=td)
+        assert tc.dtype == td
+        np.testing.assert_array_equal(tc.view(torch.uint8).numpy(),
+                                      np.asarray(jc).view(np.uint8))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
     def test_nn_quant_surface(self):
         w = _w(33, 20, 1)
         for algo in ('weight_only_int8', 'weight_only_int4'):
@@ -63,23 +95,37 @@ class TestQuantizers:
                                             out_features=33)
             got = nq.weight_dequantize(tc, ts, algo=algo, out_features=33)
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-        with pytest.raises(NotImplementedError, match='fp8'):
-            nq.weight_quantize(torch.from_numpy(w), algo='weight_only_fp8')
+        for algo in ('fp8', 'weight_only_fp8', 'float8_e4m3fn'):
+            jc, js = jax_nq.weight_quantize(jnp.asarray(w), algo=algo)
+            tc, ts = nq.weight_quantize(torch.from_numpy(w), algo=algo)
+            assert tc.dtype == torch.float8_e4m3fn
+            np.testing.assert_array_equal(tc.view(torch.uint8).numpy(),
+                                          np.asarray(jc).view(np.uint8))
+            np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+            np.testing.assert_array_equal(
+                nq.weight_dequantize(tc, ts).numpy(),
+                np.asarray(jax_nq.weight_dequantize(jc, js)))
         with pytest.raises(ValueError, match='unknown'):
             nq.weight_quantize(torch.from_numpy(w), algo='int3')
 
 
 class TestQuantMatmulPlain:
-    @pytest.mark.parametrize('bits', [8, 4])
+    @pytest.mark.parametrize('bits', [8, 4, 'e4m3', 'e5m2'])
     @pytest.mark.parametrize('M,K,N', [(1, 64, 48), (5, 65, 33),
                                        (16, 130, 20)])
     def test_matches_pallas_kernel(self, bits, M, K, N):
-        rng = np.random.default_rng(M + K + N + bits)
+        rng = np.random.default_rng(M + K + N + FP8_SEED.get(bits, bits))
         x = rng.normal(size=(M, K)).astype(np.float32)
         w = _w(K, N, K)
         if bits == 8:
             codes, scale = jq.quantize_weight(jnp.asarray(w))
             fn, plain = jq.quant_matmul, ops.quant_matmul
+        elif bits in ('e4m3', 'e5m2'):
+            # the Pallas kernel casts whatever codes it is given (K10f8)
+            codes, scale = jq.quantize_weight_fp8(
+                jnp.asarray(w), dtype=(jnp.float8_e4m3fn if bits == 'e4m3'
+                                       else jnp.float8_e5m2))
+            fn, plain = jq.quant_matmul, ops.quant_matmul_fp8
         else:
             codes, scale = jq.quantize_weight_int4(jnp.asarray(w))
             fn, plain = jq.quant_matmul_int4, ops.quant_matmul_int4
@@ -88,7 +134,7 @@ class TestQuantMatmulPlain:
         want = np.asarray(jax.jit(functools.partial(
             fn, block_m=8, block_n=16, block_k=32, interpret=True))(
                 jnp.asarray(x), codes, scale))
-        got = plain(torch.from_numpy(x), torch.from_numpy(np.array(codes)),
+        got = plain(torch.from_numpy(x), _codes(codes),
                     torch.from_numpy(np.array(scale)))
         np.testing.assert_allclose(got.numpy(), want, **MM_TOL)
 

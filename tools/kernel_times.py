@@ -1,0 +1,94 @@
+#!/usr/bin/env python3
+"""Kernel times of the PyTorch port on one CUDA card, for comparing trees.
+
+    python3 tools/kernel_times.py [TREE]
+
+Imports paddle_tpu_torch and chip_smoke.py from TREE (default: the
+checkout this file lies in), builds the kernels, and times the decode,
+paged, flash and weight-only kernels with TREE's own chip_smoke.py check
+functions (each checked against its plain version, timed with CUDA
+events and the L2 cache flushed). Prints one JSON line per kernel shape:
+the kernel's name, the shape, and its ms. The shapes are Llama-7B's rows
+of PERF.md's kernel table, which trees from before the GQA-group and
+head-size repair build too, so an older tree and a newer one compare row
+by row; chip_smoke.py's phase 3 holds every shape of the current tree.
+Run it on each tree in turn within one call on one machine (A, B, B, A):
+kernel times hold within a few per cent there, and the card may differ
+between calls.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def main():
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('tree', nargs='?', default=os.path.dirname(here))
+    tree = os.path.abspath(ap.parse_args().tree)
+    sys.path.insert(0, tree)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit('kernel_times: needs a CUDA card')
+    import chip_smoke as cs
+    from paddle_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    t = time.perf_counter()
+    _build.build()
+    _build.load()
+    build_s = time.perf_counter() - t
+    torch.backends.cuda.matmul.allow_tf32 = False
+    timer = cs.Timer(torch)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = []
+
+    def add(name, rec):
+        rows.append((name, rec['shape'], rec['ms']))
+
+    for B in (1, 8):
+        for Hkv in (32, 8):
+            for mode in ('bfloat16', 'float32', 'int8'):
+                add('decode_attention',
+                    cs.check_decode(torch, timer, B, 32, Hkv, mode))
+                add('decode_attention_headmajor',
+                    cs.check_headmajor(torch, timer, B, 32, Hkv, mode))
+    for Hkv in (32, 8):
+        add('paged_decode_attention', cs.check_paged(torch, timer, 32, Hkv))
+        for row in (True, False):
+            add('paged_decode_attention_int8',
+                cs.check_paged_int8(torch, timer, 32, Hkv, row))
+    for H, Hkv, dt in ((32, 32, bf16), (32, 32, f32), (32, 8, bf16)):
+        fwd, bwd = cs.check_flash(torch, timer, 1, H, Hkv, 2048, 128, dt)
+        add('flash_attention_fwd', fwd)
+        add('flash_attention_bwd', bwd)
+        torch.cuda.empty_cache()
+    for Hkv, dt in ((8, bf16), (32, f32)):
+        fwd, bwd = cs.check_flash_window(torch, timer, 32, Hkv, dt)
+        add('flash_attention_fwd_window', fwd)
+        add('flash_attention_bwd_window', bwd)
+        torch.cuda.empty_cache()
+    for bits, name in ((8, 'quant_matmul'), (4, 'quant_matmul_int4')):
+        for M in (1, 16, 2048):
+            for K, N in ((4096, 4096), (4096, 32000)):
+                add(name, cs.check_quant_matmul(torch, timer, M, K, N, bf16,
+                                                bits))
+        torch.cuda.empty_cache()
+    for name, shape, ms in rows:
+        print(json.dumps({'tree': tree, 'kernel': name, 'shape': shape,
+                          'ms': ms, 'card': card}), flush=True)
+    print(json.dumps({'tree': tree, 'build_s': build_s, 'card': card}))
+
+
+if __name__ == '__main__':
+    main()
