@@ -19,7 +19,10 @@ Phases, in order (any failure exits non-zero and prints no result):
               E2's repair: K7, K8, K8q, K9 at GQA groups 3, 5, 6, 7 with
               head sizes 64, 80, 96, 128, K5 / K6 at head sizes 80, 96,
               256; K10f8, fp8 weights, at Llama-7B's and Qwen2-7B's
-              projections), with a
+              projections; K10 / K11 / K10f8 at M = 64 and 256, with
+              the path each row took, every bf16 row past the skinny
+              path on the tensor cores, and the two paths timed
+              against each other at M = 8, 16, 32, 64), with a
               stated tolerance, and timed with CUDA events (kernel,
               plain version, and the one PyTorch call that computes the
               same function, where there is one) against its bound, the
@@ -47,7 +50,12 @@ Phases, in order (any failure exits non-zero and prints no result):
               position contiguous caches at batch 1 and 8, with an int8
               KV cache, and with int8 and int4 weights (tokens/s, ms per
               forward, exact launch counts of K1, K7, K10, K11; one
-              forward traced at b8 bf16 and at b1 int8 weights), then
+              forward traced at b8 bf16 and at b1 int8 weights), a
+              2048-token prefill (generate with max_new_tokens=1, one
+              warm and 3 timed calls) with bf16, int8 and int4 weights
+              (ms per call, K10 / K11 launches 7L + 1 per call, all on
+              the tensor cores, the first token equal to the plain
+              versions'), then
               DecodeEngine end to end on a 13-token prompt, then the
               kernels against the plain versions in float32 (7B width,
               2 layers): logits of 16 decode steps in five modes, and
@@ -538,7 +546,9 @@ FP8 = {'e4m3': 'float8_e4m3fn', 'e5m2': 'float8_e5m2'}
 def check_quant_matmul(torch, timer, M, K, N, dtype, bits):
     """K10 (bits 8), K11 (bits 4) or K10f8 (bits 'e4m3' or 'e5m2') at a
     Llama-7B or Qwen2-7B projection: M = 1 and 8 decode rows, 16 (the
-    bucketed prefill), 2048 (a long prompt). The yardstick is
+    bucketed prefill), 64 and 256 (short prompts), 2048 (a long prompt),
+    with the path the wrapper took (a bf16 row past the skinny path on an
+    aligned shape must take the tensor cores). The yardstick is
     torch.matmul against the weight dequantized to x's dtype: the same
     product reading 2x (K10, K10f8) or 4x (K11) the weight bytes in
     bf16; where the installed torch has a CUDA torch._weight_int8pack_mm
@@ -560,15 +570,22 @@ def check_quant_matmul(torch, timer, M, K, N, dtype, bits):
         bits, k.quant_matmul_fp8)
     plain = {4: k.quant_matmul_int4_plain, 8: k.quant_matmul_plain}.get(
         bits, k.quant_matmul_fp8_plain)
+    before = dict(k.PATH_LAUNCHES)
     out = kern(x, codes, scale)
+    took = [p for p, n in k.PATH_LAUNCHES.items() if n != before[p]]
     ref = plain(x, codes, scale)
     torch.cuda.synchronize()
+    kind = bits if fp8 else f'int{bits}'
+    what = f'quant_matmul {kind} M={M} K={K} N={N} {dtype}'
+    # bf16 rows past the skinny path on aligned shapes take the tensor
+    # cores
+    if (M > k.SKINNY_M and dtype == torch.bfloat16 and K % 8 == 0
+            and N % 16 == 0 and took != ['tensor_core']):
+        raise AssertionError(f'{what} took path {took}, not tensor_core')
     # float32: sums of K products in another order; bf16: one rounding
     # step of the output on top
     tol = {'float32': (1e-4, 1e-4), 'bfloat16': TENSOR_TOL['bfloat16']}[
         dname(torch, dtype)]
-    kind = bits if fp8 else f'int{bits}'
-    what = f'quant_matmul {kind} M={M} K={K} N={N} {dtype}'
     err = within(out, ref, tol, what)
     del out, ref
     item = x.element_size()
@@ -583,7 +600,7 @@ def check_quant_matmul(torch, timer, M, K, N, dtype, bits):
     rec = {
         'shape': f'x ({M}, {K}) {dname(torch, dtype)}, codes {kind} '
                  f'{tuple(codes.shape)}',
-        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'path': took[0], 'max_abs_err': err, 'tolerance': tol_text(tol),
         'ms': timer(lambda: kern(x, codes, scale), iters=iters),
         'plain_ms': timer(lambda: plain(x, codes, scale), iters=iters),
         'library_ms': timer(lambda: torch.matmul(x, deq), iters=iters),
@@ -606,6 +623,42 @@ def check_quant_matmul(torch, timer, M, K, N, dtype, bits):
         del wt
     del deq, codes
     return rec
+
+
+def path_crossover(torch, timer, card):
+    """K10 and K11 at M = 8, 16, 32, 64, bf16 x, Llama-7B's four
+    projections, on the tensor-core path and on the path the wrapper
+    would otherwise take (skinny at M <= 16, the CUDA cores past it),
+    in one call: the evidence for where bf16 x's bound of the skinny
+    path belongs (float32 x has no tensor-core path, so it stays
+    skinny up to SKINNY_M). Each output is held against the plain
+    version."""
+    from paddle_tpu_torch.ops.hopper import quant_matmul as k
+
+    for bits, quant, plain in ((8, k.quantize_weight, k.quant_matmul_plain),
+                               (4, k.quantize_weight_int4,
+                                k.quant_matmul_int4_plain)):
+        for K, N in ((4096, 4096), (4096, 11008), (11008, 4096),
+                     (4096, 32000)):
+            g = torch.Generator(device='cuda').manual_seed(K + N + bits)
+            codes, scale = quant(0.02 * torch.randn(K, N, device='cuda',
+                                                    generator=g))
+            for M in (8, 16, 32, 64):
+                x = torch.randn(M, K, device='cuda', generator=g).to(
+                    torch.bfloat16)
+                ref = plain(x, codes, scale)
+                other = 'skinny' if M <= k.SKINNY_M else 'cuda_core'
+                ms = {}
+                for p in (other, 'tensor_core'):
+                    within(k.launch_path(p, x, codes, scale, bits), ref,
+                           TENSOR_TOL['bfloat16'],
+                           f'int{bits} M={M} {K}x{N} on {p}')
+                    ms[p] = timer(lambda: k.launch_path(
+                        p, x, codes, scale, bits), iters=20)
+                print(f'kernel path crossover: int{bits} M={M} {K}x{N} bf16: '
+                      f'{other} {ms[other]:.4f} ms, tensor_core '
+                      f'{ms["tensor_core"]:.4f} ms [{card}]', flush=True)
+            del codes, scale
 
 
 # (rtol, atol as a fraction of max |plain|) for a kernel's tensor output
@@ -1389,13 +1442,16 @@ def grads_phase(torch, np, card, rel_tol=1e-4):
 
 
 def count_launches(torch, fn):
-    """fn() with every launch count set to 0 just before and read just
-    after (synchronised): (result, counts)."""
+    """fn() with every launch count (and K10 / K11's per-path counts) set
+    to 0 just before and read just after (synchronised): (result,
+    counts)."""
     from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.hopper import quant_matmul as hq
 
     torch.cuda.synchronize()
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
+    for counts in (ops.LAUNCHES, hq.PATH_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     out = fn()
     torch.cuda.synchronize()
     return out, dict(ops.LAUNCHES)
@@ -1414,9 +1470,9 @@ def expect_launches(got, L, forwards, decode_forwards, quant=None):
         raise AssertionError(f'launch counts {got} != expected {want}')
 
 
-def profile_forward(torch, fn, label, card):
-    """Trace one decode forward: device time by kernel and the share of
-    the forward's wall time the device was busy."""
+def profile_forward(torch, fn, label, card, phase='decode'):
+    """Trace one decode (or prefill) forward: device time by kernel and
+    the share of the forward's wall time the device was busy."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1431,16 +1487,16 @@ def profile_forward(torch, fn, label, card):
                    if str(e.device_type).endswith('CUDA')
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
-        print(f'decode profile {label}: the profiler recorded no device '
+        print(f'{phase} profile {label}: the profiler recorded no device '
               f'time; device-busy share not measured')
         return
     busy = sum(r[0] for r in rows) / 1e3
     n = sum(r[1] for r in rows)
-    print(f'decode profile {label}: one forward: wall {wall * 1e3:.2f} ms, '
+    print(f'{phase} profile {label}: one forward: wall {wall * 1e3:.2f} ms, '
           f'device busy {busy:.3f} ms ({busy / (wall * 1e3):.3f}), {n} '
           f'kernels [{card}]')
     for t_us, c, key in rows[:12]:
-        print(f'decode profile {label}:   {t_us / 1e3:8.3f} ms  {c:5d}x  '
+        print(f'{phase} profile {label}:   {t_us / 1e3:8.3f} ms  {c:5d}x  '
               f'{key[:90]}')
 
 
@@ -1500,6 +1556,66 @@ def bench_decode(torch, model, batch, label, card, quant=None,
                 tok, caches=caches, cache_index=cache_len - 2), label, card)
     del caches
     return tps, ms, counts
+
+
+def prefill_run(torch, np, model, label, card, quant=None, P=2048,
+                reps=3, profile=False):
+    """A long prompt's prefill through the normal entry point:
+    generate(1 x P seeded ids, max_new_tokens=1) is one prefill forward
+    and the first token. One warm call, then `reps` timed calls (ms per
+    call), exact launch counts (K1 2L + 1 and, with quantized weights,
+    K10 / K11 7L + 1 per forward, every one on the tensor-core path); a
+    quantized model's first token must equal its run through the plain
+    versions. With `profile`, one more call is traced. Returns the
+    launch counts."""
+    from paddle_tpu_torch.ops.hopper import quant_matmul as hq
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(17).integers(
+        3, cfg.vocab_size, (1, P))).to(model.device)
+    first = model.generate(ids, max_new_tokens=1)
+    torch.cuda.synchronize()
+
+    def timed():
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = model.generate(ids, max_new_tokens=1)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return out, ts
+
+    (out, ts), counts = count_launches(torch, timed)
+    paths = dict(hq.PATH_LAUNCHES)
+    expect_launches(counts, L, reps, 0, quant)
+    if not torch.equal(out, first):
+        raise AssertionError(f'prefill {label}: the first token changed '
+                             f'between calls')
+    line = (f'prefill {label}: generate(1 x {P} tokens, max_new_tokens=1) '
+            f'{sum(ts) / reps:.2f} ms per call (calls '
+            f'{", ".join(f"{t:.2f}" for t in ts)}; {L} layers)')
+    if quant:
+        tc = paths['tensor_core']
+        if paths != dict(skinny=0, tensor_core=counts[quant], cuda_core=0):
+            raise AssertionError(f'prefill {label}: paths {paths}, not all '
+                                 f'{counts[quant]} on the tensor cores')
+        with plain_kernels():
+            plain = model.generate(ids, max_new_tokens=1)
+        same = torch.equal(plain, out)
+        line += (f'; {quant} {counts[quant] // reps} launches per call (7L '
+                 f'+ 1 = {7 * L + 1}), tensor-core share '
+                 f'{tc / counts[quant]:.3f}; first token {int(out[0, -1])},'
+                 f' through the plain versions {int(plain[0, -1])}: equal '
+                 f'{same}')
+        if not same:
+            raise AssertionError(f'prefill {label}: the first token differs '
+                                 f'from the plain versions')
+    print(line + f' [{card}]', flush=True)
+    if profile:
+        profile_forward(torch, lambda: model.generate(ids, max_new_tokens=1),
+                        label, card, phase='prefill')
+    return counts
 
 
 def add_counts(total, counts):
@@ -1611,7 +1727,8 @@ def decode_phase(torch, np, card):
     """The JAX bench's decode section (bench.py:2739-2860) at Llama-2-7B
     widths, all 32 layers, bf16 seeded weights: five bench_decode runs
     (b1, b8, b8 with an int8 KV cache, b1 with int8 weights, b1 with
-    int4 weights), then DecodeEngine on a 13-token prompt (bucket 16)
+    int4 weights), a 2048-token prefill with bf16, int8 and int4
+    weights, then DecodeEngine on a 13-token prompt (bucket 16)
     with 192 new tokens, then the float32 agreement checks. Returns the
     launch counts of the phase's measured runs."""
     from paddle_tpu_torch.inference import DecodeEngine
@@ -1630,6 +1747,7 @@ def decode_phase(torch, np, card):
                                        kv_int8=kv8, profile=prof)[2])
         gc.collect()
         torch.cuda.empty_cache()
+    add_counts(total, prefill_run(torch, np, model, 'bf16 weights', card))
     for bits, name in ((8, 'quant_matmul'), (4, 'quant_matmul_int4')):
         t = time.perf_counter()
         qm = model.quantize_weights(bits)
@@ -1641,6 +1759,8 @@ def decode_phase(torch, np, card):
         add_counts(total, bench_decode(
             torch, qm, 1, f'b1 int{bits} weights', card, quant=name,
             profile=bits == 8)[2])
+        add_counts(total, prefill_run(torch, np, qm, f'int{bits} weights',
+                                      card, quant=name, profile=bits == 8))
         del qm
         gc.collect()
         torch.cuda.empty_cache()
@@ -2527,6 +2647,7 @@ def main():
     if torch.cuda.device_count() < 1:
         fail('no CUDA device')
 
+    t_start = time.perf_counter()
     try:
         # 1. device
         kind = torch.cuda.get_device_name(0)
@@ -2649,27 +2770,30 @@ def main():
             check_decode(torch, timer, 8, 28, 4, mode)
             for mode in ('bfloat16', 'int8')]
         torch.cuda.empty_cache()
-        # weight-only products: M = 1 bf16 at 4096 x 4096 first
+        # weight-only products: M = 1 bf16 at 4096 x 4096 first, then
+        # the short prompts' M = 64 and 256 in bf16 (the tensor cores)
+        llama_proj = ((4096, 4096), (4096, 11008), (11008, 4096),
+                      (4096, 32000))
         for bits, name in ((8, 'quant_matmul'), (4, 'quant_matmul_int4')):
             cases[name] = [
                 check_quant_matmul(torch, timer, M, K, N, dt, bits)
-                for M in (1, 8, 16, 2048)
-                for K, N in ((4096, 4096), (4096, 11008), (11008, 4096),
-                             (4096, 32000))
-                for dt in (bf16, f32)]
+                for M in (1, 8, 16, 2048) for K, N in llama_proj
+                for dt in (bf16, f32)] + [
+                check_quant_matmul(torch, timer, M, K, N, bf16, bits)
+                for M in (64, 256) for K, N in llama_proj]
             torch.cuda.empty_cache()
         # fp8 codes (K10f8): K10's Llama-7B rows and Qwen2-7B's MLP
         # projections in bf16 e4m3 (the nn.quant default), then e5m2 and
         # a float32 x at M = 1
         cases['quant_matmul_fp8'] = [
             check_quant_matmul(torch, timer, M, K, N, bf16, 'e4m3')
-            for M in (1, 8, 16, 2048)
-            for K, N in ((4096, 4096), (4096, 11008), (11008, 4096),
-                         (4096, 32000))] + [
+            for M in (1, 8, 16, 2048, 64, 256) for K, N in llama_proj] + [
             check_quant_matmul(torch, timer, M, K, N, bf16, 'e4m3')
             for M in (1, 2048) for K, N in ((3584, 18944), (18944, 3584))] + [
             check_quant_matmul(torch, timer, 1, 4096, 4096, bf16, 'e5m2'),
             check_quant_matmul(torch, timer, 1, 4096, 4096, f32, 'e4m3')]
+        torch.cuda.empty_cache()
+        path_crossover(torch, timer, card)
         torch.cuda.empty_cache()
         for name, cs in cases.items():
             for c in cs:
@@ -2761,10 +2885,16 @@ def main():
                 'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
                 'library_ms': head['library_ms'], 'shape': head['shape'],
                 'cases': cs})
+            if name.startswith('quant_matmul'):
+                # past the skinny path, bf16 x takes the tensor cores
+                records[-1]['tensor_core_source'] = \
+                    'paddle_tpu_torch/csrc/quant_matmul_tc.cu'
         unused = [r['name'] for r in records if not r['launches']]
         if unused:
             raise AssertionError(f'kernels the paths never launched: '
                                  f'{unused}')
+        print(f'chip_smoke: every phase in '
+              f'{time.perf_counter() - t_start:.1f} s')
         print(card)
         print(json.dumps({'kernels': records}))
     except Exception:  # noqa: BLE001 - any failed phase fails the run

@@ -30,10 +30,12 @@
 // shared memory in a fixed order, and the K splits are added by a second
 // pass in a fixed order (no atomics: the result does not change from run
 // to run). Any N and K: a column tail past N, or rows whose start is not
-// 4-byte aligned, take scalar loads. Large M (a long prompt's prefill)
-// takes a tiled path: 64 x 64 output tiles, x and the dequantized codes
-// staged in shared memory as float32, float32 FMAs on the CUDA cores.
-// Tensor cores (int8 or bf16 wgmma) are left for a later version.
+// 4-byte aligned, take scalar loads. Past the skinny path, bf16 x on
+// aligned shapes takes the tensor cores (quant_matmul_tc.cu); float32 x
+// (which TF32 would round) and unaligned shapes take the tiled path
+// here: 64 x 64 output tiles, x and the dequantized codes staged in
+// shared memory as float32, float32 FMAs on the CUDA cores. The wrapper
+// picks the path (ops/hopper/quant_matmul.py: path()).
 //
 // fp8 codes (K10f8) move the bytes of int8 ones, so their bound is K10's.
 // They are decoded in registers: the 4 bytes of a lane's load go two at
@@ -41,12 +43,8 @@
 // per pair), then to float32, exactly (every e4m3 and e5m2 value is a
 // half); the tiled path converts its staged bytes one at a time.
 
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
-
-#include <algorithm>
-
 #include "common.cuh"
+#include "quant_matmul.cuh"
 
 namespace {
 
@@ -56,28 +54,6 @@ constexpr int kCols = 4;                // columns per lane
 constexpr int kStrip = 32 * kCols;      // columns per block
 constexpr int kStage = 256;             // K rows of x staged at a time
 constexpr int kUnroll = 8;              // code rows a warp loads at once
-
-// code types of the C entry (ops/hopper/quant_matmul.py names them)
-enum Codes : int { kE4M3 = 1, kE5M2 = 2, kInt4 = 4, kInt8 = 8 };
-
-template <int C>
-__host__ __device__ constexpr __nv_fp8_interpretation_t fp8_kind() {
-  return C == kE4M3 ? __NV_E4M3 : __NV_E5M2;
-}
-
-// the four fp8 codes of a 4-byte word, byte c to f[c]
-template <int C>
-__device__ __forceinline__ void fp8x4(uint32_t w, float (&f)[4]) {
-  const __half2 lo(__nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(w & 0xffffu), fp8_kind<C>()));
-  const __half2 hi(__nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(w >> 16), fp8_kind<C>()));
-  const float2 a = __half22float2(lo), b = __half22float2(hi);
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = b.x;
-  f[3] = b.y;
-}
 
 // one code of an int8 or fp8 weight as float
 template <int C>
@@ -216,22 +192,6 @@ __global__ void __launch_bounds__(kSkinnyThreads) qmm_skinny_kernel(
   }
 }
 
-// out = (sum over the K splits, in order) * scale, cast
-template <typename T>
-__global__ void qmm_combine_kernel(const float* __restrict__ part,
-                                   const float* __restrict__ scale,
-                                   T* __restrict__ out, int m, int n,
-                                   int nsplit) {
-  const int64_t total = static_cast<int64_t>(m) * n;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float v = 0.f;
-    for (int s = 0; s < nsplit; ++s) v += part[s * total + i];
-    out[i] = pt::from_f32<T>(v * scale[i % n]);
-  }
-}
-
 constexpr int kBM = 64, kBN = 64, kBK = 32;  // tiled path: tile and K step
 
 // 256 threads, each a 4 x 4 grid of outputs (rows ty + 16 i, columns
@@ -321,21 +281,18 @@ cudaError_t skinny(const Args& a, cudaStream_t s) {
       a.part, a.m, a.k, a.n, a.rows, a.rows_per_split);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.nsplit == 1) return e;
-  const int64_t total = static_cast<int64_t>(a.m) * a.n;
-  const int blocks = static_cast<int>(std::min<int64_t>((total + 255) / 256,
-                                                        4096));
-  qmm_combine_kernel<T><<<blocks, 256, 0, s>>>(
-      a.part, a.scale, static_cast<T*>(a.out), a.m, a.n, a.nsplit);
-  return cudaGetLastError();
+  return combine<T>(a.part, a.scale, a.out, a.m, a.n, a.nsplit, s);
 }
 
 template <typename T, int C>
-cudaError_t run(const Args& a, cudaStream_t s) {
-  if (a.m <= 1) return skinny<T, C, 1>(a, s);
-  if (a.m <= 2) return skinny<T, C, 2>(a, s);
-  if (a.m <= 4) return skinny<T, C, 4>(a, s);
-  if (a.m <= 8) return skinny<T, C, 8>(a, s);
-  if (a.m <= 16) return skinny<T, C, 16>(a, s);
+cudaError_t run(const Args& a, bool skinny_path, cudaStream_t s) {
+  if (skinny_path) {
+    if (a.m <= 1) return skinny<T, C, 1>(a, s);
+    if (a.m <= 2) return skinny<T, C, 2>(a, s);
+    if (a.m <= 4) return skinny<T, C, 4>(a, s);
+    if (a.m <= 8) return skinny<T, C, 8>(a, s);
+    return skinny<T, C, 16>(a, s);
+  }
   const dim3 grid((a.n + kBN - 1) / kBN, (a.m + kBM - 1) / kBM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   qmm_tiled_kernel<T, C><<<grid, 256, 0, s>>>(
@@ -345,16 +302,17 @@ cudaError_t run(const Args& a, cudaStream_t s) {
 }
 
 template <typename T>
-cudaError_t by_codes(const Args& a, int codes, cudaStream_t s) {
+cudaError_t by_codes(const Args& a, int codes, bool skinny_path,
+                     cudaStream_t s) {
   switch (codes) {
     case kInt4:
-      return run<T, kInt4>(a, s);
+      return run<T, kInt4>(a, skinny_path, s);
     case kInt8:
-      return run<T, kInt8>(a, s);
+      return run<T, kInt8>(a, skinny_path, s);
     case kE4M3:
-      return run<T, kE4M3>(a, s);
+      return run<T, kE4M3>(a, skinny_path, s);
     default:
-      return run<T, kE5M2>(a, s);
+      return run<T, kE5M2>(a, skinny_path, s);
   }
 }
 
@@ -362,33 +320,33 @@ cudaError_t by_codes(const Args& a, int codes, cudaStream_t s) {
 
 // x, out: (m, k) and (m, n) of `dtype`, contiguous; w: codes of one byte,
 // (k, n) for `codes` 8 (int8), 1 (fp8 e4m3) or 2 (fp8 e5m2), or
-// (ceil(k / 2), n) for 4 (packed int4); scale: (n,) float32. For
-// m <= 16 the skinny path splits the code rows in nsplit slices of
-// rows_per_split rows (a multiple of 8), with part a float32 scratch of
-// (nsplit, m, n) when nsplit > 1; m > 16 takes the tiled path and ignores
-// both.
+// (ceil(k / 2), n) for 4 (packed int4); scale: (n,) float32. `skinny`
+// 1 takes the skinny path (m <= 16), which splits the code rows in
+// nsplit slices of rows_per_split rows (a multiple of 8), with part a
+// float32 scratch of (nsplit, m, n) when nsplit > 1; `skinny` 0 takes
+// the tiled path and ignores both.
 extern "C" int pt_quant_matmul(int device, const void* x, const void* w,
                                const void* scale, void* out, void* part,
-                               int m, int k, int n, int codes, int nsplit,
-                               int rows_per_split, int dtype, void* stream) {
+                               int m, int k, int n, int codes, int skinny,
+                               int nsplit, int rows_per_split, int dtype,
+                               void* stream) {
   cudaError_t e = pt::set_device(device);
   if (e != cudaSuccess) return e;
-  if (m < 0 || k < 0 || n < 0 ||
-      (codes != kInt4 && codes != kInt8 && codes != kE4M3 &&
-       codes != kE5M2)) {
+  if (m < 0 || k < 0 || n < 0 || !valid_codes(codes) ||
+      (skinny && m > 16))
     return cudaErrorInvalidValue;
-  }
   const int rows = codes == kInt4 ? (k + 1) / 2 : k;
-  if (m <= 16 && (nsplit < 1 || rows_per_split < 1 ||
-                  static_cast<int64_t>(nsplit) * rows_per_split < rows ||
-                  (nsplit > 1 && part == nullptr)))
+  if (skinny && (nsplit < 1 || rows_per_split < 1 ||
+                 static_cast<int64_t>(nsplit) * rows_per_split < rows ||
+                 (nsplit > 1 && part == nullptr)))
     return cudaErrorInvalidValue;
   if (m == 0 || n == 0) return cudaSuccess;
   const Args a{x, static_cast<const int8_t*>(w), static_cast<const float*>(scale),
                out, static_cast<float*>(part), m, k, n, rows,
-               m <= 16 ? nsplit : 1, rows_per_split};
+               skinny ? nsplit : 1, rows_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == pt::kF32) return by_codes<float>(a, codes, s);
-  if (dtype == pt::kBF16) return by_codes<__nv_bfloat16>(a, codes, s);
+  if (dtype == pt::kF32) return by_codes<float>(a, codes, skinny, s);
+  if (dtype == pt::kBF16)
+    return by_codes<__nv_bfloat16>(a, codes, skinny, s);
   return cudaErrorInvalidValue;
 }

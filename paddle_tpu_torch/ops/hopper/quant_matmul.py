@@ -1,12 +1,13 @@
 """Weight-only quantized matrix products: the quantizers, the
 hand-written Hopper kernels and their plain versions.
 
-The kernels (`csrc/quant_matmul.cu`, one template on the code type)
-replace the TPU kernels `paddle_tpu/ops/pallas/quant_matmul.py::
-quant_matmul` (int8 codes, K10; fp8 codes, K10f8) and
-`::quant_matmul_int4` (packed int4 codes, K11). `quant_matmul` /
-`quant_matmul_fp8` / `quant_matmul_int4` launch them on CUDA tensors;
-the `_plain` twins compute the same function with plain PyTorch ops:
+The kernels (`csrc/quant_matmul.cu` and `csrc/quant_matmul_tc.cu`, each
+one template on the code type) replace the TPU kernels
+`paddle_tpu/ops/pallas/quant_matmul.py::quant_matmul` (int8 codes, K10;
+fp8 codes, K10f8) and `::quant_matmul_int4` (packed int4 codes, K11).
+`quant_matmul` / `quant_matmul_fp8` / `quant_matmul_int4` launch them on
+CUDA tensors, on one of three paths that `path()` picks; the `_plain`
+twins compute the same function with plain PyTorch ops:
 
     out = ((x in float32) @ (codes in float32)) * scale, cast to x's dtype
 
@@ -139,27 +140,69 @@ SKINNY_M = 16      # rows of x the skinny (weight-streaming) path takes
 STRIP = 128        # columns per block of the skinny path
 WARPS = 8          # warps per block of the skinny path
 
+# launches per path, beside `_build.LAUNCHES`' per-kernel counts: each
+# wrapper call adds one to the path it launched
+PATH_LAUNCHES = {'skinny': 0, 'tensor_core': 0, 'cuda_core': 0}
+
+
+def path(M, K, N, dtype, ptrs_aligned):
+    """The kernel a product of x (M, K) and codes (.., N) takes:
+
+    - 'skinny': M <= SKINNY_M, any dtype and shape (decode rows; the
+      weight streamed once, K split across blocks);
+    - 'tensor_core': bf16 x past the skinny path, K % 8 == 0, N % 16 ==
+      0 and x and the codes 16-byte aligned (the kernel's 16-byte
+      copies; bf16 wgmma with float32 sums computes the reference's
+      function exactly but for the order of the sums);
+    - 'cuda_core': the rest past the skinny path: float32 x (TF32 would
+      round it) and unaligned bf16 shapes (float32 FMAs, 64 x 64 tiles).
+    """
+    if M <= SKINNY_M:
+        return 'skinny'
+    if (dtype == torch.bfloat16 and K % 8 == 0 and N % 16 == 0
+            and ptrs_aligned):
+        return 'tensor_core'
+    return 'cuda_core'
+
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _split(units, blocks, sms, least, multiple=1):
+    """(nsplit, units per split) of a product whose `blocks` output blocks
+    walk `units` of work each: one split when the blocks alone cover the
+    card; else split until about two blocks per SM are in flight, each
+    split holding at least `least` units, a multiple of `multiple`."""
+    n = 1 if blocks >= sms else -(-2 * sms // blocks)
+    n = max(1, min(n, units // least))
+    per = max(1, -(-(-(-units // n)) // multiple) * multiple)
+    return max(1, -(-units // per)), per
+
+
 def splits(rows, N, sms):
-    """(nsplit, rows_per_split) of the skinny path: split the code rows
-    until the (strip, split) blocks fill about two blocks per SM; one
-    split when the column strips alone cover the card. Each split holds
-    a multiple of the block's 8 warps, and at least 64 rows."""
-    strips = -(-N // STRIP)
-    n = 1 if strips >= sms else -(-2 * sms // strips)
-    n = max(1, min(n, rows // 64))
-    per = -(-(-(-rows // n)) // WARPS) * WARPS
-    return max(1, -(-rows // per)), max(per, 1)
+    """(nsplit, rows_per_split) of the skinny path: its 128-column strips
+    walk the code rows, at least 64 per split, a multiple of the block's
+    8 warps."""
+    return _split(rows, -(-N // STRIP), sms, 64, WARPS)
 
 
-def _launch(x, wq, scale, bits):
-    name = {8: 'quant_matmul', 4: 'quant_matmul_int4',
-            'fp8': 'quant_matmul_fp8'}[bits]
+TILE, STEP = 128, 64   # output tile and K step of the tensor-core path
+
+
+def tc_splits(M, K, N, sms):
+    """(nsplit, steps_per_split) of the tensor-core path: its 128 x 128
+    output tiles walk K in steps of 64, at least 4 per split."""
+    return _split(-(-K // STEP), -(-M // TILE) * -(-N // TILE), sms, 4)
+
+
+_NAMES = {8: 'quant_matmul', 4: 'quant_matmul_int4', 'fp8': 'quant_matmul_fp8'}
+
+
+def _checked(x, wq, scale, bits):
+    """Shapes of a product whose inputs the kernels take, else raise."""
+    name = _NAMES[bits]
     M, K, N = _check(x, wq, scale, bits)
     dev = x.device
     tensors = (x, wq, scale)
@@ -171,21 +214,55 @@ def _launch(x, wq, scale, bits):
                         f'{scale.dtype}')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f'{name} kernel: inputs must be contiguous')
+    return M, K, N
+
+
+def launch_path(p, x, wq, scale, bits):
+    """The product on path `p` ('skinny', 'tensor_core' or 'cuda_core')
+    whatever `path()` would pick, for timing two paths against each
+    other; the C entry refuses a path that does not take the shape."""
+    if p not in PATH_LAUNCHES:
+        raise ValueError(f'no quant_matmul path {p!r}: one of '
+                         f'{list(PATH_LAUNCHES)}')
+    return _run(p, x, wq, scale, bits, *_checked(x, wq, scale, bits))
+
+
+def _run(p, x, wq, scale, bits, M, K, N):
+    name = _NAMES[bits]
+    dev = x.device
     code = _build.dtype_code(x, name)
+    codes = CODES_INT4 if bits == 4 else CODES[wq.dtype]
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
-    nsplit, per = splits(wq.shape[0], N, _sm_count(dev.index))
+    sms = _sm_count(dev.index)
+    if p == 'tensor_core':
+        nsplit, per = tc_splits(M, K, N, sms)
+    elif p == 'skinny':
+        nsplit, per = splits(wq.shape[0], N, sms)
+    else:
+        nsplit, per = 1, 1
     part = None
-    if M <= SKINNY_M and nsplit > 1:
+    if nsplit > 1:
         part = torch.empty(nsplit, M, N, dtype=torch.float32, device=dev)
+    args = (dev.index, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), 0 if part is None else part.data_ptr(), M, K, N,
+            codes)
     lib = _build.load()
-    err = lib.pt_quant_matmul(
-        dev.index, x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), 0 if part is None else part.data_ptr(), M, K, N,
-        CODES_INT4 if bits == 4 else CODES[wq.dtype], nsplit, per, code,
-        _build.stream_ptr(x))
-    _build.check(err, name)
+    if p == 'tensor_core':
+        err = lib.pt_quant_matmul_tc(*args, nsplit, per, code,
+                                     _build.stream_ptr(x))
+    else:
+        err = lib.pt_quant_matmul(*args, int(p == 'skinny'), nsplit, per,
+                                  code, _build.stream_ptr(x))
+    _build.check(err, f'{name} ({p})')
     _build.LAUNCHES[name] += 1
+    PATH_LAUNCHES[p] += 1
     return out
+
+
+def _launch(x, wq, scale, bits):
+    M, K, N = _checked(x, wq, scale, bits)
+    aligned = x.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+    return _run(path(M, K, N, x.dtype, aligned), x, wq, scale, bits, M, K, N)
 
 
 def quant_matmul(x, wq, scale):

@@ -468,6 +468,96 @@ def test_quant_matmul_fp8_kernel(card, dtype, fp8, M, K, N):
                                atol=atol * amax)
 
 
+def _quantized(rng, K, N, card, codes):
+    """Seeded weight (K, N) quantized to `codes` ('int8', 'int4', 'e4m3',
+    'e5m2'): (codes, scale, kernel, plain version)."""
+    w = _randn(rng, (K, N), card, torch.float32, 0.02)
+    if codes == 'int8':
+        return (*k_qmm.quantize_weight(w), k_qmm.quant_matmul,
+                k_qmm.quant_matmul_plain)
+    if codes == 'int4':
+        return (*k_qmm.quantize_weight_int4(w), k_qmm.quant_matmul_int4,
+                k_qmm.quant_matmul_int4_plain)
+    fp8 = {'e4m3': torch.float8_e4m3fn, 'e5m2': torch.float8_e5m2}[codes]
+    return (*k_qmm.quantize_weight_fp8(w, dtype=fp8), k_qmm.quant_matmul_fp8,
+            k_qmm.quant_matmul_fp8_plain)
+
+
+def _path_launches(fn):
+    """fn()'s result and the PATH_LAUNCHES it added."""
+    before = dict(k_qmm.PATH_LAUNCHES)
+    out = fn()
+    return out, {p: n - before[p] for p, n in k_qmm.PATH_LAUNCHES.items()
+                 if n != before[p]}
+
+
+@pytest.mark.parametrize('codes', ['int8', 'int4', 'e4m3', 'e5m2'])
+@pytest.mark.parametrize('M,K,N', [(17, 4096, 4112), (100, 4104, 336),
+                                   (2048, 4096, 4096), (2048, 4104, 336),
+                                   (100, 64, 16)])
+def test_quant_matmul_tensor_core_path(card, codes, M, K, N):
+    """K10 / K10f8 / K11 on the tensor-core path (bf16 x, M past the
+    skinny path, K % 8 == 0, N % 16 == 0) against the plain versions:
+    ragged M (one row past the skinny path, a part tile), N not a
+    multiple of the 128-column tile, K not a multiple of the 64-deep
+    step, the smallest aligned shape."""
+    rng = np.random.default_rng(M + K + N + len(codes))
+    wq, scale, kern, plain = _quantized(rng, K, N, card, codes)
+    x = _randn(rng, (M, K), card, torch.bfloat16)
+    assert k_qmm.path(M, K, N, x.dtype, True) == 'tensor_core'
+    got, paths = _path_launches(lambda: kern(x, wq, scale))
+    assert paths == {'tensor_core': 1}
+    want = plain(x, wq, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    rtol, atol = TOL[torch.bfloat16]
+    amax = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol * amax)
+
+
+@pytest.mark.parametrize('codes', ['int8', 'int4', 'e4m3'])
+@pytest.mark.parametrize('case', ['k_not_8', 'n_not_16', 'x_unaligned',
+                                  'odd_k', 'float32'])
+def test_quant_matmul_cuda_core_path(card, codes, case):
+    """Shapes past the skinny path that the tensor cores do not take run
+    the CUDA-core tiled kernel, equal to the plain versions: K % 8 != 0,
+    N % 16 != 0, an x that does not start 16-byte aligned, an odd K
+    (int4 pads x with a zero column), float32 x (TF32 would round it)."""
+    M, K, N = {'k_not_8': (100, 4100, 336), 'n_not_16': (100, 4096, 328),
+               'odd_k': (33, 4095, 256)}.get(case, (100, 4096, 336))
+    dtype = torch.float32 if case == 'float32' else torch.bfloat16
+    rng = np.random.default_rng(M + K + N + len(codes) + len(case))
+    wq, scale, kern, plain = _quantized(rng, K, N, card, codes)
+    x = _randn(rng, (M, K), card, dtype)
+    if case == 'x_unaligned':
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(M, K)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+    got, paths = _path_launches(lambda: kern(x, wq, scale))
+    assert paths == {'cuda_core': 1}
+    want = plain(x, wq, scale)
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else TOL[dtype]
+    amax = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol * amax)
+
+
+def test_quant_matmul_paths_refuse_what_they_do_not_take(card):
+    """launch_path forces a path for timing; the C entries refuse a shape
+    or dtype their kernel does not take instead of computing garbage."""
+    rng = np.random.default_rng(3)
+    wq, scale, _, _ = _quantized(rng, 4100, 336, card, 'int8')
+    x = _randn(rng, (100, 4100), card, torch.bfloat16)
+    with pytest.raises(RuntimeError, match='tensor_core'):
+        k_qmm.launch_path('tensor_core', x, wq, scale, 8)
+    wq, scale, _, _ = _quantized(rng, 4096, 336, card, 'int8')
+    with pytest.raises(RuntimeError, match='tensor_core'):
+        k_qmm.launch_path('tensor_core', _randn(rng, (100, 4096), card,
+                                                 torch.float32), wq, scale, 8)
+    with pytest.raises(RuntimeError, match='skinny'):
+        k_qmm.launch_path('skinny', _randn(rng, (17, 4096), card,
+                                            torch.bfloat16), wq, scale, 8)
+
+
 def test_generate_on_the_card_runs_the_decode_kernels(card):
     """A tiny model's generate and DecodeEngine on the card, with bf16 and
     int8 caches and int8 / int4 weights: every decode forward launches K7

@@ -168,6 +168,28 @@ class TestQuantMatmulPlain:
                 torch.ones(8, 4)))
 
 
+def test_quant_matmul_path_rule():
+    """The rule that picks K10 / K10f8 / K11's kernel: the skinny path up
+    to SKINNY_M rows whatever the dtype and shape; past it the tensor
+    cores for bf16 x on shapes and pointers the 16-byte copies take, the
+    CUDA cores for float32 x (TF32 would round it) and anything
+    unaligned."""
+    S, bf16, f32 = tq.SKINNY_M, torch.bfloat16, torch.float32
+    for dtype in (bf16, f32):
+        for M in (1, S):
+            assert tq.path(M, 4096, 4096, dtype, True) == 'skinny'
+            assert tq.path(M, 4095, 77, dtype, False) == 'skinny'
+    for M in (S + 1, 2048):
+        assert tq.path(M, 4096, 4096, bf16, True) == 'tensor_core'
+        assert tq.path(M, 4104, 336, bf16, True) == 'tensor_core'
+        assert tq.path(M, 4096, 4096, f32, True) == 'cuda_core'
+        assert tq.path(M, 4100, 4096, bf16, True) == 'cuda_core'
+        assert tq.path(M, 4096, 4104, bf16, True) == 'cuda_core'
+        assert tq.path(M, 4095, 4096, bf16, True) == 'cuda_core'
+        assert tq.path(M, 4096, 4096, bf16, False) == 'cuda_core'
+    assert set(tq.PATH_LAUNCHES) == {'skinny', 'tensor_core', 'cuda_core'}
+
+
 @functools.lru_cache(maxsize=None)
 def _models(tie=False):
     pt.seed(0)

@@ -10,8 +10,9 @@ functions (each checked against its plain version, timed with CUDA
 events and the L2 cache flushed). Prints one JSON line per kernel shape:
 the kernel's name, the shape, and its ms. The shapes are Llama-7B's rows
 of PERF.md's kernel table, which trees from before the GQA-group and
-head-size repair build too, so an older tree and a newer one compare row
-by row; chip_smoke.py's phase 3 holds every shape of the current tree.
+head-size repair build too (K10f8's since the fp8 codes), so an older
+tree and a newer one compare row by row; chip_smoke.py's phase 3 holds
+every shape of the current tree.
 Run it on each tree in turn within one call on one machine (A, B, B, A):
 kernel times hold within a few per cent there, and the card may differ
 between calls.
@@ -78,12 +79,20 @@ def main():
         add('flash_attention_fwd_window', fwd)
         add('flash_attention_bwd_window', bwd)
         torch.cuda.empty_cache()
+    # weight-only products: decode rows (the skinny path) in bf16 and
+    # float32, short and long prompts in bf16 (the tensor cores) and
+    # float32 at M = 2048 (the CUDA cores), fp8 at M = 2048
     for bits, name in ((8, 'quant_matmul'), (4, 'quant_matmul_int4')):
-        for M in (1, 16, 2048):
+        for M, dts in ((1, (bf16, f32)), (16, (bf16, f32)), (64, (bf16,)),
+                       (256, (bf16,)), (2048, (bf16, f32))):
             for K, N in ((4096, 4096), (4096, 32000)):
-                add(name, cs.check_quant_matmul(torch, timer, M, K, N, bf16,
-                                                bits))
+                for dt in dts:
+                    add(name, cs.check_quant_matmul(torch, timer, M, K, N,
+                                                    dt, bits))
         torch.cuda.empty_cache()
+    for K, N in ((4096, 4096), (4096, 32000)):
+        add('quant_matmul_fp8', cs.check_quant_matmul(torch, timer, 2048, K,
+                                                      N, bf16, 'e4m3'))
     for name, shape, ms in rows:
         print(json.dumps({'tree': tree, 'kernel': name, 'shape': shape,
                           'ms': ms, 'card': card}), flush=True)
