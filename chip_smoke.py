@@ -22,7 +22,11 @@ Phases, in order (any failure exits non-zero and prints no result):
               projections; K10 / K11 / K10f8 at M = 64 and 256, with
               the path each row took, every bf16 row past the skinny
               path on the tensor cores, and the two paths timed
-              against each other at M = 8, 16, 32, 64), with a
+              against each other at M = 8, 16, 32, 64; every flash row
+              with the route it took, bf16 up to head size 128 on the
+              tensor cores, float32 and D = 256 on the CUDA cores, and
+              each output's error beside SDPA's against the same plain
+              version), with a
               stated tolerance, and timed with CUDA events (kernel,
               plain version, and the one PyTorch call that computes the
               same function, where there is one) against its bound, the
@@ -77,8 +81,9 @@ Phases, in order (any failure exits non-zero and prints no result):
               configuration (Llama-7B width, 4 layers, bf16, 6 x 2048
               tokens): 2 warm-up and 5 timed steps on one repeated
               batch (tokens/s, ms per step, peak memory, per-step
-              losses that must fall), exact launch counts per step, and
-              one step traced with torch.profiler;
+              losses that must fall), exact launch counts per step
+              (every flash launch on the tensor cores), and one step
+              traced with torch.profiler;
  10. swa      sliding-window and packed training at Mistral-7B-v0.1's
               published widths (window 4096, 32 heads, 8 kv heads,
               intermediate 14336): (a) TrainEngine + AdamW, 4 layers,
@@ -425,7 +430,8 @@ def check_flash_seg(torch, timer, dtype, H=32, D=128):
 
     q, kk, v = bshd(), bshd(), bshd()
     scale = 1.0 / math.sqrt(D)
-    out, lse = k.flash_attention_fwd(q, kk, v, True, scale, qseg, seg)
+    (out, lse), route = flash_call(torch, k, dtype, D, lambda: (
+        k.flash_attention_fwd(q, kk, v, True, scale, qseg, seg)))
     ref, ref_lse = k.flash_attention_fwd_plain(q, kk, v, True, scale, qseg,
                                                seg)
     torch.cuda.synchronize()
@@ -446,10 +452,14 @@ def check_flash_seg(torch, timer, dtype, H=32, D=128):
     mask = ((qseg[0][:, None] == seg[0][None, :])
             & (qpos[:, None] >= qpos[None, :]))[None, None]
     lib = F.scaled_dot_product_attention
+    errs = against_library(torch, what, route, {'out': (
+        out, lib(q, kk, v, attn_mask=mask, scale=scale), ref)})
+    del out, lse, ref
     return {
         'shape': (f'B=1 T={T} (segments {lens}) H={H} D={D} causal '
                   f'{dname(torch, dtype)}'),
-        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'path': route, 'max_abs_err': err, 'tolerance': tol_text(tol),
+        'errors': errs,
         'ms': timer(lambda: k.flash_attention_fwd(q, kk, v, True, scale,
                                                   qseg, seg)),
         'plain_ms': timer(lambda: k.flash_attention_fwd_plain(
@@ -692,6 +702,58 @@ def dname(torch, dtype):
     return str(dtype).replace('torch.', '')
 
 
+def flash_call(torch, k, dtype, D, fn):
+    """fn(), one flash kernel call, and the route its launches took: the
+    one `path()` names for the dtype and head size, which for bf16 with
+    D <= 128 is the tensor cores. Returns (result, route)."""
+    want = k.path(dtype, D)
+    if dtype == torch.bfloat16 and D <= k.TC_MAX_HEAD_DIM \
+            and want != 'tensor_core':
+        raise AssertionError(f'bf16 flash at D = {D} routed to {want}')
+    before = dict(k.FLASH_PATH_LAUNCHES)
+    out = fn()
+    took = [p for p, n in k.FLASH_PATH_LAUNCHES.items() if n != before[p]]
+    if took != [want]:
+        raise AssertionError(f'flash call at {dname(torch, dtype)} D = {D} '
+                             f'took route {took}, not {want}')
+    return out, want
+
+
+def rel_err(torch, got, ref):
+    """(max |got - ref|, ||got - ref||_2 / ||ref||_2), in float32."""
+    d = got.float() - ref.float()
+    return (d.abs().max().item(),
+            (d.norm() / ref.float().norm().clamp_min(1e-30)).item())
+
+
+def against_library(torch, what, route, triples):
+    """Each output's error against the plain version beside the library
+    call's (SDPA's) on the same inputs, {name: (kernel, library, plain)}:
+    recorded for every row and printed for the tensor-core rows, where
+    each relative L2 error must also be within 1e-2 and within 2x the
+    library's (P and dS are rounded to bf16 there, as in SDPA). Where the
+    library returns NaN (rows whose mask hides every key) its value is
+    taken as exact, which only makes the comparison stricter."""
+    rec = {}
+    for name, (got, lib, ref) in triples.items():
+        kmax, krel = rel_err(torch, got, ref)
+        lmax, lrel = rel_err(torch, torch.where(torch.isfinite(lib), lib,
+                                                ref.to(lib.dtype)), ref)
+        rec[name] = {'max_abs': kmax, 'rel_l2': krel, 'library_max_abs': lmax,
+                     'library_rel_l2': lrel}
+        if route == 'tensor_core' and not (krel <= 1e-2 and krel <= 2 * lrel):
+            raise AssertionError(
+                f'{what} {name}: relative L2 error {krel:.4g} against the '
+                f'plain version exceeds 1e-2 or 2x the library\'s {lrel:.4g}')
+    if route == 'tensor_core':
+        print(f'{what} ({route}): |x - plain| max / relative L2, kernel '
+              f'vs library: ' + '; '.join(
+                  f'{n} {e["max_abs"]:.4g} / {e["rel_l2"]:.4g} vs '
+                  f'{e["library_max_abs"]:.4g} / {e["library_rel_l2"]:.4g}'
+                  for n, e in rec.items()), flush=True)
+    return rec
+
+
 def check_rms_norm_bwd(torch, timer, R, N, dtype):
     """K2 at the training path's rows (6 x 2048 tokens)."""
     from paddle_tpu_torch.ops.hopper import rms_norm as k
@@ -777,7 +839,9 @@ def check_xent(torch, timer, R, V, dtype):
 def check_flash(torch, timer, B, H, Hkv, S, D, dtype):
     """K5 and K6, causal, in the model's layout ((B, S, H, D) tensors
     passed as (B, H, S, D) views). The backward kernels are fed the
-    plain forward's out and lse, so each direction is checked alone."""
+    plain forward's out and lse, so each direction is checked alone.
+    Each record names the route the kernels took (`path`) and each
+    output's error against the plain version beside SDPA's (`errors`)."""
     from paddle_tpu_torch.ops.hopper import flash_attention as k
 
     F = torch.nn.functional
@@ -789,20 +853,31 @@ def check_flash(torch, timer, B, H, Hkv, S, D, dtype):
 
     q, kk, v, do = bshd(H), bshd(Hkv), bshd(Hkv), bshd(H)
     scale = 1.0 / math.sqrt(D)
-    out, lse = k.flash_attention_fwd(q, kk, v, True, scale)
+    (out, lse), route = flash_call(torch, k, dtype, D, lambda: (
+        k.flash_attention_fwd(q, kk, v, True, scale)))
     ref_out, ref_lse = k.flash_attention_fwd_plain(q, kk, v, True, scale)
-    grads = k.flash_attention_bwd(q, kk, v, ref_out, ref_lse, do, True,
-                                  scale)
+    grads, _ = flash_call(torch, k, dtype, D, lambda: k.flash_attention_bwd(
+        q, kk, v, ref_out, ref_lse, do, True, scale))
     ref_grads = k.flash_attention_bwd_plain(q, kk, v, ref_out, ref_lse, do,
                                             True, scale)
     torch.cuda.synchronize()
     tol = TENSOR_TOL[dname(torch, dtype)]
-    what = f'flash attention B={B} H={H} Hkv={Hkv} S={S} {dtype}'
+    what = f'flash attention B={B} H={H} Hkv={Hkv} S={S} D={D} {dtype}'
     err_f = max(within(out, ref_out, tol, what + ' out'),
                 within(lse, ref_lse, STAT_TOL, what + ' lse'))
     err_b = max(within(g, r, tol, f'{what} {n}') for n, g, r in
                 zip(('dq', 'dk', 'dv'), grads, ref_grads))
-    del out, lse, grads, ref_grads
+    gqa = H != Hkv
+    lib_in = [t.detach().requires_grad_() for t in (q, kk, v)]
+    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                             scale=scale, enable_gqa=gqa)
+    lib_grads = torch.autograd.grad(lib_out, lib_in, do, retain_graph=True)
+    errs_f = against_library(torch, what + ' forward', route,
+                             {'out': (out, lib_out, ref_out)})
+    errs_b = against_library(torch, what + ' backward', route, {
+        n: t for n, t in zip(('dq', 'dk', 'dv'),
+                             zip(grads, lib_grads, ref_grads))})
+    del out, lse, grads, ref_grads, lib_grads
     item = q.element_size()
     pairs = B * H * S * (S + 1) // 2          # causal (query, key) pairs
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
@@ -814,13 +889,10 @@ def check_flash(torch, timer, B, H, Hkv, S, D, dtype):
                          10 * D * pairs, peak)
     shape = (f'B={B} H={H} Hkv={Hkv} S={S} D={D} causal '
              f'{dname(torch, dtype)}')
-    gqa = H != Hkv
-    lib_in = [t.detach().requires_grad_() for t in (q, kk, v)]
-    lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
-                                             scale=scale, enable_gqa=gqa)
     fwd = {
-        'shape': shape, 'max_abs_err': err_f,
+        'shape': shape, 'path': route, 'max_abs_err': err_f,
         'tolerance': f'out: {tol_text(tol)}; lse: {tol_text(STAT_TOL)}',
+        'errors': errs_f,
         'ms': timer(lambda: k.flash_attention_fwd(q, kk, v, True, scale)),
         'plain_ms': timer(lambda: k.flash_attention_fwd_plain(
             q, kk, v, True, scale), iters=10),
@@ -830,7 +902,8 @@ def check_flash(torch, timer, B, H, Hkv, S, D, dtype):
         'bound_ms': b_f, 'bound_by': by_f,
     }
     bwd = {
-        'shape': shape, 'max_abs_err': err_b, 'tolerance': tol_text(tol),
+        'shape': shape, 'path': route, 'max_abs_err': err_b,
+        'tolerance': tol_text(tol), 'errors': errs_b,
         'ms': timer(lambda: k.flash_attention_bwd(
             q, kk, v, ref_out, ref_lse, do, True, scale)),
         'plain_ms': timer(lambda: k.flash_attention_bwd_plain(
@@ -840,6 +913,7 @@ def check_flash(torch, timer, B, H, Hkv, S, D, dtype):
         'library': 'backward of F.scaled_dot_product_attention',
         'bound_ms': b_b, 'bound_by': by_b,
     }
+    del lib_out, lib_in
     return fwd, bwd
 
 
@@ -866,23 +940,22 @@ def check_flash_window(torch, timer, H, Hkv, dtype, S=4096, W=1024, D=128):
 
     q, kk, v, do = bshd(H), bshd(Hkv), bshd(Hkv), bshd(H)
     scale = 1.0 / math.sqrt(D)
-    out, lse = k.flash_attention_fwd(q, kk, v, True, scale, window=W)
+    (out, lse), route = flash_call(torch, k, dtype, D, lambda: (
+        k.flash_attention_fwd(q, kk, v, True, scale, window=W)))
     ref_out, ref_lse = k.flash_attention_fwd_plain(q, kk, v, True, scale,
                                                    window=W)
-    grads = k.flash_attention_bwd(q, kk, v, ref_out, ref_lse, do, True,
-                                  scale, window=W)
+    grads, _ = flash_call(torch, k, dtype, D, lambda: k.flash_attention_bwd(
+        q, kk, v, ref_out, ref_lse, do, True, scale, window=W))
     ref_grads = k.flash_attention_bwd_plain(q, kk, v, ref_out, ref_lse, do,
                                             True, scale, window=W)
     torch.cuda.synchronize()
     tol = TENSOR_TOL[dname(torch, dtype)]
-    what = f'flash attention window {W} H={H} Hkv={Hkv} S={S} {dtype}'
+    what = (f'flash attention window {W} H={H} Hkv={Hkv} S={S} D={D} '
+            f'{dtype}')
     err_f = max(within(out, ref_out, tol, what + ' out'),
                 within(lse, ref_lse, STAT_TOL, what + ' lse'))
     err_b = max(within(g, r, tol, f'{what} {n}') for n, g, r in
                 zip(('dq', 'dk', 'dv'), grads, ref_grads))
-    del out, lse, grads, ref_grads
-    gc.collect()
-    torch.cuda.empty_cache()
     item = q.element_size()
     pairs = H * band_pairs(S, W)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
@@ -900,10 +973,20 @@ def check_flash_window(torch, timer, H, Hkv, dtype, S=4096, W=1024, D=128):
     lib_in = [t.detach().requires_grad_() for t in (q, kk, v)]
     lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=band,
                                              scale=scale, enable_gqa=gqa)
+    lib_grads = torch.autograd.grad(lib_out, lib_in, do, retain_graph=True)
+    errs_f = against_library(torch, what + ' forward', route,
+                             {'out': (out, lib_out, ref_out)})
+    errs_b = against_library(torch, what + ' backward', route, {
+        n: t for n, t in zip(('dq', 'dk', 'dv'),
+                             zip(grads, lib_grads, ref_grads))})
+    del out, lse, grads, ref_grads, lib_grads
+    gc.collect()
+    torch.cuda.empty_cache()
     lib = ('F.scaled_dot_product_attention with the band as a bool mask')
     fwd = {
-        'shape': shape, 'max_abs_err': err_f,
+        'shape': shape, 'path': route, 'max_abs_err': err_f,
         'tolerance': f'out: {tol_text(tol)}; lse: {tol_text(STAT_TOL)}',
+        'errors': errs_f,
         'ms': timer(lambda: k.flash_attention_fwd(q, kk, v, True, scale,
                                                   window=W)),
         'plain_ms': timer(lambda: k.flash_attention_fwd_plain(
@@ -913,7 +996,8 @@ def check_flash_window(torch, timer, H, Hkv, dtype, S=4096, W=1024, D=128):
         'library': lib, 'bound_ms': b_f, 'bound_by': by_f,
     }
     bwd = {
-        'shape': shape, 'max_abs_err': err_b, 'tolerance': tol_text(tol),
+        'shape': shape, 'path': route, 'max_abs_err': err_b,
+        'tolerance': tol_text(tol), 'errors': errs_b,
         'ms': timer(lambda: k.flash_attention_bwd(
             q, kk, v, ref_out, ref_lse, do, True, scale, window=W)),
         'plain_ms': timer(lambda: k.flash_attention_bwd_plain(
@@ -952,8 +1036,9 @@ def check_flash_seg_bwd(torch, timer, Hkv, dtype, H=32, D=128):
     q, kk, v, do = bshd(H), bshd(Hkv), bshd(Hkv), bshd(H)
     scale = 1.0 / math.sqrt(D)
     out, lse = k.flash_attention_fwd_plain(q, kk, v, True, scale, qseg, seg)
-    grads = k.flash_attention_bwd(q, kk, v, out, lse, do, True, scale, qseg,
-                                  seg)
+    grads, route = flash_call(torch, k, dtype, D, lambda: (
+        k.flash_attention_bwd(q, kk, v, out, lse, do, True, scale, qseg,
+                              seg)))
     ref = k.flash_attention_bwd_plain(q, kk, v, out, lse, do, True, scale,
                                       qseg, seg)
     do0 = do.clone()
@@ -971,7 +1056,7 @@ def check_flash_seg_bwd(torch, timer, Hkv, dtype, H=32, D=128):
     if not all(torch.equal(a, b) for a, b in zip(grads[1:], again[1:])):
         raise AssertionError(f'{what}: queries with no key in their '
                              f'segment moved dk or dv')
-    del grads, ref, again
+    del again
     pairs = H * (sum(n * (n + 1) // 2 for n in lens) - sum(range(1, 17)))
     item = q.element_size()
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
@@ -984,10 +1069,15 @@ def check_flash_seg_bwd(torch, timer, Hkv, dtype, H=32, D=128):
     lib_in = [t.detach().requires_grad_() for t in (q, kk, v)]
     lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask,
                                              scale=scale, enable_gqa=gqa)
+    lib_grads = torch.autograd.grad(lib_out, lib_in, do, retain_graph=True)
+    errs = against_library(torch, what, route, {
+        n: t for n, t in zip(('dq', 'dk', 'dv'), zip(grads, lib_grads, ref))})
+    del grads, ref, lib_grads
     rec = {
         'shape': (f'B=1 T={T} (segments {lens}) H={H} Hkv={Hkv} D={D} '
                   f'causal {dname(torch, dtype)}'),
-        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'path': route, 'max_abs_err': err, 'tolerance': tol_text(tol),
+        'errors': errs,
         'ms': timer(lambda: k.flash_attention_bwd(q, kk, v, out, lse, do,
                                                   True, scale, qseg, seg)),
         'plain_ms': timer(lambda: k.flash_attention_bwd_plain(
@@ -1442,14 +1532,15 @@ def grads_phase(torch, np, card, rel_tol=1e-4):
 
 
 def count_launches(torch, fn):
-    """fn() with every launch count (and K10 / K11's per-path counts) set
-    to 0 just before and read just after (synchronised): (result,
-    counts)."""
+    """fn() with every launch count (and K10 / K11's and flash attention's
+    per-route counts) set to 0 just before and read just after
+    (synchronised): (result, counts)."""
     from paddle_tpu_torch import ops
+    from paddle_tpu_torch.ops.hopper import flash_attention as hf
     from paddle_tpu_torch.ops.hopper import quant_matmul as hq
 
     torch.cuda.synchronize()
-    for counts in (ops.LAUNCHES, hq.PATH_LAUNCHES):
+    for counts in (ops.LAUNCHES, hq.PATH_LAUNCHES, hf.FLASH_PATH_LAUNCHES):
         for name in counts:
             counts[name] = 0
     out = fn()
@@ -2130,10 +2221,13 @@ def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5):
     repeated batch of B x S tokens: `warmup` then `steps` timed steps
     (tokens/s, ms per step, peak memory, per-step losses that must
     fall from about ln V + sigma^2 / 2), exact launch counts per step
-    (`flash`: the forward and backward keys the attention runs), and
-    one step traced with torch.profiler. Returns the launch counts."""
+    (`flash`: the forward and backward keys the attention runs; every
+    flash launch of a bf16 model with head size up to 128 on the tensor
+    cores), and one step traced with torch.profiler. Returns the launch
+    counts."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import flash_attention as hf
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.training import TrainEngine
 
@@ -2150,8 +2244,9 @@ def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5):
     ids = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (B, S + 1))).to(model.device)
     torch.cuda.reset_peak_memory_stats()
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
+    for counts in (ops.LAUNCHES, hf.FLASH_PATH_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     for _ in range(warmup):
         eng.step((ids,))
     warm = eng.sync()
@@ -2162,6 +2257,7 @@ def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    routes = dict(hf.FLASH_PATH_LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     losses = warm['losses'] + logs['losses']
     n = warmup + steps
@@ -2180,6 +2276,16 @@ def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5):
           f'xent fwd and bwd 1; L = {L})', flush=True)
     if launches != want:
         raise AssertionError(f'{label} launch counts {launches} != {want}')
+    D = cfg.hidden_size // cfg.num_attention_heads
+    route = hf.path(getattr(torch, cfg.dtype), D)
+    want_routes = dict.fromkeys(routes, 0)
+    want_routes[route] = 3 * L * n
+    print(f'{label}: flash launches by route {routes} (every one on '
+          f'{route}: {cfg.dtype}, head size {D})', flush=True)
+    if routes != want_routes or (cfg.dtype == 'bfloat16' and D <= 128
+                                 and route != 'tensor_core'):
+        raise AssertionError(f'{label} flash routes {routes} != '
+                             f'{want_routes}')
     # random-init logits are N(0, sigma^2) with sigma^2 = std^2 * hidden
     # (the final norm's output has unit RMS), so the first loss is about
     # ln V + sigma^2 / 2, not ln V
@@ -2839,17 +2945,17 @@ def main():
                 ('softmax_xent_fwd', 'softmax_xent.cu', 'softmax_xent.py:92'),
                 ('softmax_xent_bwd', 'softmax_xent.cu',
                  'softmax_xent.py:131'),
-                ('flash_attention_fwd', 'flash_attention.cu',
+                ('flash_attention_fwd', 'flash_attention_tc.cu',
                  'flash_attention.py:121'),
-                ('flash_attention_fwd_seg', 'flash_attention.cu',
+                ('flash_attention_fwd_seg', 'flash_attention_tc.cu',
                  'flash_attention.py:121'),
-                ('flash_attention_fwd_window', 'flash_attention.cu',
+                ('flash_attention_fwd_window', 'flash_attention_tc.cu',
                  'flash_attention.py:121'),
-                ('flash_attention_bwd', 'flash_attention.cu',
+                ('flash_attention_bwd', 'flash_attention_tc.cu',
                  'flash_attention.py:323'),
-                ('flash_attention_bwd_seg', 'flash_attention.cu',
+                ('flash_attention_bwd_seg', 'flash_attention_tc.cu',
                  'flash_attention.py:323'),
-                ('flash_attention_bwd_window', 'flash_attention.cu',
+                ('flash_attention_bwd_window', 'flash_attention_tc.cu',
                  'flash_attention.py:323'),
                 ('paged_decode_attention', 'paged_attention.cu',
                  'paged_attention.py:140'),
@@ -2889,6 +2995,12 @@ def main():
                 # past the skinny path, bf16 x takes the tensor cores
                 records[-1]['tensor_core_source'] = \
                     'paddle_tpu_torch/csrc/quant_matmul_tc.cu'
+            if name.startswith('flash_attention'):
+                # bf16 up to D = 128 (the main paths) on the tensor cores;
+                # float32 and bf16 past 128 on the CUDA cores
+                records[-1]['path'] = head['path']
+                records[-1]['cuda_core_source'] = \
+                    'paddle_tpu_torch/csrc/flash_attention.cu'
         unused = [r['name'] for r in records if not r['launches']]
         if unused:
             raise AssertionError(f'kernels the paths never launched: '

@@ -1,4 +1,11 @@
-// Flash attention forward and backward for Hopper (sm_90a).
+// Flash attention forward and backward for Hopper (sm_90a) on the CUDA
+// cores, in float32: the route of float32 inputs (whose products stay
+// float32, as the plain version's) and of bf16 past head size 128 (the
+// 256-wide tile: at D = 256 a tensor-core backward's two 64 x 256
+// float32 accumulators would take every register). bf16 up to D = 128
+// takes the tensor cores (flash_attention_tc.cu); the wrapper's route
+// rule (ops/hopper/flash_attention.py: path()) picks, and the C entries
+// here refuse bf16 at D <= 128 (no kernel of that type is built).
 //
 // Forward replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py
 // ::_fwd (body _fwd_kernel); backward replaces ::_bwd (bodies
@@ -32,15 +39,14 @@
 // A window of w keys cuts the work to about 4*S*w*D per head, a packed
 // stream to the sum of its segments' causal work; both stay far past
 // that line. Design (a first, simple version): every product runs on the
-// CUDA cores in float32 (the same kernel for bf16 and float32 inputs, so
-// the float32 path differs from the plain version by summation order
-// only), from 64-row tiles held in shared memory as float32 with an odd
-// leading dimension (D + 1, 65), so that both a row walk and a column
-// walk touch 32 banks. A 16 x 16 grid of threads gives each thread a
-// strided (4 x RN) slice of every product; online softmax in float32
-// never materialises the S x S scores. Work outside the mask is skipped
-// by whole tiles, before they are loaded: a query tile walks only the
-// key tiles [lo, hi) its rows can see (the causal diagonal ends the
+// CUDA cores in float32 (the float32 path differs from the plain version
+// by summation order only), from 64-row tiles held in shared memory as
+// float32 with an odd leading dimension (D + 1, 65), so that both a row
+// walk and a column walk touch 32 banks. A 16 x 16 grid of threads gives
+// each thread a strided (4 x RN) slice of every product; online softmax
+// in float32 never materialises the S x S scores. Work outside the mask
+// is skipped by whole tiles, before they are loaded: a query tile walks
+// only the key tiles [lo, hi) its rows can see (the causal diagonal ends the
 // range, the window's lower edge starts it, as _fwd_kernel's two block
 // skips), and a key tile of the dk/dv pass only the query tiles whose
 // rows reach it, so a query tile costs O(64 * window) and not
@@ -48,51 +54,29 @@
 // and of each tile it visits in shared memory and skips the tile when
 // the two ranges of ids do not meet, so a stream of sorted segments costs
 // about the sum of its segments' causal work. The per-element masks
-// (band, segments, causal) are applied inside the live tiles. Tensor
-// cores (mma / wgmma on bf16 tiles) and TMA loads are the next step; this
-// version is far from the bound.
+// (band, segments, causal) are applied inside the live tiles. This version
+// is far from the float32 bound (register blocking of its own, ROADMAP
+// D4's float32 path).
 //
 // Head sizes (fault E2 of ROADMAP.md): the TPU kernels take any D (the
 // model's dispatch sends D % 8 == 0 to them). The kernels are compiled on
 // tiles of width 64, 96, 128 or 256 and take every head size that is a
-// multiple of 8 up to 256 on the narrowest tile that holds it: the tile's
-// columns past D load as zeros, add nothing to a product, and are not
-// written (D = 80 runs on 96-wide tiles, 1.2x its products; Llama's 64
-// and 128 fill their tiles). D = 256 holds one block per SM (its
-// backward's dk/dv tiles take 206 KB of the 227 KB a block may have).
+// multiple of 8 up to 256 on the narrowest tile that holds it (float32;
+// bf16 here only on the 256-wide one): the tile's columns past D load as
+// zeros, add nothing to a product, and are not written (D = 80 runs on
+// 96-wide tiles, 1.2x its products; Llama's 64 and 128 fill their tiles).
+// D = 256 holds one block per SM (its backward's dk/dv tiles take 206 KB
+// of the 227 KB a block may have).
 
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;   // a 16 x 16 grid: ty = tid / 16, tx = tid % 16
-constexpr float kNegInf = -1e30f;
-
-enum Tensor { kQ = 0, kK, kV, kO, kDO, kDQ, kDK, kDV, kNumTensors };
-
-// (batch, head, sequence) strides in elements of the tensors of a call,
-// indexed by Tensor (the forward fills the first four)
-struct Strides {
-  long long v[kNumTensors][3];
-  __device__ __forceinline__ int64_t off(int t, int b, int h) const {
-    return b * v[t][0] + h * v[t][1];
-  }
-  __device__ __forceinline__ int64_t seq(int t) const { return v[t][2]; }
-};
-
-struct Shape {
-  int heads, kv_heads, sq, sk;
-  int d;  // head size: the tile width D, or less (a zero tail)
-  float scale;
-  int causal;
-  int window;  // a query sees its last `window` positions; 0 = no window
-  // segment ids (batch, sq) and (batch, sk) int32, contiguous; null for
-  // none
-  const int* qseg;
-  const int* kseg;
-};
 
 __device__ __forceinline__ int tid_y() { return threadIdx.x >> 4; }
 __device__ __forceinline__ int tid_x() { return threadIdx.x & 15; }
@@ -157,54 +141,6 @@ __device__ __forceinline__ float row_max(float v) {
 __device__ __forceinline__ float row_sum(float v) {
   for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// The causal and window masks of one (query, key) pair (segments apart).
-__device__ __forceinline__ bool visible(const Shape& sh, int qpos, int kpos) {
-  const int back = qpos + sh.sk - sh.sq - kpos;  // how far the key lies back
-  return kpos < sh.sk && (!sh.causal || back >= 0) &&
-         (sh.window == 0 || back < sh.window);
-}
-
-struct TileRange {
-  int lo, hi;
-};
-
-// Key tiles [lo, hi) of width bk that a query tile [q0, q0 + bq) can see:
-// the causal diagonal ends the range, and the window's lower edge starts
-// it (a key tile wholly before its first query's band is dead for every
-// query of the tile, as _fwd_kernel's window skip).
-__device__ __forceinline__ TileRange key_tiles(const Shape& sh, int q0,
-                                               int bq, int bk) {
-  const int off = sh.sk - sh.sq;
-  TileRange r{0, (sh.sk + bk - 1) / bk};
-  if (sh.causal) {
-    const int last = q0 + bq - 1 + off;
-    r.hi = last < 0 ? 0 : min(r.hi, last / bk + 1);
-  }
-  if (sh.window) {
-    const int first = q0 + off - sh.window + 1;  // first query's first key
-    r.lo = first > 0 ? first / bk : 0;
-  }
-  return r;
-}
-
-// Query tiles [lo, hi) of height bq whose rows see some key of the key
-// tile [k0, k0 + bk): causally the rows from k0 - off on, and in a window
-// the rows up to the one whose band still reaches the tile's last key.
-__device__ __forceinline__ TileRange query_tiles(const Shape& sh, int k0,
-                                                 int bk, int bq) {
-  const int off = sh.sk - sh.sq;
-  TileRange r{0, (sh.sq + bq - 1) / bq};
-  if (sh.causal) {
-    const int need = k0 - off - bq + 1;
-    r.lo = need > 0 ? (need + bq - 1) / bq : 0;
-  }
-  if (sh.window) {
-    const int qlast = min(k0 + bk, sh.sk) - 1 + sh.window - 1 - off;
-    r.hi = qlast < 0 ? 0 : min(r.hi, qlast / bq + 1);
-  }
-  return r;
 }
 
 // Segment ids of rows [r0, r0 + n) into shared `dst` (0 past `limit`);
@@ -690,9 +626,13 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// the tile width for head size d, or 0 when none is built
+// the tile width for head size d, or 0 when none is built here: float32
+// on every tile, bf16 on the 256-wide one only (bf16 up to 128 takes the
+// tensor cores, flash_attention_tc.cu)
+template <typename T>
 int tile_width(int d) {
   if (d <= 0 || d % 8 != 0 || d > 256) return 0;
+  if (!std::is_same<T, float>::value) return d > 128 ? 256 : 0;
   return d <= 64 ? 64 : d <= 96 ? 96 : d <= 128 ? 128 : 256;
 }
 
@@ -700,18 +640,19 @@ template <typename T>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 float* lse, const Strides& st, const Shape& sh, int batch,
                 cudaStream_t s) {
-  switch (tile_width(sh.d)) {
-    case 64:
-      return launch_fwd<T, 64>(q, k, v, out, lse, st, sh, batch, s);
-    case 96:
-      return launch_fwd<T, 96>(q, k, v, out, lse, st, sh, batch, s);
-    case 128:
-      return launch_fwd<T, 128>(q, k, v, out, lse, st, sh, batch, s);
-    case 256:
-      return launch_fwd<T, 256>(q, k, v, out, lse, st, sh, batch, s);
-    default:
-      return cudaErrorNotSupported;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (tile_width<T>(sh.d)) {
+      case 64:
+        return launch_fwd<T, 64>(q, k, v, out, lse, st, sh, batch, s);
+      case 96:
+        return launch_fwd<T, 96>(q, k, v, out, lse, st, sh, batch, s);
+      case 128:
+        return launch_fwd<T, 128>(q, k, v, out, lse, st, sh, batch, s);
+    }
   }
+  if (tile_width<T>(sh.d) == 256)
+    return launch_fwd<T, 256>(q, k, v, out, lse, st, sh, batch, s);
+  return cudaErrorNotSupported;
 }
 
 template <typename T>
@@ -719,38 +660,23 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* delta, void* dq,
                 void* dk, void* dv, const Strides& st, const Shape& sh,
                 int batch, cudaStream_t s) {
-  switch (tile_width(sh.d)) {
-    case 64:
-      return launch_bwd<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                               st, sh, batch, s);
-    case 96:
-      return launch_bwd<T, 96>(q, k, v, out, dout, lse, delta, dq, dk, dv,
-                               st, sh, batch, s);
-    case 128:
-      return launch_bwd<T, 128>(q, k, v, out, dout, lse, delta, dq, dk,
-                                dv, st, sh, batch, s);
-    case 256:
-      return launch_bwd<T, 256>(q, k, v, out, dout, lse, delta, dq, dk,
-                                dv, st, sh, batch, s);
-    default:
-      return cudaErrorNotSupported;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (tile_width<T>(sh.d)) {
+      case 64:
+        return launch_bwd<T, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                 st, sh, batch, s);
+      case 96:
+        return launch_bwd<T, 96>(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                 st, sh, batch, s);
+      case 128:
+        return launch_bwd<T, 128>(q, k, v, out, dout, lse, delta, dq, dk,
+                                  dv, st, sh, batch, s);
+    }
   }
-}
-
-cudaError_t check_args(int device, int batch, const Shape& sh, int d,
-                       const long long* strides, int n_tensors,
-                       Strides* st) {
-  cudaError_t e = pt::set_device(device);
-  if (e != cudaSuccess) return e;
-  if (batch < 0 || sh.heads <= 0 || sh.kv_heads <= 0 ||
-      sh.heads % sh.kv_heads != 0 || sh.sq < 0 || sh.sk < 0 ||
-      sh.window < 0 || (sh.qseg == nullptr) != (sh.kseg == nullptr) ||
-      d != sh.d || d <= 0 || sh.heads > 65535 || batch > 65535)
-    return cudaErrorInvalidValue;
-  for (int t = 0; t < kNumTensors; ++t)
-    for (int i = 0; i < 3; ++i)
-      st->v[t][i] = t < n_tensors ? strides[t * 3 + i] : 0;
-  return cudaSuccess;
+  if (tile_width<T>(sh.d) == 256)
+    return launch_bwd<T, 256>(q, k, v, out, dout, lse, delta, dq, dk, dv, st,
+                              sh, batch, s);
+  return cudaErrorNotSupported;
 }
 
 }  // namespace

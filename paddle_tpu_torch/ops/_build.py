@@ -17,12 +17,15 @@ launched is an error.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 
 import torch
 
@@ -65,6 +68,13 @@ _SIGNATURES = {
     'pt_flash_attention_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                _I, _F, _I, _I, _I, _VP],
+    'pt_flash_attention_tc_fwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                  _VP, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                  _I, _VP],
+    'pt_flash_attention_tc_bwd': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                  _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                  _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                                  _I, _VP],
     'pt_paged_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                   _VP, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                   _I, _VP],
@@ -110,7 +120,8 @@ def _nvcc():
 def build():
     """Compile every source (in parallel, `-Xptxas -v`) and link the
     library into `build_dir()`. Returns the library's path. The log
-    (ptxas register and shared-memory report) is kept as `build.log`."""
+    (each source's compile time and ptxas register and shared-memory
+    report) is kept as `build.log`."""
     out_dir = build_dir()
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib_path):
@@ -120,17 +131,33 @@ def build():
     os.makedirs(BUILD_ROOT, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix='kernels-tmp-', dir=BUILD_ROOT)
     try:
-        procs = []
+        procs, texts, secs = [], {}, {}
+        t0 = time.perf_counter()
+
+        def wait(src, p):   # one thread per compile: its own end time
+            try:
+                texts[src] = p.communicate(timeout=900)[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                texts[src] = p.communicate()[0] + '\nnvcc: killed at 900 s'
+            secs[src] = time.perf_counter() - t0
+
         for src in cu:
             obj = os.path.join(tmp, os.path.basename(src) + '.o')
             cmd = [nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-c', src, '-o', obj]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
+        waits = [threading.Thread(target=wait, args=(src, p))
+                 for src, _obj, p in procs]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
         log, failed = [], []
         for src, _obj, p in procs:
-            text, _ = p.communicate(timeout=900)
-            log.append(f'== nvcc {os.path.basename(src)} ==\n{text}')
+            log.append(f'== nvcc {os.path.basename(src)} '
+                       f'({secs[src]:.1f} s) ==\n{texts[src]}')
             if p.returncode:
                 failed.append(os.path.basename(src))
         if failed:
@@ -197,6 +224,13 @@ def on_card(x, kernel):
     if x.device.type == 'cpu':
         return False
     raise ValueError(f'{kernel}: no kernel for device {x.device}')
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """The SMs of CUDA device `index` (the kernels' grids are sized by
+    them)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def require_cuda(x, kernel):

@@ -20,7 +20,6 @@ empty returns 0. The output has q's dtype.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -113,10 +112,6 @@ def decode_attention_plain(q, k_cache, v_cache, valid_len, scale=None,
     return out[:, None].to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
 
 def splits(B, Hkv, S, sms):
     """(nsplit, chunk): the context split so that the (split, kv head,
@@ -191,7 +186,7 @@ def launch(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale, start,
     code = _build.dtype_code(q, kernel)
     vl_ptr, vl_all, vl_keep = _row_arg(valid_len, B, dev, 'valid_len')
     st_ptr, st_all, st_keep = _row_arg(start, B, dev, 'start')
-    nsplit, chunk = splits(B, Hkv, S, _sm_count(dev.index))
+    nsplit, chunk = splits(B, Hkv, S, _build.sm_count(dev.index))
     out = torch.empty_like(q)
     part_acc = part_ml = None     # the splits' partial states
     if nsplit > 1:

@@ -1,11 +1,16 @@
 """Flash attention forward and backward: the hand-written Hopper kernels,
 their plain versions, and the autograd Function that picks between them.
 
-The kernels (`csrc/flash_attention.cu`) replace the TPU kernels
+The kernels replace the TPU kernels
 `paddle_tpu/ops/pallas/flash_attention.py::_fwd` (`flash_attention_fwd`)
 and `::_bwd` (`flash_attention_bwd`, two launches: dq, then dk and dv);
 `flash_attention_fwd_plain` and `flash_attention_bwd_plain` write out the
-same math in float32 with plain PyTorch ops.
+same math in float32 with plain PyTorch ops. Two routes, one rule
+(`path`): bf16 with a head size up to 128 runs on the tensor cores
+(`csrc/flash_attention_tc.cu`: wgmma over bf16 tiles, P and dS rounded
+to bf16 before their products), float32 and bf16 past 128 on the CUDA
+cores (`csrc/flash_attention.cu`, float32 products);
+`FLASH_PATH_LAUNCHES` counts the launches of each route.
 
 Layout (B, H, S, D), as the JAX package's kernels take it: q (B, H, Sq,
 D), k and v (B, Hkv, Sk, D), query head h reading kv head h // (H / Hkv).
@@ -39,6 +44,48 @@ from .. import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256      # head widths built: multiples of 8 up to this
+TC_MAX_HEAD_DIM = 128   # ... of which bf16 runs on the tensor cores
+TC_KEYS = 128           # keys per block of the tensor cores' dk/dv pass
+
+# launches per route, beside `_build.LAUNCHES`' per-kernel counts: each
+# wrapper call adds its launches (forward 1, backward 2) to the route it
+# took
+FLASH_PATH_LAUNCHES = {'tensor_core': 0, 'cuda_core': 0}
+
+
+def path(dtype, D):
+    """The route of a flash attention call over head size D:
+
+    - 'tensor_core': bf16 with D a multiple of 8 up to TC_MAX_HEAD_DIM
+      (wgmma over bf16 tiles of 64 or 128 columns; P and dS are rounded
+      to bf16 before their products, the sums are float32);
+    - 'cuda_core': the rest, float32 (its products stay float32) and bf16
+      past TC_MAX_HEAD_DIM (the backward's two 64 x 256 float32
+      accumulators would take every register of a warpgroup).
+
+    `check_built` refuses what neither route takes."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and 0 < D <= TC_MAX_HEAD_DIM:
+        return 'tensor_core'
+    return 'cuda_core'
+
+
+def dkv_slices(B, Hkv, Sk, group, sms):
+    """Slices of each kv head's `group` query heads that the tensor-core
+    dk/dv pass spreads over its blocks (one block per SM): 1 when its (B
+    x Hkv x key tiles) blocks fill the card's `sms` SMs once, else the
+    least divisor of the group that gives two blocks per SM (the whole
+    group when none does). Slicing costs a float32 round trip of the
+    partial sums through memory, which loses where the unsliced grid
+    already fills a wave (PERF.md's sweep). The slices are added in a
+    fixed order, so the result does not depend on the blocks' order of
+    arrival."""
+    blocks = B * Hkv * -(-Sk // TC_KEYS)
+    if blocks >= sms:
+        return 1
+    for n in range(2, group + 1):
+        if group % n == 0 and blocks * n >= 2 * sms:
+            return n
+    return group
 
 
 def _visible(Sq, Sk, causal, device, qseg=None, kseg=None, window=None):
@@ -217,23 +264,30 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, qseg=None,
     out = _bhsd_buffer(B, H, Sq, D, q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, out)
+    route = path(q.dtype, D)
     lib = _build.load()
-    err = lib.pt_flash_attention_fwd(
-        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), _ptr(qseg), _ptr(kseg), strides, B,
-        H, Hkv, Sq, Sk, D, float(scale), int(bool(causal)), w, code,
-        _build.stream_ptr(q))
+    entry = (lib.pt_flash_attention_tc_fwd if route == 'tensor_core'
+             else lib.pt_flash_attention_fwd)
+    err = entry(q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), _ptr(qseg), _ptr(kseg),
+                strides, B, H, Hkv, Sq, Sk, D, float(scale),
+                int(bool(causal)), w, code, _build.stream_ptr(q))
     key = 'flash_attention_fwd' + suffix
-    _build.check(err, key)
+    _build.check(err, f'{key} ({route})')
     _build.LAUNCHES[key] += 1
+    FLASH_PATH_LAUNCHES[route] += 1
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None,
-                        qseg=None, kseg=None, window=None):
+                        qseg=None, kseg=None, window=None, slices=None):
     """The backward kernels on the card (dq, then dk and dv) -> (dq, dk,
     dv) as the plain version returns them, as views of (B, S, H, D)
-    buffers. Segment ids and `window` as the forward took them."""
+    buffers. Segment ids and `window` as the forward took them.
+    `slices` sets the tensor-core dk/dv pass's slices of each GQA group
+    (a divisor of H / Hkv) in place of `dkv_slices`' choice, for timing
+    the two against each other; the result is the same either way but
+    for the order of its float32 sums."""
     code, (q, k, v, out, do) = _check('flash_attention_bwd', q, k, v, out,
                                       do)
     qseg, kseg, w, suffix = _kernel_modes('flash_attention_bwd', q, k, qseg,
@@ -252,16 +306,38 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None,
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     strides = _strides(q, k, v, out, do, dq, dk, dv)
+    route = path(q.dtype, D)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr())
+    shape = (B, H, Hkv, Sq, Sk, D, float(scale), int(bool(causal)), w)
     lib = _build.load()
-    err = lib.pt_flash_attention_bwd(
-        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(qseg), _ptr(kseg),
-        strides, B, H, Hkv, Sq, Sk, D, float(scale), int(bool(causal)), w,
-        code, _build.stream_ptr(q))
+    if route == 'tensor_core':
+        group = H // Hkv
+        n = (dkv_slices(B, Hkv, Sk, group, _build.sm_count(q.device.index))
+             if slices is None else int(slices))
+        if n < 1 or group % n:
+            raise ValueError(f'flash_attention_bwd kernel: slices must '
+                             f'divide the GQA group {group}, got {slices}')
+        part = counters = None
+        if n > 1:
+            blocks = B * Hkv * -(-Sk // TC_KEYS)
+            width = 64 if D <= 64 else 128
+            part = torch.empty(n * blocks * TC_KEYS * 2 * width,
+                               dtype=torch.float32, device=q.device)
+            counters = torch.empty(blocks, dtype=torch.int32,
+                                   device=q.device)
+        err = lib.pt_flash_attention_tc_bwd(
+            q.device.index, *ptrs, _ptr(part), _ptr(counters), _ptr(qseg),
+            _ptr(kseg), strides, *shape, n, code, _build.stream_ptr(q))
+    else:
+        err = lib.pt_flash_attention_bwd(
+            q.device.index, *ptrs, _ptr(qseg), _ptr(kseg), strides, *shape,
+            code, _build.stream_ptr(q))
     key = 'flash_attention_bwd' + suffix
-    _build.check(err, key)
+    _build.check(err, f'{key} ({route})')
     _build.LAUNCHES[key] += 2
+    FLASH_PATH_LAUNCHES[route] += 2
     return dq, dk, dv
 
 

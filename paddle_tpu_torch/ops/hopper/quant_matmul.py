@@ -24,7 +24,6 @@ so codes and scales come out bit-equal to the JAX package's.
 """
 from __future__ import annotations
 
-import functools
 
 import torch
 
@@ -165,10 +164,6 @@ def path(M, K, N, dtype, ptrs_aligned):
     return 'cuda_core'
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
 
 def _split(units, blocks, sms, least, multiple=1):
     """(nsplit, units per split) of a product whose `blocks` output blocks
@@ -233,7 +228,7 @@ def _run(p, x, wq, scale, bits, M, K, N):
     code = _build.dtype_code(x, name)
     codes = CODES_INT4 if bits == 4 else CODES[wq.dtype]
     out = torch.empty(M, N, dtype=x.dtype, device=dev)
-    sms = _sm_count(dev.index)
+    sms = _build.sm_count(dev.index)
     if p == 'tensor_core':
         nsplit, per = tc_splits(M, K, N, sms)
     elif p == 'skinny':

@@ -947,3 +947,116 @@ def test_window_and_segment_ops_differentiate_on_the_card(card):
         causal=True)[0].to(card), flat)
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+# (dtype, head size, route) of the flash kernels' one rule: bf16 up to
+# 128 on the tensor cores (D = 40 and 80 / 96 on padded tiles), float32
+# and bf16 past 128 on the CUDA cores
+FLASH_ROUTES = [(torch.bfloat16, D, 'tensor_core') for D in (40, 64, 80,
+                                                             96, 128)] + [
+    (torch.bfloat16, 256, 'cuda_core'), (torch.float32, 64, 'cuda_core'),
+    (torch.float32, 128, 'cuda_core')]
+
+
+@pytest.mark.parametrize('dtype,D,route', FLASH_ROUTES,
+                         ids=lambda c: str(c).replace('torch.', ''))
+def test_flash_route_counts(card, dtype, D, route):
+    """Each flash call launches on the route `path()` names, in every
+    mode: FLASH_PATH_LAUNCHES moves by 1 per forward and 2 per backward
+    on that route only, and the per-kernel LAUNCHES as before."""
+    assert k_flash.path(dtype, D) == route
+    rng = np.random.default_rng(D)
+    q = _randn(rng, (1, 150, 4, D), card, dtype).transpose(1, 2)
+    k = _randn(rng, (1, 150, 2, D), card, dtype).transpose(1, 2)
+    v = _randn(rng, (1, 150, 2, D), card, dtype).transpose(1, 2)
+    seg = torch.zeros(1, 150, dtype=torch.int32, device=card)
+    seg[:, 60:] = 1
+    for mode, kw in (('', {}), ('_window', {'window': 33}),
+                     ('_seg', {'qseg': seg, 'kseg': seg})):
+        paths, launches = dict(k_flash.FLASH_PATH_LAUNCHES), \
+            dict(_build.LAUNCHES)
+        out, lse = k_flash.flash_attention_fwd(q, k, v, True, None, **kw)
+        k_flash.flash_attention_bwd(q, k, v, out, lse, q, True, None, **kw)
+        moved = {p: n - paths[p]
+                 for p, n in k_flash.FLASH_PATH_LAUNCHES.items()}
+        assert moved == {p: 3 if p == route else 0 for p in moved}, mode
+        assert _build.LAUNCHES['flash_attention_fwd' + mode] == \
+            launches['flash_attention_fwd' + mode] + 1
+        assert _build.LAUNCHES['flash_attention_bwd' + mode] == \
+            launches['flash_attention_bwd' + mode] + 2
+
+
+@pytest.mark.parametrize('mode', ['causal', 'window', 'seg'])
+@pytest.mark.parametrize('H,Hkv,slices', [(8, 8, None), (8, 2, None),
+                                          (8, 2, 1), (8, 2, 2)])
+def test_flash_tensor_core_is_deterministic(card, mode, H, Hkv, slices):
+    """The tensor-core kernels give the same bits on every run: out and
+    lse, and dq, dk, dv whether the dk/dv pass sums a GQA group in one
+    block or adds its slices' partial sums (in a fixed order); and the
+    slicings agree with each other and with the plain version."""
+    rng = np.random.default_rng(H + Hkv)
+    S, D = 384, 128
+    q = _randn(rng, (2, S, H, D), card, torch.bfloat16).transpose(1, 2)
+    k = _randn(rng, (2, S, Hkv, D), card, torch.bfloat16).transpose(1, 2)
+    v = _randn(rng, (2, S, Hkv, D), card, torch.bfloat16).transpose(1, 2)
+    do = _randn(rng, (2, S, H, D), card, torch.bfloat16).transpose(1, 2)
+    kw = {}
+    if mode == 'window':
+        kw = {'window': 100}
+    elif mode == 'seg':
+        seg = torch.from_numpy(np.repeat(np.arange(3), [100, 200, 84])
+                               .astype(np.int32)[None]).repeat(2, 1)
+        kw = {'qseg': seg.to(card), 'kseg': seg.to(card)}
+
+    def run():
+        out, lse = k_flash.flash_attention_fwd(q, k, v, True, None, **kw)
+        return (out, lse) + k_flash.flash_attention_bwd(
+            q, k, v, out, lse, do, True, None, **kw, slices=slices)
+
+    first, again = run(), run()
+    for name, a, b in zip(('out', 'lse', 'dq', 'dk', 'dv'), first, again):
+        assert torch.equal(a, b), name
+    want = k_flash.flash_attention_bwd_plain(q, k, v, first[0], first[1],
+                                             do, True, None, **kw)
+    for name, g, r in zip(('dq', 'dk', 'dv'), first[2:], want):
+        torch.testing.assert_close(g.float(), r.float(), rtol=2 ** -7,
+                                   atol=2e-2, msg=name)
+
+
+def test_flash_tensor_core_entries_refuse_what_they_do_not_take(card):
+    """The tensor-core C entries refuse float32, head sizes past 128 or
+    off the multiples of 8, and a dk/dv slicing that does not divide the
+    GQA group or lacks its scratch: the route is the wrapper's rule,
+    never a fallback."""
+    import ctypes
+    lib = _build.load()
+    x = torch.zeros(1, 4, 64, 128, dtype=torch.bfloat16, device=card)
+    lse = torch.zeros(1, 4, 64, device=card)
+    strides = (ctypes.c_longlong * 24)(*([4 * 64 * 128, 64 * 128, 128] * 8))
+    stream = _build.stream_ptr(x)
+
+    def fwd(d, dtype):
+        return lib.pt_flash_attention_tc_fwd(
+            x.device.index, x.data_ptr(), x.data_ptr(), x.data_ptr(),
+            x.data_ptr(), lse.data_ptr(), 0, 0, strides, 1, 4, 4, 64, 64, d,
+            0.1, 1, 0, dtype, stream)
+
+    grads = [torch.empty_like(x) for _ in range(3)]
+    delta = torch.empty_like(lse)
+
+    def bwd(kv_heads, nslice, scratch):
+        p = x.data_ptr()
+        return lib.pt_flash_attention_tc_bwd(
+            x.device.index, p, p, p, p, p, lse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), scratch, scratch, 0, 0, strides,
+            1, 4, kv_heads, 64, 64, 128, 0.1, 1, 0, nslice, 1, stream)
+
+    assert fwd(128, 1) == 0
+    assert fwd(128, 0) != 0          # float32
+    assert fwd(136, 1) != 0          # past 128
+    assert fwd(100, 1) != 0          # not a multiple of 8
+    assert bwd(1, 3, lse.data_ptr()) != 0   # 3 does not divide 4
+    assert bwd(1, 2, 0) != 0                # sliced without scratch
+    assert bwd(4, 1, 0) == 0
+    torch.cuda.synchronize()
+    assert not any(g.any() for g in grads)   # zero dout: zero gradients

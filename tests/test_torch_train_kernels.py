@@ -245,6 +245,46 @@ class TestFlashAttention:
                                    **FLASH_TOL)
 
 
+class TestFlashRoute:
+    """The one route rule of the flash kernels (`path`): bf16 with a head
+    size that is a multiple of 8 up to 128 takes the tensor cores,
+    float32 and bf16 past 128 the CUDA cores; and the tensor-core dk/dv
+    pass's slices of a GQA group (`dkv_slices`). Pure Python: the
+    kernels themselves run in tests/test_torch_cuda.py."""
+
+    @pytest.mark.parametrize('dtype,D,route', [
+        (torch.bfloat16, D, 'tensor_core') for D in (8, 40, 64, 80, 96, 128)
+    ] + [(torch.bfloat16, 136, 'cuda_core'),
+         (torch.bfloat16, 256, 'cuda_core'),
+         (torch.float32, 64, 'cuda_core'), (torch.float32, 128, 'cuda_core'),
+         (torch.float32, 256, 'cuda_core'), (torch.float16, 64, 'cuda_core')])
+    def test_route_rule(self, dtype, D, route):
+        assert t_flash.path(dtype, D) == route
+        t_flash.check_built('flash', D)     # every case here is built
+
+    @pytest.mark.parametrize('D', [100, 4, 264])
+    def test_unbuilt_head_sizes_are_refused(self, D):
+        """Neither route takes a head size off the multiples of 8 up to
+        256: the wrappers refuse it before choosing a route."""
+        assert t_flash.path(torch.bfloat16, D) == 'cuda_core'
+        with pytest.raises(NotImplementedError, match=f'head_dim {D}'):
+            t_flash.check_built('flash', D)
+
+    @pytest.mark.parametrize('B,Hkv,S,group,want', [
+        (1, 32, 2048, 1, 1),      # Llama-7B MHA: 512 blocks fill the card
+        (1, 8, 2048, 4, 4),       # GQA 32 / 8: 128 blocks -> 4 slices
+        (6, 8, 2048, 4, 1),       # the same heads at batch 6
+        (1, 8, 8192, 4, 1),       # Mistral-7B's heads over 8192 tokens
+        (1, 4, 2048, 7, 7),       # Qwen2-7B's 28 / 4
+        (1, 8, 4096, 4, 1),       # the packed 4096-token stream: 256
+        (1, 16, 2048, 2, 1),      # 256 blocks: one wave already
+        (2, 4, 2048, 8, 4),       # 128 blocks -> 4 slices (512)
+        (1, 1, 128, 6, 6)])       # no divisor fills it: the whole group
+    def test_dkv_slices(self, B, Hkv, S, group, want):
+        got = t_flash.dkv_slices(B, Hkv, S, group, 132)
+        assert got == want and group % got == 0
+
+
 class TestRefusals:
     def test_unported_options_raise(self):
         # segment ids and windows are ported with their backward (K6s,
@@ -272,3 +312,11 @@ class TestRefusals:
         with pytest.raises(ValueError, match='CUDA'):
             t_flash.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 128),
                                         q, True)
+        # on the tensor-core route too
+        qb = q.bfloat16()
+        with pytest.raises(ValueError, match='CUDA'):
+            t_flash.flash_attention_fwd(qb, qb, qb, True)
+        with pytest.raises(ValueError, match='CUDA'):
+            t_flash.flash_attention_bwd(qb, qb, qb, qb,
+                                        torch.zeros(1, 2, 128), qb, True,
+                                        slices=1)

@@ -12,7 +12,9 @@ the kernel's name, the shape, and its ms. The shapes are Llama-7B's rows
 of PERF.md's kernel table, which trees from before the GQA-group and
 head-size repair build too (K10f8's since the fp8 codes), so an older
 tree and a newer one compare row by row; chip_smoke.py's phase 3 holds
-every shape of the current tree.
+every shape of the current tree. A flash row also names the route its
+kernels took (`path`: tensor_core or cuda_core) where the tree has
+routes.
 Run it on each tree in turn within one call on one machine (A, B, B, A):
 kernel times hold within a few per cent there, and the card may differ
 between calls.
@@ -55,7 +57,7 @@ def main():
     rows = []
 
     def add(name, rec):
-        rows.append((name, rec['shape'], rec['ms']))
+        rows.append((name, rec['shape'], rec['ms'], rec.get('path')))
 
     for B in (1, 8):
         for Hkv in (32, 8):
@@ -74,11 +76,25 @@ def main():
         add('flash_attention_fwd', fwd)
         add('flash_attention_bwd', bwd)
         torch.cuda.empty_cache()
-    for Hkv, dt in ((8, bf16), (32, f32)):
+    # the head sizes of fault E2's repair: D 80 / 96 at GQA 28 / 4 on the
+    # tensor cores, 256 on the CUDA cores
+    for H, Hkv, D, dt in ((28, 4, 80, bf16), (28, 4, 96, bf16),
+                          (16, 16, 256, bf16)):
+        fwd, bwd = cs.check_flash(torch, timer, 1, H, Hkv, 2048, D, dt)
+        add('flash_attention_fwd', fwd)
+        add('flash_attention_bwd', bwd)
+        torch.cuda.empty_cache()
+    for Hkv, dt in ((8, bf16), (32, bf16), (32, f32)):
         fwd, bwd = cs.check_flash_window(torch, timer, 32, Hkv, dt)
         add('flash_attention_fwd_window', fwd)
         add('flash_attention_bwd_window', bwd)
         torch.cuda.empty_cache()
+    for dt in (bf16, f32):
+        add('flash_attention_fwd_seg', cs.check_flash_seg(torch, timer, dt))
+    for Hkv in (8, 32):
+        add('flash_attention_bwd_seg',
+            cs.check_flash_seg_bwd(torch, timer, Hkv, bf16))
+    torch.cuda.empty_cache()
     # weight-only products: decode rows (the skinny path) in bf16 and
     # float32, short and long prompts in bf16 (the tensor cores) and
     # float32 at M = 2048 (the CUDA cores), fp8 at M = 2048
@@ -93,9 +109,12 @@ def main():
     for K, N in ((4096, 4096), (4096, 32000)):
         add('quant_matmul_fp8', cs.check_quant_matmul(torch, timer, 2048, K,
                                                       N, bf16, 'e4m3'))
-    for name, shape, ms in rows:
-        print(json.dumps({'tree': tree, 'kernel': name, 'shape': shape,
-                          'ms': ms, 'card': card}), flush=True)
+    for name, shape, ms, path in rows:
+        row = {'tree': tree, 'kernel': name, 'shape': shape, 'ms': ms,
+               'card': card}
+        if path is not None:
+            row['path'] = path
+        print(json.dumps(row), flush=True)
     print(json.dumps({'tree': tree, 'build_s': build_s, 'card': card}))
 
 
