@@ -180,6 +180,46 @@ class Timer:
         return total / iters
 
 
+def decode_geometry(torch, fn, q, B, S, Hq, Hkv, D, quant):
+    """One K7 / K9 call's CUDA kernels, counted by the profiler (one: the
+    last split combines the splits), and its instantiation's registers,
+    spilled bytes (none allowed), blocks per SM and context split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.hopper import decode_attention as k
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):   # a trace now and then comes back empty: again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if str(e.device_type).endswith('CUDA')
+                 for _ in range(e.count)]
+        if names:
+            break
+        time.sleep(0.1)
+    pl = k.plan(q.device.index, _build.dtype_code(q, 'decode_attention'),
+                quant, Hq, Hkv, D)
+    nsplit, chunk = k.splits(B, Hkv * pl.nchunk, S, pl.tile,
+                             pl.blocks_per_sm,
+                             _build.sm_count(q.device.index), pl.stages)
+    what = f'decode attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}'
+    if len(names) != 1 or 'pt_decode::decode_kernel' not in names[0]:
+        raise AssertionError(f'{what}: one call launched {names}, not one '
+                             f'decode kernel')
+    if pl.local_bytes:
+        raise AssertionError(f'{what}: the kernel spills {pl.local_bytes} '
+                             f'bytes')
+    return {'kernels_per_call': len(names), 'regs': pl.regs,
+            'spill_bytes': pl.local_bytes,
+            'blocks_per_sm': pl.blocks_per_sm, 'heads_per_block': pl.heads,
+            'tile': pl.tile, 'nsplit': nsplit, 'chunk': chunk}
+
+
 def check_rms_norm(torch, timer, R, N, dtype, return_r):
     """K1 as a path calls it: serving (under no_grad) without the row
     scale r, training with it (RMSNormFn saves r for K2). Both variants
@@ -390,10 +430,14 @@ def check_headmajor(torch, timer, B, Hq, Hkv, mode, S=2048, D=128):
         :, None, None, :]
     qt = q.transpose(1, 2)
     lib = F.scaled_dot_product_attention
+    geo = decode_geometry(
+        torch, lambda: k.decode_attention_headmajor(q, kc, vc, cl, None, ks,
+                                                    vs),
+        q, B, S, Hq, Hkv, D, ks is not None)
     return {
         'shape': (f'B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {mode} '
                   f'counts={counts}'),
-        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'max_abs_err': err, 'tolerance': tol_text(tol), **geo,
         'ms': timer(lambda: k.decode_attention_headmajor(q, kc, vc, cl,
                                                          None, ks, vs)),
         'plain_ms': timer(lambda: k.decode_attention_headmajor_plain(
@@ -533,10 +577,13 @@ def check_decode(torch, timer, B, Hq, Hkv, mode, S=2048, D=128):
         :, None, None, :]
     qt, kt, vt = q.transpose(1, 2), kl.transpose(1, 2), vl_.transpose(1, 2)
     lib = F.scaled_dot_product_attention
+    geo = decode_geometry(
+        torch, lambda: k.decode_attention(q, kc, vc, vl, None, ks, vs, st),
+        q, B, S, Hq, Hkv, D, ks is not None)
     return {
         'shape': (f'B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {mode} '
                   f'valid_len={vl_list} start={st_list}'),
-        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'max_abs_err': err, 'tolerance': tol_text(tol), **geo,
         'ms': timer(lambda: k.decode_attention(q, kc, vc, vl, None, ks, vs,
                                                st)),
         'plain_ms': timer(lambda: k.decode_attention_plain(
@@ -1589,6 +1636,12 @@ def profile_forward(torch, fn, label, card, phase='decode'):
     for t_us, c, key in rows[:12]:
         print(f'{phase} profile {label}:   {t_us / 1e3:8.3f} ms  {c:5d}x  '
               f'{key[:90]}')
+    dec = [r for r in rows if 'pt_decode::' in r[2]]
+    if dec:
+        ms = sum(r[0] for r in dec) / 1e3
+        print(f'{phase} profile {label}: decode attention (K7) '
+              f'{ms:.3f} ms in {sum(r[1] for r in dec)} launches, '
+              f'{ms / busy:.3f} of device time')
 
 
 def bench_decode(torch, model, batch, label, card, quant=None,
@@ -2843,11 +2896,13 @@ def main():
             for B in (8, 1) for Hkv in (32, 8)
             for mode in ('bfloat16', 'float32', 'int8')]
         torch.cuda.empty_cache()
-        # decode attention: the bench's b1 row first (the main path)
+        # decode attention: the bench's b1 row first (the main path), then
+        # b1 over a 32768-position cache
         cases['decode_attention'] = [
             check_decode(torch, timer, B, 32, Hkv, mode)
             for B in (1, 8) for Hkv in (32, 8)
-            for mode in ('bfloat16', 'float32', 'int8')]
+            for mode in ('bfloat16', 'float32', 'int8')] + [
+            check_decode(torch, timer, 1, 32, 32, 'bfloat16', S=32768)]
         torch.cuda.empty_cache()
         # the decode kernels at the GQA groups and head sizes built after
         # fault E2's repair: groups 7 (Qwen2-7B, phase 11's main path
@@ -2904,6 +2959,15 @@ def main():
         for name, cs in cases.items():
             for c in cs:
                 print(f'kernel {name}: {json.dumps(c)} [{card}]', flush=True)
+        for name in ('decode_attention', 'decode_attention_headmajor'):
+            for c in cases[name]:
+                print(f'{name} {c["shape"]}: {c["kernels_per_call"]} CUDA '
+                      f'kernel per call, {c["regs"]} registers, '
+                      f'{c["spill_bytes"]} bytes spilled, '
+                      f'{c["blocks_per_sm"]} blocks per SM, '
+                      f'{c["nsplit"]} splits of {c["chunk"]}; '
+                      f'{c["ms"]:.4f} ms, bound {c["bound_ms"]:.4f}, SDPA '
+                      f'{c["library_ms"]:.4f} [{card}]')
         del timer
         torch.cuda.empty_cache()
 

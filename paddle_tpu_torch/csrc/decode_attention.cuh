@@ -1,269 +1,59 @@
 // The decode-attention kernel template shared by decode_attention.cu
-// (the GQA groups 1, 2, 4, 8 at head sizes whose row is a power of two of
-// loads: Llama's shapes) and decode_attention_any.cu (every other group
-// and head size). See decode_attention.cu for what it computes and why.
+// (head sizes 33..128, Llama's and Qwen2's rows) and
+// decode_attention_any.cu (head sizes up to 32 and 129..256): one
+// template, compiled for G = 1, 2, 4, 8 query heads per block and rows
+// padded to DMAX = 16, 32, 64, 128 or 256 elements. See
+// decode_attention.cu for what it computes and why.
 #pragma once
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace pt_decode {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 64;   // positions per tile: two per lane in the softmax
-constexpr int kBatch = 4;   // rows a thread of the general path loads at once
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 3;        // K/V tiles in the shared-memory ring
+constexpr int kMaxSplits = 256;   // context splits of one (row, kv head)
 constexpr float kNegInf = -1e30f;
 
-// One block per (context split, kv head [x group chunk], batch row).
-//
-// G query heads per block, LPR threads per K/V row (a power of two, so a
-// warp holds whole rows), VEC elements per thread and row.
-// kGen = false: the block's G heads are the kv head's whole group and
-// the head size is exactly LPR * VEC, all fixed at compile time.
-// kGen = true (any group, any head size that is a multiple of VEC): the
-// kv head's `group_run` query heads are cut into `nchunk` chunks of G
-// (the last chunk's missing heads ride along with zero queries and are
-// not written), lanes past the head size `d_run` hold nothing, and each
-// thread loads its K and V rows kBatch at a time, so a wide row or a
-// large group stays inside the registers.
-template <typename T, typename KV, int G, int LPR, bool kGen, int VEC>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
-    const T* __restrict__ q, const KV* __restrict__ kc,
-    const KV* __restrict__ vc, const float* __restrict__ kscale,
-    const float* __restrict__ vscale, const int* __restrict__ vlens,
-    const int* __restrict__ starts, int vlen_all, int start_all,
-    T* __restrict__ out, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int s_len, int hq, int chunk,
-    int64_t b_stride, int64_t h_stride, int64_t pos_stride, float scale,
-    int d_run, int group_run, int nchunk) {
-  constexpr int DMAX = LPR * VEC;          // a row's width in the block
-  constexpr int ROWS = kThreads / LPR;     // tile rows one pass covers
-  constexpr int IT = kTile / ROWS;         // tile rows of each thread
-  constexpr int IB = kGen && IT > kBatch ? kBatch : IT;  // rows per load batch
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
-  using P = pt::Pack<KV, VEC>;
-  __shared__ float s_p[G * kTile];         // scores, then probabilities
-  __shared__ float s_alpha[G];             // rescale for this tile
-  __shared__ float s_m[G];                 // running max
-  __shared__ float s_l[G];                 // running sum
-  __shared__ float s_red[ROWS * G * DMAX];  // partial outputs of the rows
-
-  const int split = blockIdx.x, b = blockIdx.z;
-  const int kvh = kGen ? blockIdx.y / nchunk : blockIdx.y;
-  const int g0 = kGen ? (blockIdx.y % nchunk) * G : 0;  // first head here
-  const int group = kGen ? group_run : G;
-  const int gn = kGen ? min(G, group - g0) : G;         // heads written
-  const int D = kGen ? d_run : DMAX;                    // head size
-  const int nsplit = gridDim.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int chunk_i = threadIdx.x % LPR;   // this thread's VEC-wide slice
-  const int row = threadIdx.x / LPR;       // this thread's first tile row
-  const bool act = !kGen || chunk_i * VEC < D;  // the slice lies in the row
-
-  // the window [start, end) clipped to the cache, then to this split
-  const int end = min(vlens ? vlens[b] : vlen_all, s_len);
-  const int start = min(max(starts ? starts[b] : start_all, 0), s_len);
-  const int lo = max(start, split * chunk);
-  const int hi = min(end, (split + 1) * chunk);
-
-  const int64_t kv_off = b * b_stride + kvh * h_stride + chunk_i * VEC;
-  const int64_t head0 = static_cast<int64_t>(b) * hq + kvh * group + g0;
-  const int64_t q_off = head0 * D;
-
-  float qr[G][VEC];
-  float acc[G][VEC];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      qr[g][j] = act && g < gn
-                     ? pt::to_f32(q[q_off + g * D + chunk_i * VEC + j]) * scale
-                     : 0.f;
-      acc[g][j] = 0.f;
-    }
-  }
-  float ks[VEC], vs[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    ks[j] = kQuant && act ? kscale[kvh * D + chunk_i * VEC + j] : 1.f;
-    vs[j] = kQuant && act ? vscale[kvh * D + chunk_i * VEC + j] : 1.f;
-  }
-  if (threadIdx.x < G) {
-    s_m[threadIdx.x] = kNegInf;
-    s_l[threadIdx.x] = 0.f;
-  }
-
-  for (int t0 = lo; t0 < hi; t0 += kTile) {
-    // this thread's rows of K, IB loads issued before any is used (all IT
-    // at once on the fixed path)
-#pragma unroll
-    for (int i0 = 0; i0 < IT; i0 += IB) {
-      P kb[IB];
-#pragma unroll
-      for (int i = 0; i < IB; ++i) {
-        const int pos = t0 + row + (i0 + i) * ROWS;
-        if (pos < hi && act)
-          kb[i] = *reinterpret_cast<const P*>(kc + kv_off + pos * pos_stride);
-      }
-      // scores: the LPR threads of one row each dot their slice, then sum
-#pragma unroll
-      for (int i = 0; i < IB; ++i) {
-        const int pos = t0 + row + (i0 + i) * ROWS;
-        float sc[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) sc[g] = 0.f;
-        if (pos < hi && act) {
-          float kf[VEC];
-#pragma unroll
-          for (int j = 0; j < VEC; ++j)
-            kf[j] = kQuant ? pt::to_f32(kb[i].v[j]) * ks[j]
-                           : pt::to_f32(kb[i].v[j]);
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) sc[g] += qr[g][j] * kf[j];
-        }
-#pragma unroll
-        for (int o = LPR / 2; o > 0; o >>= 1) {
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            sc[g] += __shfl_xor_sync(0xffffffffu, sc[g], o);
-        }
-        if (chunk_i == 0) {
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            s_p[g * kTile + row + (i0 + i) * ROWS] =
-                pos < hi ? sc[g] : kNegInf;
-        }
-      }
-    }
-    // fixed path: V's rows go in flight while the softmax runs (the
-    // general path loads them batch by batch in the P.V loop)
-    P vb[IT];
-    if constexpr (!kGen) {
-#pragma unroll
-      for (int i = 0; i < IT; ++i) {
-        const int pos = t0 + row + i * ROWS;
-        if (pos < hi)
-          vb[i] = *reinterpret_cast<const P*>(vc + kv_off + pos * pos_stride);
-      }
-    }
-    __syncthreads();
-
-    // online softmax over the tile, one warp per query head
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float* sp = s_p + g * kTile;
-      const float s0 = sp[lane], s1 = sp[lane + 32];
-      float mt = fmaxf(s0, s1);
-      for (int o = 16; o > 0; o >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
-      const float m_old = s_m[g];
-      const float m_new = fmaxf(m_old, mt);
-      const float p0 = t0 + lane < hi ? expf(s0 - m_new) : 0.f;
-      const float p1 = t0 + lane + 32 < hi ? expf(s1 - m_new) : 0.f;
-      float ps = p0 + p1;
-      for (int o = 16; o > 0; o >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      sp[lane] = p0;
-      sp[lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        s_alpha[g] = a;
-        s_l[g] = s_l[g] * a + ps;
-        s_m[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // P.V: rescale the running sums, then add this tile's rows
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float a = s_alpha[g];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[g][j] *= a;
-    }
-#pragma unroll
-    for (int i0 = 0; i0 < IT; i0 += IB) {
-      if constexpr (kGen) {
-#pragma unroll
-        for (int i = 0; i < IB; ++i) {
-          const int pos = t0 + row + (i0 + i) * ROWS;
-          if (pos < hi && act)
-            vb[i] = *reinterpret_cast<const P*>(vc + kv_off +
-                                                pos * pos_stride);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < IB; ++i) {
-        const int r = row + (i0 + i) * ROWS;
-        if (t0 + r < hi && act) {
-          const P& v = vb[kGen ? i : i0 + i];
-          float vf[VEC];
-#pragma unroll
-          for (int j = 0; j < VEC; ++j)
-            vf[j] = kQuant ? pt::to_f32(v.v[j]) * vs[j] : pt::to_f32(v.v[j]);
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float p = s_p[g * kTile + r];
-#pragma unroll
-            for (int j = 0; j < VEC; ++j) acc[g][j] += p * vf[j];
-          }
-        }
-      }
-    }
-    __syncthreads();  // the next tile overwrites s_p
-  }
-
-  // add the partial sums of the thread rows; one split normalises and
-  // writes the output, several write their partial state for the combine
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-#pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      s_red[(row * G + g) * DMAX + chunk_i * VEC + j] = acc[g][j];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < gn * D; i += kThreads) {
-    const int g = i / D, c = i % D;
-    float sum = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < ROWS; ++k) sum += s_red[(k * G + g) * DMAX + c];
-    if (nsplit == 1)
-      out[q_off + g * D + c] = pt::from_f32<T>(sum / fmaxf(s_l[g], 1e-30f));
-    else
-      part_acc[((head0 + g) * nsplit + split) * D + c] = sum;
-  }
-  if (nsplit > 1 && threadIdx.x < gn) {
-    float* ml = part_ml + ((head0 + threadIdx.x) * nsplit + split) * 2;
-    ml[0] = s_m[threadIdx.x];
-    ml[1] = s_l[threadIdx.x];
-  }
-}
-
-// Combine the splits of one (batch row, query head): rescale each split's
-// sums to the common max, add, normalise. Empty splits carry max -1e30
-// and sum 0, so they add nothing; an empty window gives 0.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_ml,
-                                      T* __restrict__ out, int nsplit,
-                                      int d) {
-  const int64_t head = blockIdx.x;
-  const float* ml = part_ml + head * nsplit * 2;
-  float m = kNegInf;
-  for (int i = 0; i < nsplit; ++i) m = fmaxf(m, ml[2 * i]);
-  float l = 0.f;
-  for (int i = 0; i < nsplit; ++i) l += expf(ml[2 * i] - m) * ml[2 * i + 1];
-  const float denom = fmaxf(l, 1e-30f);
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float acc = 0.f;
-    for (int i = 0; i < nsplit; ++i)
-      acc += expf(ml[2 * i] - m) * part_acc[(head * nsplit + i) * d + c];
-    out[head * d + c] = pt::from_f32<T>(acc / denom);
-  }
-}
+// The shape of one instantiation: T queries, KV elements, G query heads
+// per block, rows padded to DMAX elements (lanes past the head size hold
+// nothing).
+template <typename T, typename KV, int G, int DMAX>
+struct Geo {
+  // float32 q takes the plain version's order of operations (see
+  // decode_kernel), bf16 q the folded, online one
+  static constexpr bool kRef = std::is_same<T, float>::value;
+  static constexpr int kRowBytes = DMAX * static_cast<int>(sizeof(KV));
+  // elements of a row one lane reads from shared memory: 16 bytes of
+  // bf16 (8 bytes of int8) or float32; float32 rows past 128 take 8 (G
+  // <= 4 there) so that a row fits a warp
+  static constexpr int VEC = sizeof(KV) == 4 ? (DMAX > 128 ? 8 : 4) : 8;
+  static constexpr int LPR = DMAX / VEC;      // lanes per row
+  static constexpr int ROWS = kThreads / LPR;  // thread rows of a block
+  // positions per tile: one K (and one V) tile is 2-8 KB (16-32 KB of
+  // float32 at D 128 / 256)
+  static constexpr int TILE = kRowBytes <= 128 ? 64 : 32;
+  static constexpr int IT = TILE / ROWS;      // tile rows of each thread
+  // rows a thread scores before its softmax update (IB * G scores live)
+  static constexpr int IB = IT < 16 / G ? IT : (16 / G > 0 ? 16 / G : 1);
+  static constexpr int kTileBytes = TILE * kRowBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;  // K tile, V tile
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  // the partial sums added at the end: one per warp (the online path
+  // adds a warp's thread rows by a butterfly first), one per thread row
+  // in the plain version's order
+  static constexpr int NR = kRef ? ROWS : kWarps;
+  static constexpr int kRedBytes = NR * G * DMAX * 4;
+  static constexpr int kSmem = kRingBytes > kRedBytes ? kRingBytes
+                                                      : kRedBytes;
+  static_assert(LPR >= 2 && LPR <= 32 && (LPR & (LPR - 1)) == 0, "lanes");
+  static_assert(IT >= 1 && IT * ROWS == TILE && IT % IB == 0, "rows");
+  static_assert(kRowBytes % 16 == 0, "rows of whole 16-byte copies");
+};
 
 struct Args {
   const void *q, *kc, *vc;
@@ -271,37 +61,585 @@ struct Args {
   const int *vlens, *starts;
   int vlen_all, start_all;
   void* out;
-  float *part_acc, *part_ml;
-  int batch, s_len, hq, hkv, d, nsplit, chunk;
+  float *part_acc, *part_ml;  // the splits' partial states (nsplit > 1)
+  int* counters;              // one per (batch row, kv head, head chunk)
+  int batch, s_len, hq, hkv, d, nsplit, chunk, nchunk;
   // element strides of a cache's (batch, kv head, position) axes
   int64_t b_stride, h_stride, pos_stride;
   float scale;
+  int wide;  // rows take 16-byte copies (else 8-byte: int8 rows that are
+             // not 16-byte aligned)
 };
 
-// nchunk chunks of G query heads per kv head (1 on the fixed path)
-template <typename T, typename KV, int G, int LPR, bool kGen, int VEC>
-cudaError_t launch(const Args& a, int nchunk, cudaStream_t stream) {
-  if (static_cast<int64_t>(a.hkv) * nchunk > 65535)
+// What the host needs to size a launch of one instantiation.
+struct Plan {
+  int blocks_per_sm, tile, stages, heads, nchunk, regs, local_bytes;
+};
+
+// 8 bytes global -> shared, asynchronously; zero-filled when !full
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 8 : 0)
+               : "memory");
+}
+
+// W 32-bit words of one lane's slice of a row, read as one shared-memory
+// load (two for W = 8)
+template <int W>
+struct alignas(W * 4 < 16 ? W * 4 : 16) Words {
+  uint32_t w[W];
+};
+
+// The VEC elements of a slice as float32, exactly: bf16 by a shift,
+// int8 codes by a float magic number (2^23 + code + 128, minus
+// 2^23 + 128).
+template <typename KV, int VEC>
+__device__ __forceinline__ void load_f32(const KV* p, float (&f)[VEC]) {
+  constexpr int W = VEC * static_cast<int>(sizeof(KV)) / 4;
+  const Words<W> x = *reinterpret_cast<const Words<W>*>(p);
+  if constexpr (std::is_same<KV, float>::value) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) f[j] = __uint_as_float(x.w[j]);
+  } else if constexpr (std::is_same<KV, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      f[2 * k] = __uint_as_float(x.w[k] << 16);
+      f[2 * k + 1] = __uint_as_float(x.w[k] & 0xFFFF0000u);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const uint32_t u = x.w[k] ^ 0x80808080u;  // each byte code + 128
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[4 * k + j] =
+            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + j)) -
+            8388736.f;
+    }
+  }
+}
+
+// Sums x[0..N) over the lanes of a row group (lanes that differ in the
+// bits below 2 O), every lane ending with every sum, bit for bit the
+// same: a reduce-scatter (each level halves the values a lane holds)
+// down to one value, then an all-gather on the way back up; 2 (N - 1)
+// shuffles for N values over as many lanes, where a butterfly on each
+// value takes N log2(lanes).
+template <int N0, int N, int O>
+__device__ __forceinline__ void row_sum(float (&x)[N0], int lane) {
+  if constexpr (O >= 1) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool hi = lane & O;
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const float send = hi ? x[k] : x[k + H];
+        const float keep = hi ? x[k + H] : x[k];
+        x[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      row_sum<N0, H, O / 2>(x, lane);
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const float mine = x[k];
+        const float other = __shfl_xor_sync(0xffffffffu, mine, O);
+        x[k] = hi ? other : mine;
+        x[k + H] = hi ? mine : other;
+      }
+    } else {
+      x[0] += __shfl_xor_sync(0xffffffffu, x[0], O);
+      row_sum<N0, 1, O / 2>(x, lane);
+    }
+  }
+}
+
+// A probability from a score: bf16 queries keep their scores in log2
+// units (log2 e folded into q), so it is one exp2 on the special-function
+// unit (2 ulp); float32 queries keep the plain version's natural units
+// and expf.
+template <bool kRef>
+__device__ __forceinline__ float ex(float x) {
+  if constexpr (kRef)
+    return expf(x);
+  else
+    return exp2f(x);
+}
+
+// One block per (context split, kv head x head chunk, batch row): the
+// chunk's G query heads (gn of them real) against the split's slice of
+// the row's window. Thread t owns VEC columns (slice t % LPR) of the
+// rows t / LPR + k * ROWS of every tile and keeps its own running max,
+// sum and output slice over them (an online softmax per thread row);
+// the block merges its thread rows at the end, and the last split to
+// finish merges the splits.
+//
+// float32 q (kRef) takes the plain version's order of operations
+// instead: natural units and expf, each int8 code times its scale
+// before the dot and the sum, and a first pass over the split's K tiles
+// for its max, so that each probability is exp(s - max) once and nothing
+// is rescaled. A tile's probabilities are summed pairwise (position i
+// with i + 32 of a 64-position tile, then a butterfly), the tiles in
+// order, and the thread rows' output sums in row order. A float32
+// model that quantizes the
+// rows this output produced (an int8 cache) is the one caller whose
+// result hangs on these last bits.
+template <typename T, typename KV, int G, int DMAX>
+__global__ void __launch_bounds__(kThreads, 1)
+    decode_kernel(const Args a) {
+  using GG = Geo<T, KV, G, DMAX>;
+  constexpr int VEC = GG::VEC, LPR = GG::LPR, ROWS = GG::ROWS;
+  constexpr int TILE = GG::TILE, IT = GG::IT, IB = GG::IB, NR = GG::NR;
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr bool kRef = GG::kRef;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float s_mw[kWarps][G];  // each warp's max per head
+  __shared__ float s_lw[kWarps][G];  // each warp's sum per head
+  // kRef: two tiles' probabilities [buffer][head][tile row], the sum of
+  // one read while the next is written
+  __shared__ float s_p[kRef ? 2 : 1][kRef ? G * TILE : 1];
+  __shared__ float s_ps[G];  // kRef: the sum of the probabilities per head
+  __shared__ int s_last;
+
+  const T* q = static_cast<const T*>(a.q);
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kvh = blockIdx.y / a.nchunk;
+  const int group = a.hq / a.hkv;
+  const int g0 = (blockIdx.y % a.nchunk) * G;  // first head of the chunk
+  const int gn = min(G, group - g0);           // heads written
+  const int D = a.d;
+  const int nsplit = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ci = threadIdx.x % LPR;   // this thread's VEC-wide slice
+  const int row = threadIdx.x / LPR;  // this thread's first tile row
+  const bool act = ci * VEC < D;      // the slice lies in the row
+
+  // the window [start, end) clipped to the cache, then to this split
+  const int end = min(a.vlens ? a.vlens[b] : a.vlen_all, a.s_len);
+  const int start = min(max(a.starts ? a.starts[b] : a.start_all, 0),
+                        a.s_len);
+  const int lo = max(start, split * a.chunk);
+  const int hi = min(end, (split + 1) * a.chunk);
+  const int ntiles = hi > lo ? (hi - lo + TILE - 1) / TILE : 0;
+
+  const int64_t kv0 = b * a.b_stride + kvh * a.h_stride;
+  const KV* kbase = static_cast<const KV*>(a.kc) + kv0;
+  const KV* vbase = static_cast<const KV*>(a.vc) + kv0;
+  const int64_t head0 = static_cast<int64_t>(b) * a.hq + kvh * group + g0;
+
+  // tile t of the split into ring stage t % kStages: K rows, then (with
+  // with_v) V rows, DMAX elements apart; positions past the slice and
+  // columns past the head size are zero-filled. One commit group per
+  // call.
+  auto issue = [&](int t, bool with_v) {
+    if (t < ntiles) {
+      const int t0 = lo + t * TILE;
+      const uint32_t sk = smem_addr(smem + (t % kStages) * GG::kStageBytes);
+      const uint32_t sv = sk + GG::kTileBytes;
+      if (a.wide) {
+        constexpr int CPR = GG::kRowBytes / 16;  // copies of a padded row
+        const int cpr = D * static_cast<int>(sizeof(KV)) / 16;
+#pragma unroll
+        for (int k = 0; k < (TILE * CPR + kThreads - 1) / kThreads; ++k) {
+          const int i = threadIdx.x + k * kThreads;
+          if ((TILE * CPR) % kThreads == 0 || i < TILE * CPR) {
+            const int r = i / CPR, c = i % CPR;
+            const bool full = t0 + r < hi && c < cpr;
+            const int64_t off =
+                full ? (t0 + r) * a.pos_stride + c * (16 / sizeof(KV)) : 0;
+            cp_async16(sk + i * 16, kbase + off, full);
+            if (with_v) cp_async16(sv + i * 16, vbase + off, full);
+          }
+        }
+      } else {
+        constexpr int CPR = GG::kRowBytes / 8;
+        const int cpr = D * static_cast<int>(sizeof(KV)) / 8;
+#pragma unroll
+        for (int k = 0; k < (TILE * CPR + kThreads - 1) / kThreads; ++k) {
+          const int i = threadIdx.x + k * kThreads;
+          if ((TILE * CPR) % kThreads == 0 || i < TILE * CPR) {
+            const int r = i / CPR, c = i % CPR;
+            const bool full = t0 + r < hi && c < cpr;
+            const int64_t off =
+                full ? (t0 + r) * a.pos_stride + c * (8 / sizeof(KV)) : 0;
+            cp_async8(sk + i * 8, kbase + off, full);
+            if (with_v) cp_async8(sv + i * 8, vbase + off, full);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) issue(t, !kRef);
+
+  // q * scale (* log2 e: scores in log2 units), and for bf16 q times the
+  // K scale of each column in int8 mode, so a code needs no multiply of
+  // its own; float32 q keeps the scales of its columns beside it
+  const float qscale = a.scale * (kRef ? 1.f : 1.4426950408889634f);
+  float qr[G][VEC], ksr[VEC], vsr[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int c = ci * VEC + j;
+    const float ks = kQuant && act ? a.ks[kvh * D + c] : 1.f;
+    ksr[j] = ks;
+    vsr[j] = kQuant && kRef && act ? a.vs[kvh * D + c] : 1.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      qr[g][j] = act && g < gn
+                     ? pt::to_f32(q[(head0 + g) * D + c]) * qscale *
+                           (kRef ? 1.f : ks)
+                     : 0.f;
+  }
+  float acc[G][VEC], m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[g][j] = 0.f;
+  }
+
+  // the scores of IB rows (from row i0 of the thread's rows) of the K
+  // tile at sk: the LPR lanes of a row each dot their slice, then sum
+  // them (every lane of the row holds every score)
+  auto scores = [&](const KV* sk, int i0, float (&sc)[IB * G]) {
+#pragma unroll
+    for (int i = 0; i < IB; ++i) {
+      float kf[VEC];
+      if (act) {
+        load_f32<KV, VEC>(sk + (row + (i0 + i) * ROWS) * DMAX + ci * VEC,
+                          kf);
+        if constexpr (kQuant && kRef) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) kf[j] *= ksr[j];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) kf[j] = 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) s = fmaf(qr[g][j], kf[j], s);
+        sc[i * G + g] = s;
+      }
+    }
+    row_sum<IB * G, IB * G, LPR / 2>(sc, lane);
+  };
+  // the block's max of m per head into mb: a warp butterfly over its
+  // thread rows, then the warps in order
+  auto block_max = [&](float (&mb)[G]) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mw = m[g];
+#pragma unroll
+      for (int o = LPR; o < 32; o <<= 1)
+        mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
+      if (lane == 0) s_mw[warp][g] = mw;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      mb[g] = s_mw[0][g];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) mb[g] = fmaxf(mb[g], s_mw[w][g]);
+    }
+  };
+
+  // kRef: the sum per head of one tile's probabilities sp, by halves,
+  // then a butterfly over the warp that owns head g (g % kWarps), added
+  // to s_ps[g] by its lane 0
+  if constexpr (kRef) {
+    if (threadIdx.x < G) s_ps[threadIdx.x] = 0.f;  // read after a barrier
+  }
+  auto tile_sum = [&](const float* sp) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g % kWarps == warp) {
+        float v = sp[g * TILE + lane];
+        if constexpr (TILE == 64) v += sp[g * TILE + lane + 32];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane == 0) s_ps[g] += v;
+      }
+    }
+  };
+
+  if constexpr (kRef) {
+    // a first pass over the K tiles finds the split's max per head
+    for (int t = 0; t < ntiles; ++t) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      issue(t + kStages - 1, false);
+      const KV* sk = reinterpret_cast<const KV*>(
+          smem + (t % kStages) * GG::kStageBytes);
+      const int t0 = lo + t * TILE;
+#pragma unroll
+      for (int i0 = 0; i0 < IT; i0 += IB) {
+        float sc[IB * G];
+        scores(sk, i0, sc);
+#pragma unroll
+        for (int i = 0; i < IB; ++i)
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            if (t0 + row + (i0 + i) * ROWS < hi)
+              m[g] = fmaxf(m[g], sc[i * G + g]);
+      }
+    }
+    cp_async_wait<0>();
+    float mb[G];
+    block_max(mb);  // its barrier also frees the ring
+#pragma unroll
+    for (int g = 0; g < G; ++g) m[g] = mb[g];
+    __syncthreads();  // s_mw is read
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) issue(t, true);
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of tile t
+    __syncthreads();  // everyone's; and stage (t - 1) % kStages is read
+    issue(t + kStages - 1, true);
+    if constexpr (kRef) {
+      if (t > 0) tile_sum(s_p[(t - 1) & 1]);  // written before the barrier
+    }
+    const KV* sk = reinterpret_cast<const KV*>(
+        smem + (t % kStages) * GG::kStageBytes);
+    const KV* sv = sk + TILE * DMAX;
+    const int t0 = lo + t * TILE;
+#pragma unroll
+    for (int i0 = 0; i0 < IT; i0 += IB) {
+      float sc[IB * G];  // [row][head]
+      scores(sk, i0, sc);
+      // this thread row's online softmax over the IB rows
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mx = m[g];
+#pragma unroll
+        for (int i = 0; i < IB; ++i) {
+          const bool in = t0 + row + (i0 + i) * ROWS < hi;
+          sc[i * G + g] = in ? sc[i * G + g] : kNegInf;
+          mx = fmaxf(mx, sc[i * G + g]);
+        }
+        const float alpha = ex<kRef>(m[g] - mx);
+        m[g] = mx;
+        float ps = 0.f;
+#pragma unroll
+        for (int i = 0; i < IB; ++i) {
+          const bool in = t0 + row + (i0 + i) * ROWS < hi;
+          sc[i * G + g] = in ? ex<kRef>(sc[i * G + g] - mx) : 0.f;
+          ps += sc[i * G + g];
+        }
+        l[g] = l[g] * alpha + ps;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[g][j] *= alpha;
+      }
+      if constexpr (kRef) {
+        if (ci == 0) {
+#pragma unroll
+          for (int i = 0; i < IB; ++i)
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              s_p[t & 1][g * TILE + row + (i0 + i) * ROWS] = sc[i * G + g];
+        }
+      }
+      // P.V over the same rows (zero-filled past the slice)
+      if (act) {
+#pragma unroll
+        for (int i = 0; i < IB; ++i) {
+          float vf[VEC];
+          load_f32<KV, VEC>(sv + (row + (i0 + i) * ROWS) * DMAX + ci * VEC,
+                            vf);
+          if constexpr (kQuant && kRef) {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) vf[j] *= vsr[j];
+          }
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int j = 0; j < VEC; ++j)
+              acc[g][j] = fmaf(sc[i * G + g], vf[j], acc[g][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // merge the thread rows: the block's max per head (warp butterfly,
+  // then the warps in order), each row's state rescaled to it (kRef: by
+  // 1) and summed in order through shared memory, which the ring no
+  // longer needs: online, a warp's rows by a butterfly first and then
+  // the warps; kRef, the thread rows one by one, the sum of the
+  // probabilities from the tiles' sums
+  float mb[G];
+  block_max(mb);  // its barrier also shows the last tile's s_p
+  if constexpr (kRef) {
+    if (ntiles > 0) tile_sum(s_p[(ntiles - 1) & 1]);
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float f = ex<kRef>(m[g] - mb[g]);
+    l[g] *= f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[g][j] *= f;
+    if constexpr (!kRef) {
+#pragma unroll
+      for (int o = LPR; o < 32; o <<= 1) {
+        l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          acc[g][j] += __shfl_xor_sync(0xffffffffu, acc[g][j], o);
+      }
+    }
+  }
+  float* red = reinterpret_cast<float*>(smem);  // [NR][G][DMAX]
+  if ((kRef || lane < LPR) && act) {
+    const int slot = kRef ? row : warp;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        red[(slot * G + g) * DMAX + ci * VEC + j] = acc[g][j];
+  }
+  if (lane == 0) {
+    // kRef: warp g % kWarps holds head g's sum, the others add 0
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      s_lw[warp][g] = kRef ? (g % kWarps == warp ? s_ps[g] : 0.f) : l[g];
+  }
+  __syncthreads();
+
+  // the block's unnormalised output per head, the V scale applied; one
+  // split normalises and writes it, several write their partial state
+  T* out = static_cast<T*>(a.out);
+  for (int i = threadIdx.x; i < gn * D; i += kThreads) {
+    const int g = i / D, c = i % D;
+    float sum = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < NR; ++w) sum += red[(w * G + g) * DMAX + c];
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) den += s_lw[w][g];
+    if (kQuant && !kRef) sum *= a.vs[kvh * D + c];
+    if (nsplit == 1)
+      out[(head0 + g) * D + c] = pt::from_f32<T>(sum / fmaxf(den, 1e-30f));
+    else
+      a.part_acc[((head0 + g) * nsplit + split) * D + c] = sum;
+  }
+  if (nsplit == 1) return;
+  if (threadIdx.x < gn) {
+    float mb = s_mw[0][threadIdx.x], den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      mb = fmaxf(mb, s_mw[w][threadIdx.x]);
+      den += s_lw[w][threadIdx.x];
+    }
+    float* ml = a.part_ml + ((head0 + threadIdx.x) * nsplit + split) * 2;
+    ml[0] = mb;
+    ml[1] = den;
+  }
+
+  // a ticket on the (row, kv head, chunk) counter: the last split to
+  // arrive combines every split's state in split order (the same bits
+  // whichever block is last), then resets the counter for the next
+  // launch on the stream
+  __threadfence();
+  __syncthreads();
+  int* counter = a.counters + static_cast<int64_t>(b) * gridDim.y +
+                 blockIdx.y;
+  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == nsplit - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // one pass over the splits in split order, an online softmax over
+  // their states: four columns a thread, eight splits' loads in flight
+  const int D4 = D / 4;
+  for (int i = threadIdx.x; i < gn * D4; i += kThreads) {
+    const int g = i / D4, c4 = i % D4;
+    const float4* pa = reinterpret_cast<const float4*>(
+                           a.part_acc + (head0 + g) * nsplit * D) +
+                       c4;
+    const float2* ml =
+        reinterpret_cast<const float2*>(a.part_ml) + (head0 + g) * nsplit;
+    float m = kNegInf, l = 0.f;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    auto add = [&](float2 st, float4 x) {
+      const float mn = fmaxf(m, st.x);
+      const float f = ex<kRef>(m - mn), w = ex<kRef>(st.x - mn);
+      m = mn;
+      l = fmaf(l, f, st.y * w);
+      sum.x = fmaf(sum.x, f, x.x * w);
+      sum.y = fmaf(sum.y, f, x.y * w);
+      sum.z = fmaf(sum.z, f, x.z * w);
+      sum.w = fmaf(sum.w, f, x.w * w);
+    };
+    int s = 0;
+    for (; s + 8 <= nsplit; s += 8) {
+      float2 st[8];
+      float4 x[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        st[k] = __ldcg(ml + s + k);
+        x[k] = __ldcg(pa + (s + k) * D4);
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) add(st[k], x[k]);
+    }
+    for (; s < nsplit; ++s) add(__ldcg(ml + s), __ldcg(pa + s * D4));
+    T* o = out + (head0 + g) * D + 4 * c4;
+    const float den = fmaxf(l, 1e-30f);
+    o[0] = pt::from_f32<T>(sum.x / den);
+    o[1] = pt::from_f32<T>(sum.y / den);
+    o[2] = pt::from_f32<T>(sum.z / den);
+    o[3] = pt::from_f32<T>(sum.w / den);
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
+// Launch (a != nullptr) or describe (plan != nullptr) the instantiation
+// for G heads per block over rows of DMAX, with nchunk chunks of G heads
+// per kv head. The kernel's dynamic shared memory is allowed once per
+// device (48 KB with the static arrays beside it needs the opt-in too).
+template <typename T, typename KV, int G, int DMAX>
+cudaError_t run(int device, const Args* a, Plan* plan, int nchunk,
+                cudaStream_t stream) {
+  using GG = Geo<T, KV, G, DMAX>;
+  const auto kern = decode_kernel<T, KV, G, DMAX>;
+  static unsigned long long opted = 0;  // a bit per device
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(opted & bit)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, GG::kSmem);
+    if (e != cudaSuccess) return e;
+    opted |= bit;
+  }
+  if (plan != nullptr) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return e;
+    int n = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads,
+                                                      GG::kSmem);
+    if (e != cudaSuccess) return e;
+    *plan = Plan{n, GG::TILE, kStages, G, nchunk, fa.numRegs,
+                 static_cast<int>(fa.localSizeBytes)};
+    return cudaSuccess;
+  }
+  if (static_cast<int64_t>(a->hkv) * nchunk > 65535)
     return cudaErrorInvalidValue;
-  decode_kernel<T, KV, G, LPR, kGen, VEC>
-      <<<dim3(a.nsplit, a.hkv * nchunk, a.batch), kThreads, 0, stream>>>(
-          static_cast<const T*>(a.q), static_cast<const KV*>(a.kc),
-          static_cast<const KV*>(a.vc), a.ks, a.vs, a.vlens, a.starts,
-          a.vlen_all, a.start_all, static_cast<T*>(a.out), a.part_acc,
-          a.part_ml, a.s_len, a.hq, a.chunk, a.b_stride, a.h_stride,
-          a.pos_stride, a.scale, a.d, a.hq / a.hkv, nchunk);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || a.nsplit == 1) return e;
-  decode_combine_kernel<T><<<a.batch * a.hq, 128, 0, stream>>>(
-      a.part_acc, a.part_ml, static_cast<T*>(a.out), a.nsplit, a.d);
+  Args k = *a;
+  k.nchunk = nchunk;
+  kern<<<dim3(a->nsplit, a->hkv * nchunk, a->batch), kThreads, GG::kSmem,
+         stream>>>(k);
   return cudaGetLastError();
 }
 
-// The general path (decode_attention_any.cu): any group hq / hkv and any
-// head size d that is a multiple of the load width (8 elements of bf16
-// or int8, 4 of float32) up to 256; cudaErrorNotSupported for the rest.
-// dtype and kv_int8 as the C entry takes them.
-cudaError_t dispatch_any(const Args& a, int dtype, int kv_int8,
-                         cudaStream_t s);
+// rows padded to 16, 32 or 256 elements (decode_attention_any.cu);
+// dtype and kv_int8 as the C entry takes them, g the heads per block
+cudaError_t select_any(int device, int dtype, int kv_int8, int dmax, int g,
+                       int nchunk, const Args* a, Plan* plan,
+                       cudaStream_t s);
 
 }  // namespace pt_decode

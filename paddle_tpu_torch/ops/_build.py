@@ -79,8 +79,9 @@ _SIGNATURES = {
                                   _VP, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                   _I, _VP],
     'pt_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
-                            _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL, _LL,
-                            _LL, _I, _I, _F, _I, _I, _VP],
+                            _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL,
+                            _LL, _LL, _I, _I, _F, _I, _I, _VP],
+    'pt_decode_attention_plan': [_I, _I, _I, _I, _I, _I, _VP],
     'pt_quant_matmul': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                         _I, _I, _VP],
     'pt_quant_matmul_tc': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,

@@ -20,6 +20,9 @@ empty returns 0. The output has q's dtype.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
+import functools
 import math
 
 import torch
@@ -28,9 +31,16 @@ from .. import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256      # widest head the kernel is built for
-TILE = 64               # positions per tile in the kernel
-MIN_SPLIT = 64          # fewest positions a context split is given
-BLOCKS_PER_SM = 8       # blocks the context splits aim to put on an SM
+STAGES = 3              # K/V tiles in the kernel's shared-memory ring
+MAX_SPLITS = 256        # context splits of one (row, kv head) at most
+MAX_SPLIT_TILES = 8     # tiles of one split at most
+
+# The launch geometry of one shape (`pt_decode_attention_plan`): blocks
+# of its instantiation that fit on an SM, positions per tile, ring
+# stages, query heads per block, head chunks per kv head, registers per
+# thread and spilled bytes.
+Plan = collections.namedtuple('Plan', 'blocks_per_sm tile stages heads '
+                                      'nchunk regs local_bytes')
 
 
 def _check_shapes(q, k_cache, v_cache, k_scale, v_scale):
@@ -113,16 +123,58 @@ def decode_attention_plain(q, k_cache, v_cache, valid_len, scale=None,
 
 
 
-def splits(B, Hkv, S, sms):
-    """(nsplit, chunk): the context split so that the (split, kv head,
-    batch row) blocks put about BLOCKS_PER_SM blocks on each SM (a block
-    walks its positions one tile after another, so the card needs many
-    blocks in flight to keep its memory busy). Each split but the last
-    holds `chunk` positions, a multiple of the kernel's tile."""
-    n = -(-BLOCKS_PER_SM * sms // (B * Hkv))
-    n = max(1, min(n, -(-S // MIN_SPLIT)))
-    chunk = -(-(-(-S // n)) // TILE) * TILE
+def splits(B, units, S, tile, blocks_per_sm, sms, stages=STAGES):
+    """(nsplit, chunk): the context split of the (split, unit, batch row)
+    blocks, `units` = kv heads x head chunks. The blocks fill one wave of
+    the card (`blocks_per_sm`: the blocks of the instantiation that fit
+    on an SM), each split given at least `stages` tiles (so its ring
+    fills) where S allows; where that leaves SMs without a block, splits
+    of down to one tile give each SM one. A split holds at most
+    MAX_SPLIT_TILES tiles, more waves if need be: the windows are not
+    known here, and a row whose window covers the cache must spread over
+    enough blocks when the other rows' windows are short. At most
+    MAX_SPLITS. Split i holds positions [i * chunk, (i + 1) * chunk),
+    chunk a multiple of `tile`; the last holds the rest. It depends on S
+    and the shapes only, never on the windows, so one launch per
+    geometry can be captured."""
+    per = max(1, B * units)
+    n = min(blocks_per_sm * sms // per, S // (stages * tile))
+    n = max(n, min(sms // per, S // tile), -(-S // (MAX_SPLIT_TILES * tile)),
+            1)
+    n = min(n, MAX_SPLITS)
+    chunk = -(-(-(-S // n)) // tile) * tile
     return -(-S // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def plan(index, code, quant, Hq, Hkv, D):
+    """The launch geometry of a shape on CUDA device `index` (asked of the
+    library once per shape; raises for a head size that is not built)."""
+    out = (ctypes.c_int * 7)()
+    err = _build.load().pt_decode_attention_plan(index, code, int(quant), Hq,
+                                                 Hkv, D, out)
+    _build.check(err, 'decode_attention')
+    return Plan(*out)
+
+
+_COUNTERS = {}   # (device index, stream) -> zeroed int32 counters
+_OUTGROWN = []   # buffers replaced by larger ones, never freed
+
+
+def _counters(dev, stream, n):
+    """A zeroed int32 counter buffer of at least n for launches on
+    `stream` (a pointer) of `dev`. Each launch leaves its counters at 0,
+    and launches on one stream run in order, so they share the buffer;
+    another stream has its own. A buffer that is outgrown is kept alive,
+    since a CUDA graph captured with it holds its address."""
+    key = (dev.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _OUTGROWN.append(buf)
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def _row_arg(x, B, dev, what):
@@ -156,7 +208,8 @@ def decode_attention(q, k_cache, v_cache, valid_len, scale=None,
 def launch(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale, start,
            kernel):
     """Launch the kernel over (B, S, Hkv, D) cache views of any strides
-    with D contiguous, counting the launch under `kernel`."""
+    with D contiguous, counting the launch under `kernel`: one CUDA
+    kernel per call, whose last split to finish combines the splits."""
     B, S, Hq, Hkv, D = _check_shapes(q, k_cache, v_cache, k_scale, v_scale)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     dev = q.device
@@ -174,7 +227,7 @@ def launch(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale, start,
         raise TypeError(f'{kernel} kernel: scales must be float32')
     dense = [q] + ([k_scale, v_scale] if quant else [])
     item = k_cache.element_size()
-    align = 8 if quant else 16        # the bytes of one K/V load
+    align = 8 if quant else 16        # the bytes of one K/V copy
     if (not all(t.is_contiguous() for t in dense)
             or k_cache.stride() != v_cache.stride()
             or k_cache.stride(-1) != 1
@@ -186,14 +239,18 @@ def launch(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale, start,
     code = _build.dtype_code(q, kernel)
     vl_ptr, vl_all, vl_keep = _row_arg(valid_len, B, dev, 'valid_len')
     st_ptr, st_all, st_keep = _row_arg(start, B, dev, 'start')
-    nsplit, chunk = splits(B, Hkv, S, _build.sm_count(dev.index))
+    pl = plan(dev.index, code, quant, Hq, Hkv, D)
+    nsplit, chunk = splits(B, Hkv * pl.nchunk, S, pl.tile, pl.blocks_per_sm,
+                           _build.sm_count(dev.index), pl.stages)
+    stream = _build.stream_ptr(q)
     out = torch.empty_like(q)
-    part_acc = part_ml = None     # the splits' partial states
+    part_acc = part_ml = counters = None     # the splits' partial states
     if nsplit > 1:
         part_acc = torch.empty(B, Hq, nsplit, D, dtype=torch.float32,
                                device=dev)
         part_ml = torch.empty(B, Hq, nsplit, 2, dtype=torch.float32,
                               device=dev)
+        counters = _counters(dev, stream, B * Hkv * pl.nchunk)
     b_stride, pos_stride, h_stride = k_cache.stride()[:3]
     lib = _build.load()
     err = lib.pt_decode_attention(
@@ -201,9 +258,10 @@ def launch(q, k_cache, v_cache, valid_len, scale, k_scale, v_scale, start,
         k_scale.data_ptr() if quant else 0,
         v_scale.data_ptr() if quant else 0, vl_ptr, st_ptr, vl_all, st_all,
         out.data_ptr(), 0 if part_acc is None else part_acc.data_ptr(),
-        0 if part_ml is None else part_ml.data_ptr(), B, S, Hq, Hkv, D,
+        0 if part_ml is None else part_ml.data_ptr(),
+        0 if counters is None else counters.data_ptr(), B, S, Hq, Hkv, D,
         b_stride, h_stride, pos_stride, nsplit, chunk, float(scale), code,
-        int(quant), _build.stream_ptr(q))
+        int(quant), stream)
     _build.check(err, kernel)
     _build.LAUNCHES[kernel] += 1
     return out

@@ -42,6 +42,10 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 2 ** -7)}
 # group of 16 (two chunks of 8), D = 256 and D = 40
 E2_DECODE = [(2 * g, 2, D) for g in (3, 5, 6, 7) for D in (80, 96, 128)] \
     + [(28, 4, 128), (14, 2, 64), (16, 1, 128), (4, 2, 256), (3, 1, 40)]
+# (Hq, Hkv, D) of the decode kernels' (K7, K9) widest registers: 8 query
+# heads per block at D = 128 (Llama-70B's 64 / 8), a group of 8 at D = 256
+# (two chunks of 4) and MHA at D = 256
+DECODE_WIDE = [(8, 1, 128), (16, 2, 256), (8, 8, 256)]
 
 
 @pytest.mark.parametrize('dtype,wdtype', [
@@ -341,7 +345,7 @@ def test_training_ops_differentiate_on_the_card(card):
                                           (4, 37, 4, 2, 16),
                                           (3, 300, 8, 1, 64),
                                           (1, 2048, 28, 4, 128)] + [
-    (3, 300, Hq, Hkv, D) for Hq, Hkv, D in E2_DECODE])
+    (3, 300, Hq, Hkv, D) for Hq, Hkv, D in E2_DECODE + DECODE_WIDE])
 def test_decode_attention_kernel(card, mode, B, S, Hq, Hkv, D):
     """K7 against its plain version: per-row windows with an empty one
     (start past valid_len), valid_len past S, a start below 0, in one
@@ -635,7 +639,7 @@ def test_paged_int8_kernel(card, dtype, rowscale, Hq, Hkv, D):
                                           (8, 2048, 32, 8, 128),
                                           (3, 37, 4, 2, 16),
                                           (2, 300, 8, 1, 64)] + [
-    (2, 300, Hq, Hkv, D) for Hq, Hkv, D in E2_DECODE])
+    (2, 300, Hq, Hkv, D) for Hq, Hkv, D in E2_DECODE + DECODE_WIDE])
 def test_headmajor_kernel(card, mode, B, S, Hq, Hkv, D):
     """K9 against its plain version over (B, Hkv, S, D) caches: counts
     past S (clipped), 0, and inside the cache."""
@@ -1060,3 +1064,246 @@ def test_flash_tensor_core_entries_refuse_what_they_do_not_take(card):
     assert bwd(4, 1, 0) == 0
     torch.cuda.synchronize()
     assert not any(g.any() for g in grads)   # zero dout: zero gradients
+
+
+def _decode_inputs(rng, card, mode, B, S, Hq, Hkv, D, headmajor=False):
+    """q and caches for K7 ((B, S, Hkv, D)) or K9 ((B, Hkv, S, D)) in a
+    mode: bf16, float32, or int8 codes with (Hkv, D) scales (bf16 q)."""
+    dtype = torch.float32 if mode == 'float32' else torch.bfloat16
+    shape = (B, Hkv, S, D) if headmajor else (B, S, Hkv, D)
+    q = _randn(rng, (B, 1, Hq, D), card, dtype)
+    if mode != 'int8':
+        return (q,) + tuple(_randn(rng, shape, card, dtype)
+                            for _ in range(2)) + (None, None)
+    return (q,) + tuple(
+        torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        .to(card) for _ in range(2)) + tuple(
+        torch.from_numpy(rng.uniform(0.005, 0.02, (Hkv, D))
+                         .astype(np.float32)).to(card) for _ in range(2))
+
+
+def _decode_tol(q):
+    return (2e-4, 2e-4) if q.dtype == torch.float32 else (1e-2, 1e-2)
+
+
+def _assert_within(got, want):
+    """got against want everywhere within rtol * |want| + atol * max
+    |want|, (rtol, atol) = (1e-4, 1e-5) for float32 and (2^-7, 2^-9),
+    one bf16 rounding step, for bf16: a tolerance that scales with the
+    outputs (chip_smoke.py's TENSOR_TOL)."""
+    rtol, atol = ((1e-4, 1e-5) if want.dtype == torch.float32
+                  else (2.0 ** -7, 2.0 ** -9))
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bound = rtol * w.abs() + atol * w.abs().max()
+    assert bool((err <= bound).all()), (err.max().item(),
+                                        w.abs().max().item())
+
+
+def _decode_call(headmajor, q, kc, vc, vl, ks, vs, st=None, plain=False):
+    """K7 (window [st, vl)) or K9 (the first vl positions), kernel or
+    plain."""
+    if headmajor:
+        fn = (k_hm.decode_attention_headmajor_plain if plain
+              else k_hm.decode_attention_headmajor)
+        return fn(q, kc, vc, vl, None, ks, vs)
+    fn = (k_decode.decode_attention_plain if plain
+          else k_decode.decode_attention)
+    return fn(q, kc, vc, vl, None, ks, vs, st)
+
+
+@pytest.mark.parametrize('mode', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('headmajor', [False, True], ids=['K7', 'K9'])
+@pytest.mark.parametrize('Hq,Hkv', [(8, 8), (28, 4)])
+def test_decode_attention_long_cache(card, mode, headmajor, Hq, Hkv):
+    """b1 over a 32768-position cache, MHA and Qwen2's group 7: each split
+    walks many ring stages. The outputs are small (a mean over ~32768
+    positions), so the tolerance scales with them."""
+    rng = np.random.default_rng(Hq + Hkv)
+    S, D = 32768, 128
+    q, kc, vc, ks, vs = _decode_inputs(rng, card, mode, 1, S, Hq, Hkv, D,
+                                       headmajor)
+    code = _build.dtype_code(q, 'decode_attention')
+    pl = k_decode.plan(card.index or 0, code, ks is not None, Hq, Hkv, D)
+    nsplit, chunk = k_decode.splits(1, Hkv * pl.nchunk, S, pl.tile,
+                                    pl.blocks_per_sm,
+                                    _build.sm_count(card.index or 0))
+    assert chunk >= 4 * pl.tile, (nsplit, chunk)
+    vl = torch.tensor([S - 7], dtype=torch.int32, device=card)
+    st = None if headmajor else torch.tensor([3], dtype=torch.int32,
+                                             device=card)
+    got = _decode_call(headmajor, q, kc, vc, vl, ks, vs, st)
+    want = _decode_call(headmajor, q, kc, vc, vl, ks, vs, st, plain=True)
+    _assert_within(got, want)
+
+
+@pytest.mark.parametrize('mode', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('headmajor', [False, True], ids=['K7', 'K9'])
+def test_decode_attention_windows_across_tiles_and_splits(card, mode,
+                                                          headmajor):
+    """Windows (K7) and counts (K9) that start and end mid-tile and
+    across a split boundary of this shape's own split."""
+    rng = np.random.default_rng(7)
+    B, S, Hq, Hkv, D = 6, 2048, 8, 2, 128
+    q, kc, vc, ks, vs = _decode_inputs(rng, card, mode, B, S, Hq, Hkv, D,
+                                       headmajor)
+    code = _build.dtype_code(q, 'decode_attention')
+    pl = k_decode.plan(card.index or 0, code, ks is not None, Hq, Hkv, D)
+    nsplit, chunk = k_decode.splits(B, Hkv * pl.nchunk, S, pl.tile,
+                                    pl.blocks_per_sm,
+                                    _build.sm_count(card.index or 0))
+    assert nsplit > 2, (nsplit, chunk)
+    t, h = pl.tile, pl.tile // 2
+    ends = [2 * chunk + h + 3, chunk + 1, chunk - 1, h + 1, S - h, 2 * chunk]
+    starts = [chunk - 5, chunk - 1, h - 3, h, chunk + t + 1, chunk]
+    vl = torch.tensor(ends, dtype=torch.int32, device=card)
+    st = torch.tensor(starts, dtype=torch.int32, device=card)
+    got = _decode_call(headmajor, q, kc, vc, vl, ks, vs,
+                       None if headmajor else st)
+    want = _decode_call(headmajor, q, kc, vc, vl, ks, vs,
+                        None if headmajor else st, plain=True)
+    rtol, atol = _decode_tol(q)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize('mode', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('headmajor', [False, True], ids=['K7', 'K9'])
+def test_decode_attention_repeats_bitwise_across_geometries(card, mode,
+                                                            headmajor):
+    """Launches of one stream back to back: a split geometry, two others
+    (another split, another group), the first again. The counters reset
+    themselves, every output holds against the plain version, and the
+    first geometry's two outputs are the same bits (the splits combine
+    in split order)."""
+    rng = np.random.default_rng(11)
+    shapes = [(1, 2048, 32, 32, 128), (2, 700, 28, 4, 128),
+              (3, 300, 8, 1, 64)]
+    cases = []
+    for B, S, Hq, Hkv, D in shapes:
+        q, kc, vc, ks, vs = _decode_inputs(rng, card, mode, B, S, Hq, Hkv,
+                                           D, headmajor)
+        vl = torch.from_numpy(rng.integers(S // 2, S + 1, B)
+                              .astype(np.int32)).to(card)
+        cases.append((q, kc, vc, vl, ks, vs))
+    outs = [_decode_call(headmajor, *c) for c in cases + cases[:1]]
+    assert torch.equal(outs[0], outs[-1])
+    rtol, atol = _decode_tol(cases[0][0])
+    for c, got in zip(cases, outs):
+        want = _decode_call(headmajor, *c, plain=True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+    q = cases[0][0]
+    key = (q.device.index, _build.stream_ptr(q))
+    assert not k_decode._COUNTERS[key].any()
+
+
+@pytest.mark.parametrize('mode', ['float32', 'bfloat16', 'int8'])
+@pytest.mark.parametrize('headmajor', [False, True], ids=['K7', 'K9'])
+def test_decode_attention_in_a_cuda_graph(card, mode, headmajor):
+    """One launch captured in a CUDA graph and replayed twice (new
+    query and lengths copied in between) equals the eager call."""
+    rng = np.random.default_rng(13)
+    B, S, Hq, Hkv, D = 2, 2048, 32, 8, 128
+    q, kc, vc, ks, vs = _decode_inputs(rng, card, mode, B, S, Hq, Hkv, D,
+                                       headmajor)
+    vl = torch.tensor([S - 3, 900], dtype=torch.int32, device=card)
+    _decode_call(headmajor, q, kc, vc, vl, ks, vs)        # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _decode_call(headmajor, q, kc, vc, vl, ks, vs)
+    for n in (1500, 37):
+        q.copy_(_randn(rng, q.shape, card, q.dtype))
+        vl.copy_(torch.tensor([n, S], dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _decode_call(headmajor, q, kc, vc, vl, ks, vs)
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize('headmajor', [False, True], ids=['K7', 'K9'])
+def test_decode_attention_graph_replays_after_its_counters_grow(card,
+                                                                headmajor):
+    """A graph captured on a stream, then that stream's counter buffer
+    outgrown (as a larger geometry launched on it would): the replay
+    still finds its counters (the old buffer is kept) and equals the
+    eager call, and so does an eager launch on the stream's new
+    buffer."""
+    rng = np.random.default_rng(19)
+    B, S, Hq, Hkv, D = 2, 2048, 32, 8, 128
+    q, kc, vc, ks, vs = _decode_inputs(rng, card, 'bfloat16', B, S, Hq, Hkv,
+                                       D, headmajor)
+    vl = torch.tensor([S - 5, 1100], dtype=torch.int32, device=card)
+    want = _decode_call(headmajor, q, kc, vc, vl, ks, vs)
+    side = torch.cuda.Stream(card)
+    key = (q.device.index, side.cuda_stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = _decode_call(headmajor, q, kc, vc, vl, ks, vs)
+    old = k_decode._COUNTERS[key]
+    with torch.cuda.stream(side):
+        k_decode._counters(q.device, side.cuda_stream, old.numel() + 1)
+        grown = k_decode._COUNTERS[key]
+        filler = [torch.full((old.numel(),), 3, dtype=torch.int32,
+                             device=card) for _ in range(8)]
+        for _ in range(2):
+            graph.replay()
+        eager = _decode_call(headmajor, q, kc, vc, vl, ks, vs)
+    torch.cuda.synchronize()
+    assert grown is not old and grown.numel() > old.numel()
+    assert any(b is old for b in k_decode._OUTGROWN)
+    assert torch.equal(out, want) and torch.equal(eager, want)
+    assert not old.any() and not grown.any()
+    del filler
+
+
+@pytest.mark.parametrize('mode', ['bfloat16', 'int8'])
+def test_decode_attention_on_two_streams(card, mode):
+    """Split launches on two streams at once, many times over: each
+    stream has its own counters, so every output equals the eager one
+    of the default stream."""
+    rng = np.random.default_rng(23)
+    cases = [_decode_inputs(rng, card, mode, 1, 4096, 32, 8, 128)
+             for _ in range(2)]
+    vls = [torch.tensor([n], dtype=torch.int32, device=card)
+           for n in (4000, 2500)]
+    want = [_decode_call(False, q, kc, vc, vl, ks, vs)
+            for (q, kc, vc, ks, vs), vl in zip(cases, vls)]
+    streams = [torch.cuda.Stream(card) for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, ((q, kc, vc, ks, vs), vl, st) in enumerate(
+                zip(cases, vls, streams)):
+            with torch.cuda.stream(st):
+                outs[i].append(_decode_call(False, q, kc, vc, vl, ks, vs))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, want[i]) for o in outs[i])
+
+
+@pytest.mark.parametrize('headmajor', [False, True], ids=['K7', 'K9'])
+def test_decode_attention_is_one_kernel(card, headmajor):
+    """A split call launches one CUDA kernel (the last split combines):
+    counted by the profiler (a trace that comes back empty, as the
+    profiler's now and then does, is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(17)
+    q, kc, vc, ks, vs = _decode_inputs(rng, card, 'bfloat16', 1, 2048, 32,
+                                       32, 128, headmajor)
+    vl = torch.tensor([2000], dtype=torch.int32, device=card)
+    _decode_call(headmajor, q, kc, vc, vl, ks, vs)
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _decode_call(headmajor, q, kc, vc, vl, ks, vs)
+            torch.cuda.synchronize()
+        kernels = [e.key for e in prof.key_averages()
+                   if str(e.device_type).endswith('CUDA')
+                   for _ in range(e.count)]
+        if kernels:
+            break
+    assert len(kernels) == 1 and 'decode_kernel' in kernels[0], kernels

@@ -142,6 +142,66 @@ class TestDecodeAttentionPlain:
                                      vc.astype(np.int8)), 4)
 
 
+class TestSplitRule:
+    """The kernel's context split (`splits`), pure Python: the blocks per
+    SM are an argument (on the card they come from the occupancy
+    calculator)."""
+
+    SMS = 132
+
+    @pytest.mark.parametrize('B,units,S,tile,bps', [
+        (1, 32, 2048, 32, 4),       # b1 MHA bf16 D = 128
+        (1, 8, 2048, 32, 4),        # b1 GQA 32 / 8
+        (8, 32, 2048, 32, 4),       # b8 MHA
+        (8, 8, 2048, 64, 3),        # b8 GQA, int8 rows of 128 bytes
+        (1, 4, 32768, 32, 4),       # Qwen2's group 7 over a long cache
+        (1, 32, 32768, 32, 4),
+        (1, 1, 2000, 64, 2),        # one kv head: many splits
+        (1, 1, 100000, 32, 8),      # capped at MAX_SPLITS
+        (3, 2, 37, 64, 4),          # a cache shorter than one tile
+        (2, 3, 300, 64, 4),
+        (64, 64, 4096, 32, 4),      # more blocks than a wave: unsplit
+        (1, 32, 95, 32, 4),         # shorter than the ring
+    ])
+    def test_properties(self, B, units, S, tile, bps):
+        nsplit, chunk = t_decode.splits(B, units, S, tile, bps, self.SMS)
+        stages = t_decode.STAGES
+        # every position of [0, S) lies in exactly one split
+        cover = np.zeros(S, np.int64)
+        for i in range(nsplit):
+            cover[i * chunk:(i + 1) * chunk] += 1
+        assert (cover == 1).all() and nsplit * chunk >= S > (
+            nsplit - 1) * chunk
+        assert chunk % tile == 0
+        assert 1 <= nsplit <= t_decode.MAX_SPLITS
+        # each split fills the ring where S allows, unless that leaves
+        # SMs without a block: then each SM gets one
+        if S >= stages * tile and (S // (stages * tile)) * B * units >= \
+                self.SMS:
+            assert chunk >= stages * tile
+        elif nsplit > 1 and chunk < stages * tile:
+            assert nsplit * B * units <= self.SMS
+        # at most MAX_SPLIT_TILES tiles a split (unless MAX_SPLITS binds)
+        cap = t_decode.MAX_SPLIT_TILES
+        assert chunk <= cap * tile or S > t_decode.MAX_SPLITS * cap * tile
+        # within one wave of the card, or more waves of splits no smaller
+        # than half the cap (unsplit when the rows and heads alone fill
+        # more)
+        if nsplit > 1 and nsplit * B * units > bps * self.SMS:
+            assert chunk >= cap // 2 * tile
+
+    def test_fills_the_wave(self):
+        """b1 MHA at 4 blocks per SM: 16 splits of 4 tiles, 512 blocks of
+        the 528 that fit. Qwen2's 4 kv heads at b1 take 32 splits of 2
+        tiles (128 blocks, one per SM) rather than 21 of 3. b8 MHA: 8
+        splits of 8 tiles (four waves) rather than 2 of 32, and a
+        32768-position cache at b1 128 splits of 8."""
+        assert t_decode.splits(1, 32, 2048, 32, 4, self.SMS) == (16, 128)
+        assert t_decode.splits(1, 4, 2048, 32, 3, self.SMS) == (32, 64)
+        assert t_decode.splits(8, 32, 2048, 32, 4, self.SMS) == (8, 256)
+        assert t_decode.splits(1, 32, 32768, 32, 4, self.SMS) == (128, 256)
+
+
 def test_quant_kv_cache_codes_and_scales_equal_jax():
     """cached_attention over an int8 cache: after the index-0 prefill
     (which calibrates the scales) and after one decode step, codes and

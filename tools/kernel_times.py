@@ -9,12 +9,13 @@ paged, flash and weight-only kernels with TREE's own chip_smoke.py check
 functions (each checked against its plain version, timed with CUDA
 events and the L2 cache flushed). Prints one JSON line per kernel shape:
 the kernel's name, the shape, and its ms. The shapes are Llama-7B's rows
-of PERF.md's kernel table, which trees from before the GQA-group and
-head-size repair build too (K10f8's since the fp8 codes), so an older
-tree and a newer one compare row by row; chip_smoke.py's phase 3 holds
-every shape of the current tree. A flash row also names the route its
-kernels took (`path`: tensor_core or cuda_core) where the tree has
-routes.
+of PERF.md's kernel table, K7 / K9 at the GQA groups and head sizes of
+fault E2's repair and K7 over a 32768-position cache, which trees since
+the GQA-group and head-size repair build too (K10f8's since the fp8
+codes), so an older tree and a newer one compare row by row;
+chip_smoke.py's phase 3 holds every shape of the current tree. A flash
+row also names the route its kernels took (`path`: tensor_core or
+cuda_core) where the tree has routes.
 Run it on each tree in turn within one call on one machine (A, B, B, A):
 kernel times hold within a few per cent there, and the card may differ
 between calls.
@@ -66,6 +67,21 @@ def main():
                     cs.check_decode(torch, timer, B, 32, Hkv, mode))
                 add('decode_attention_headmajor',
                     cs.check_headmajor(torch, timer, B, 32, Hkv, mode))
+    # the decode kernels at the GQA groups and head sizes of fault E2's
+    # repair (Qwen2-7B's group 7 first) and b1 over a 32768-position cache
+    e2 = [(7, 128, mode) for mode in ('bfloat16', 'int8', 'float32')] + [
+        (7, D, 'bfloat16') for D in (64, 80, 96)] + [
+        (g, 128, 'bfloat16') for g in (3, 5, 6)]
+    for g, D, mode in e2:
+        add('decode_attention',
+            cs.check_decode(torch, timer, 1, 4 * g, 4, mode, D=D))
+        add('decode_attention_headmajor',
+            cs.check_headmajor(torch, timer, 1, 4 * g, 4, mode, D=D))
+    for mode in ('bfloat16', 'int8'):
+        add('decode_attention', cs.check_decode(torch, timer, 8, 28, 4, mode))
+    add('decode_attention',
+        cs.check_decode(torch, timer, 1, 32, 32, 'bfloat16', S=32768))
+    torch.cuda.empty_cache()
     for Hkv in (32, 8):
         add('paged_decode_attention', cs.check_paged(torch, timer, 32, Hkv))
         for row in (True, False):
