@@ -19,7 +19,13 @@ Phases, in order (any failure exits non-zero and prints no result):
               E2's repair: K7, K8, K8q, K9 at GQA groups 3, 5, 6, 7 with
               head sizes 64, 80, 96, 128, K5 / K6 at head sizes 80, 96,
               256; K10f8, fp8 weights, at Llama-7B's and Qwen2-7B's
-              projections; K10 / K11 / K10f8 at M = 64 and 256, with
+              projections; K8 / K8q at serving's 16-position and
+              block_multihead_attention's 64-position pages and over
+              float32 pages, each K7 / K8 / K9 row with its one CUDA
+              kernel a call, registers and split (no decode-template
+              kernel may spill); K1 off its row kernel too (a width
+              that is not a multiple of 8, one row); K10 / K11 /
+              K10f8 at M = 64 and 256, with
               the path each row took, every bf16 row past the skinny
               path on the tensor cores, and the two paths timed
               against each other at M = 8, 16, 32, 64; every flash row
@@ -180,44 +186,78 @@ class Timer:
         return total / iters
 
 
-def decode_geometry(torch, fn, q, B, S, Hq, Hkv, D, quant):
-    """One K7 / K9 call's CUDA kernels, counted by the profiler (one: the
-    last split combines the splits), and its instantiation's registers,
-    spilled bytes (none allowed), blocks per SM and context split."""
-    from torch.profiler import ProfilerActivity, profile
+def one_kernel(torch, fn, what):
+    """The CUDA kernels one call of fn launches, counted in a CUDA graph
+    of the call (`_build.kernels_per_call`): exactly one (the last split
+    combines the splits)."""
+    from paddle_tpu_torch.ops import _build
 
+    n = _build.kernels_per_call(fn, torch.device('cuda'))
+    if n != 1:
+        raise AssertionError(f'{what}: one call launched {n} CUDA kernels, '
+                             f'not one')
+    return n
+
+
+def geometry(torch, fn, what, pl, B, units, S):
+    """One K7 / K8 / K9 call's CUDA kernels (one), and its
+    instantiation's registers, spilled bytes (none allowed), blocks per
+    SM and context split over S positions (a paged call's table width)."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops.hopper import decode_attention as k
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(5):   # a trace now and then comes back empty: again
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if str(e.device_type).endswith('CUDA')
-                 for _ in range(e.count)]
-        if names:
-            break
-        time.sleep(0.1)
-    pl = k.plan(q.device.index, _build.dtype_code(q, 'decode_attention'),
-                quant, Hq, Hkv, D)
-    nsplit, chunk = k.splits(B, Hkv * pl.nchunk, S, pl.tile,
-                             pl.blocks_per_sm,
-                             _build.sm_count(q.device.index), pl.stages)
-    what = f'decode attention B={B} S={S} Hq={Hq} Hkv={Hkv} D={D}'
-    if len(names) != 1 or 'pt_decode::decode_kernel' not in names[0]:
-        raise AssertionError(f'{what}: one call launched {names}, not one '
-                             f'decode kernel')
+    n = one_kernel(torch, fn, what)
+    idx = torch.cuda.current_device()
+    nsplit, chunk = k.splits(B, units * pl.nchunk, S, pl.tile,
+                             pl.blocks_per_sm, _build.sm_count(idx),
+                             pl.stages)
     if pl.local_bytes:
         raise AssertionError(f'{what}: the kernel spills {pl.local_bytes} '
                              f'bytes')
-    return {'kernels_per_call': len(names), 'regs': pl.regs,
+    return {'kernels_per_call': n, 'regs': pl.regs,
             'spill_bytes': pl.local_bytes,
             'blocks_per_sm': pl.blocks_per_sm, 'heads_per_block': pl.heads,
             'tile': pl.tile, 'nsplit': nsplit, 'chunk': chunk}
+
+
+def decode_geometry(torch, fn, q, B, S, Hq, Hkv, D, quant):
+    """geometry() of a K7 / K9 call over an S-position cache."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.hopper import decode_attention as k
+
+    pl = k.plan(q.device.index, _build.dtype_code(q, 'decode_attention'),
+                quant, Hq, Hkv, D)
+    return geometry(torch, fn, f'decode attention B={B} S={S} Hq={Hq} '
+                    f'Hkv={Hkv} D={D}', pl, B, Hkv, S)
+
+
+def paged_geometry(torch, fn, q, B, MAXB, BS, Hkv, D, mode):
+    """geometry() of a K8 / K8q call: split over the table width
+    MAXB x BS (never the counts)."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.hopper import paged_attention as k
+
+    Hq = q.shape[2]
+    pl = k.plan(q.device.index, _build.dtype_code(q, 'paged'), mode, Hq,
+                Hkv, D)
+    return geometry(torch, fn, f'paged attention B={B} MAXB={MAXB} BS={BS} '
+                    f'Hq={Hq} Hkv={Hkv} D={D} scale mode {mode}', pl, B, Hkv,
+                    MAXB * BS)
+
+
+def spilling_decode_kernels(log):
+    """The decode-template instantiations (K7, K8, K8q, K9) that ptxas
+    reports spilling in the build log, by mangled name."""
+    spills, cur = [], None
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            cur = line.split("'")[1]
+        elif cur and 'spill stores' in line:
+            nums = [int(w) for w in line.replace(',', ' ').split()
+                    if w.isdigit()]
+            if 'decode_kernel' in cur and any(nums[1:]):
+                spills.append(cur)
+    return spills
 
 
 def check_rms_norm(torch, timer, R, N, dtype, return_r):
@@ -288,6 +328,8 @@ def check_paged(torch, timer, Hq, Hkv, D=128, BS=16, dtype=None):
     out = k.paged_decode_attention(q, kc, vc, tbl, cl)
     ref = k.paged_decode_attention_plain(q, kc, vc, tbl, cl)
     torch.cuda.synchronize()
+    geo = paged_geometry(torch, lambda: k.paged_decode_attention(
+        q, kc, vc, tbl, cl), q, B, MAXB, BS, Hkv, D, k.NO_SCALE)
     err = (out.float() - ref.float()).abs()
     tol = 1e-2 + 1e-2 * ref.float().abs()
     if dtype == torch.float32:
@@ -305,6 +347,7 @@ def check_paged(torch, timer, Hq, Hkv, D=128, BS=16, dtype=None):
                      BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
     tight = '1e-4' if dtype == torch.float32 else '1e-2'
     return {
+        **geo,
         'shape': (f'B={B} Hq={Hq} Hkv={Hkv} D={D} BS={BS} '
                   f'lens={lens} {dname(torch, dtype)}'),
         'max_abs_err': err.max().item(),
@@ -352,6 +395,9 @@ def check_paged_int8(torch, timer, Hq, Hkv, rowscale, D=128, BS=16,
     out = k.paged_decode_attention(q, kc, vc, tbl, cl, None, ks, vs)
     ref = k.paged_decode_attention_plain(q, kc, vc, tbl, cl, None, ks, vs)
     torch.cuda.synchronize()
+    geo = paged_geometry(torch, lambda: k.paged_decode_attention(
+        q, kc, vc, tbl, cl, None, ks, vs), q, B, MAXB, BS, Hkv, D,
+        k.ROW_SCALE if rowscale else k.HEAD_DIM_SCALE)
     tol = TENSOR_TOL[dname(torch, dtype)]
     what = (f'paged attention int8 Hq={Hq} Hkv={Hkv} D={D} '
             f'{"row" if rowscale else "head-dim"} scales')
@@ -365,6 +411,7 @@ def check_paged_int8(torch, timer, Hq, Hkv, rowscale, D=128, BS=16,
     b, by = bound_ms(nbytes, 4 * ctx * Hq * D,
                      BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
     return {
+        **geo,
         'shape': (f'B={B} Hq={Hq} Hkv={Hkv} D={D} BS={BS} lens={lens} '
                   f'int8 pages, {"per-row" if rowscale else "(Hkv, D)"} '
                   f'f32 scales, {dname(torch, dtype)} q'),
@@ -2827,6 +2874,10 @@ def main():
         _build.load()
         print(f'build: {path} in {time.perf_counter() - t:.1f} s')
         print(_build.build_log(), flush=True)
+        spills = spilling_decode_kernels(_build.build_log())
+        if spills:
+            raise AssertionError(f'decode-template kernels that spill: '
+                                 f'{spills}')
 
         # 3. kernels against their plain versions
         torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
@@ -2846,15 +2897,26 @@ def main():
                          # phase 11's Qwen2-7B hidden size
                          check_rms_norm(torch, timer, 4, 3584, bf16, False),
                          check_rms_norm(torch, timer, 2048, 3584, bf16,
-                                        False)],
-            'paged_decode_attention': [check_paged(torch, timer, 32, 32),
-                                       check_paged(torch, timer, 32, 8)],
+                                        False),
+                         # bf16 off the row kernel: a width that is not a
+                         # multiple of 8 (the scalar path); one row
+                         check_rms_norm(torch, timer, 2048, 4095, bf16,
+                                        False),
+                         check_rms_norm(torch, timer, 1, 4096, bf16, False)],
+            # serving's 16-position pages, then block_multihead_
+            # attention's 64-position ones, and float32 pages
+            'paged_decode_attention': [
+                check_paged(torch, timer, 32, 32),
+                check_paged(torch, timer, 32, 8),
+                check_paged(torch, timer, 32, 32, BS=64),
+                check_paged(torch, timer, 32, 32, dtype=f32)],
             # int8 serving's per-row scales first (its main path), then
             # block_multihead_attention's static (Hkv, D) scales
             'paged_decode_attention_int8': [
                 check_paged_int8(torch, timer, Hq, Hkv, row)
                 for row in (True, False) for Hq, Hkv in ((32, 32),
-                                                         (32, 8))],
+                                                         (32, 8))] + [
+                check_paged_int8(torch, timer, 32, 32, False, BS=64)],
             'rms_norm_bwd': [check_rms_norm_bwd(torch, timer, 12288, 4096,
                                                 dt) for dt in (bf16, f32)],
         }
@@ -2959,15 +3021,23 @@ def main():
         for name, cs in cases.items():
             for c in cs:
                 print(f'kernel {name}: {json.dumps(c)} [{card}]', flush=True)
-        for name in ('decode_attention', 'decode_attention_headmajor'):
+        for name in ('decode_attention', 'decode_attention_headmajor',
+                     'paged_decode_attention',
+                     'paged_decode_attention_int8'):
             for c in cases[name]:
+                lib = ('' if c['library_ms'] is None
+                       else f', SDPA {c["library_ms"]:.4f}')
                 print(f'{name} {c["shape"]}: {c["kernels_per_call"]} CUDA '
                       f'kernel per call, {c["regs"]} registers, '
                       f'{c["spill_bytes"]} bytes spilled, '
                       f'{c["blocks_per_sm"]} blocks per SM, '
                       f'{c["nsplit"]} splits of {c["chunk"]}; '
-                      f'{c["ms"]:.4f} ms, bound {c["bound_ms"]:.4f}, SDPA '
-                      f'{c["library_ms"]:.4f} [{card}]')
+                      f'{c["ms"]:.4f} ms, bound {c["bound_ms"]:.4f}{lib} '
+                      f'[{card}]')
+        for c in cases['rms_norm']:
+            print(f'rms_norm {c["shape"]}: {c["ms"]:.4f} ms, bound '
+                  f'{c["bound_ms"]:.4f}, F.rms_norm '
+                  f'{c["library_ms"]:.4f} [{card}]')
         del timer
         torch.cuda.empty_cache()
 

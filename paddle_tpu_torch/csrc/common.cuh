@@ -41,24 +41,6 @@ struct alignas(sizeof(T) * VEC < 16 ? sizeof(T) * VEC : 16) Pack {
   T v[VEC];
 };
 
-// Elements of one K/V cache load: 16 bytes of bf16 or f32, 8 bytes of
-// int8 (so an int8 row takes as many threads, and registers, as a bf16
-// one).
-template <typename KV>
-struct KVVec;
-template <>
-struct KVVec<float> {
-  static constexpr int n = 4;
-};
-template <>
-struct KVVec<__nv_bfloat16> {
-  static constexpr int n = 8;
-};
-template <>
-struct KVVec<int8_t> {
-  static constexpr int n = 8;
-};
-
 // Launch on the device the caller's tensors live on: this library links
 // its own copy of the CUDA runtime, whose current device is tracked
 // apart from PyTorch's.

@@ -105,54 +105,21 @@
 namespace pt_decode {
 namespace {
 
-template <typename T, typename KV, int DMAX>
-cudaError_t by_heads(int device, int g, int nchunk, const Args* a,
-                     Plan* plan, cudaStream_t s) {
-  switch (g) {
-    case 1:
-      return run<T, KV, 1, DMAX>(device, a, plan, nchunk, s);
-    case 2:
-      return run<T, KV, 2, DMAX>(device, a, plan, nchunk, s);
-    case 4:
-      return run<T, KV, 4, DMAX>(device, a, plan, nchunk, s);
-    default:
-      return run<T, KV, 8, DMAX>(device, a, plan, nchunk, s);
-  }
-}
-
-template <int DMAX>
-cudaError_t by_dtype(int device, int dtype, int kv_int8, int g, int nchunk,
-                     const Args* a, Plan* plan, cudaStream_t s) {
-  if (dtype == pt::kF32)
-    return kv_int8 ? by_heads<float, int8_t, DMAX>(device, g, nchunk, a,
-                                                   plan, s)
-                   : by_heads<float, float, DMAX>(device, g, nchunk, a,
-                                                  plan, s);
-  return kv_int8 ? by_heads<__nv_bfloat16, int8_t, DMAX>(device, g, nchunk,
-                                                         a, plan, s)
-                 : by_heads<__nv_bfloat16, __nv_bfloat16, DMAX>(
-                       device, g, nchunk, a, plan, s);
-}
-
 // The instantiation for a shape: cudaErrorNotSupported for a head size
 // that is not built, cudaErrorInvalidValue for a bad dtype or group.
 cudaError_t select(int device, int dtype, int kv_int8, int hq, int hkv,
                    int d, const Args* a, Plan* plan, cudaStream_t s) {
-  if (dtype != pt::kF32 && dtype != pt::kBF16) return cudaErrorInvalidValue;
-  if (hkv <= 0 || hq <= 0 || hq % hkv != 0 || d <= 0)
-    return cudaErrorInvalidValue;
-  const int vec = dtype == pt::kF32 && !kv_int8 ? (d > 128 ? 8 : 4) : 8;
-  if (d > 256 || d % vec) return cudaErrorNotSupported;
-  const int dmax = pt::pow2_at_least(d < 16 ? 16 : d);
-  const int group = hq / hkv;
-  const int cap = dmax > 128 ? 4 : 8;
-  const int g = group >= cap ? cap : pt::pow2_at_least(group);
-  const int nchunk = (group + g - 1) / g;
-  if (dmax == 128)
-    return by_dtype<128>(device, dtype, kv_int8, g, nchunk, a, plan, s);
-  if (dmax == 64)
-    return by_dtype<64>(device, dtype, kv_int8, g, nchunk, a, plan, s);
-  return select_any(device, dtype, kv_int8, dmax, g, nchunk, a, plan, s);
+  Shape sh;
+  const cudaError_t e = shape_of(dtype, kv_int8, hq, hkv, d, &sh);
+  if (e != cudaSuccess) return e;
+  if (sh.dmax == 128)
+    return by_dtype<kContig, 128>(device, dtype, kv_int8, sh.g, sh.nchunk,
+                                  a, plan, s);
+  if (sh.dmax == 64)
+    return by_dtype<kContig, 64>(device, dtype, kv_int8, sh.g, sh.nchunk, a,
+                                 plan, s);
+  return select_any(device, dtype, kv_int8, sh.dmax, sh.g, sh.nchunk, a,
+                    plan, s);
 }
 
 }  // namespace
@@ -223,7 +190,8 @@ extern "C" int pt_decode_attention(
          static_cast<const int*>(starts), vlen_all, start_all, out,
          static_cast<float*>(part_acc), static_cast<float*>(part_ml),
          static_cast<int*>(counters), batch, s_len, hq, hkv, d, nsplit,
-         chunk, 0, b_stride, h_stride, pos_stride, scale, wide};
+         chunk, 0, b_stride, h_stride, pos_stride, scale, wide,
+         nullptr, 0, 0, 0, -1, 0};
   return select(device, dtype, kv_int8, hq, hkv, d, &a, nullptr,
                 static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,11 @@
 // The decode-attention kernel template shared by decode_attention.cu
 // (head sizes 33..128, Llama's and Qwen2's rows) and
-// decode_attention_any.cu (head sizes up to 32 and 129..256): one
-// template, compiled for G = 1, 2, 4, 8 query heads per block and rows
-// padded to DMAX = 16, 32, 64, 128 or 256 elements. See
-// decode_attention.cu for what it computes and why.
+// decode_attention_any.cu (head sizes up to 32 and 129..256) over
+// contiguous caches, and by paged_attention.cu / paged_attention_any.cu
+// over the pages of a block table: one template, compiled for G = 1, 2,
+// 4, 8 query heads per block, rows padded to DMAX = 16, 32, 64, 128 or
+// 256 elements, and three address modes (Mode). See decode_attention.cu
+// and paged_attention.cu for what it computes and why.
 #pragma once
 
 #include <type_traits>
@@ -18,11 +20,23 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 3;        // K/V tiles in the shared-memory ring
 constexpr int kMaxSplits = 256;   // context splits of one (row, kv head)
 constexpr float kNegInf = -1e30f;
+// page ids of one split staged in shared memory (a split of at most
+// MAX_SPLIT_TILES = 8 tiles of 64 positions spans at most 512 pages at a
+// block size of 1, 257 at 2); a split that spans more reads the table
+constexpr int kTblCap = 520;
+
+// Where position p of a row lives, and how int8 codes are scaled:
+// kContig, at p * pos_stride of a (batch, kv head) base of a contiguous
+// cache, (Hkv, D) scales (K7, K9); kPaged, in page block_tables[b, p /
+// bs] at slot p % bs of (NB, Hkv, bs, D) pools, (Hkv, D) scales or none
+// (K8, K8q's head-dim mode); kPagedRows, the same pages with a float32
+// scale per (page, kv head, slot) (K8q's row mode).
+enum Mode : int { kContig = 0, kPaged = 1, kPagedRows = 2 };
 
 // The shape of one instantiation: T queries, KV elements, G query heads
 // per block, rows padded to DMAX elements (lanes past the head size hold
 // nothing).
-template <typename T, typename KV, int G, int DMAX>
+template <typename T, typename KV, int G, int DMAX, int MODE = kContig>
 struct Geo {
   // float32 q takes the plain version's order of operations (see
   // decode_kernel), bf16 q the folded, online one
@@ -41,7 +55,9 @@ struct Geo {
   // rows a thread scores before its softmax update (IB * G scores live)
   static constexpr int IB = IT < 16 / G ? IT : (16 / G > 0 ? 16 / G : 1);
   static constexpr int kTileBytes = TILE * kRowBytes;
-  static constexpr int kStageBytes = 2 * kTileBytes;  // K tile, V tile
+  // K tile, V tile, and in row-scale mode their rows' K and V scales
+  static constexpr int kScaleBytes = MODE == kPagedRows ? 2 * TILE * 4 : 0;
+  static constexpr int kStageBytes = 2 * kTileBytes + kScaleBytes;
   static constexpr int kRingBytes = kStages * kStageBytes;
   // the partial sums added at the end: one per warp (the online path
   // adds a warp's thread rows by a butterfly first), one per thread row
@@ -53,6 +69,7 @@ struct Geo {
   static_assert(LPR >= 2 && LPR <= 32 && (LPR & (LPR - 1)) == 0, "lanes");
   static_assert(IT >= 1 && IT * ROWS == TILE && IT % IB == 0, "rows");
   static_assert(kRowBytes % 16 == 0, "rows of whole 16-byte copies");
+  static_assert(2 * TILE <= kThreads, "a thread per row scale");
 };
 
 struct Args {
@@ -69,6 +86,12 @@ struct Args {
   float scale;
   int wide;  // rows take 16-byte copies (else 8-byte: int8 rows that are
              // not 16-byte aligned)
+  // paged modes: the (batch, maxb) int32 block table, the pool's nb
+  // pages of page_stride elements, bs positions a page (bs_shift its
+  // log2, or -1); s_len is maxb * bs
+  const int* tables;
+  int maxb, nb, bs, bs_shift;
+  int64_t page_stride;
 };
 
 // What the host needs to size a launch of one instantiation.
@@ -183,14 +206,26 @@ __device__ __forceinline__ float ex(float x) {
 // model that quantizes the
 // rows this output produced (an int8 cache) is the one caller whose
 // result hangs on these last bits.
-template <typename T, typename KV, int G, int DMAX>
+//
+// The paged modes differ only in where a tile's rows come from: the
+// split's page ids are staged in shared memory once (clamped to the
+// pool), and each copy's address is its page's plus its slot's. In row-
+// scale mode each tile's K and V row scales ride in the ring beside it:
+// bf16 q folds K's into the row's score and V's into its probability,
+// float32 q multiplies each code by its scale before the dot, as the
+// plain version does.
+template <typename T, typename KV, int G, int DMAX, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
     decode_kernel(const Args a) {
-  using GG = Geo<T, KV, G, DMAX>;
+  using GG = Geo<T, KV, G, DMAX, MODE>;
   constexpr int VEC = GG::VEC, LPR = GG::LPR, ROWS = GG::ROWS;
   constexpr int TILE = GG::TILE, IT = GG::IT, IB = GG::IB, NR = GG::NR;
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   constexpr bool kRef = GG::kRef;
+  constexpr bool kPage = MODE != kContig;
+  constexpr bool kRows = MODE == kPagedRows;  // a scale per row
+  static_assert(!kRows || kQuant, "row scales go with int8 pages");
+  constexpr bool kColScale = kQuant && !kRows;  // (Hkv, D) scales
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_mw[kWarps][G];  // each warp's max per head
   __shared__ float s_lw[kWarps][G];  // each warp's sum per head
@@ -199,6 +234,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ float s_p[kRef ? 2 : 1][kRef ? G * TILE : 1];
   __shared__ float s_ps[G];  // kRef: the sum of the probabilities per head
   __shared__ int s_last;
+  __shared__ int s_tbl[kPage ? kTblCap : 1];  // the split's page ids
 
   const T* q = static_cast<const T*>(a.q);
   const int split = blockIdx.x, b = blockIdx.z;
@@ -221,10 +257,37 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hi = min(end, (split + 1) * a.chunk);
   const int ntiles = hi > lo ? (hi - lo + TILE - 1) / TILE : 0;
 
-  const int64_t kv0 = b * a.b_stride + kvh * a.h_stride;
+  const int64_t kv0 = (kPage ? 0 : b * a.b_stride) + kvh * a.h_stride;
   const KV* kbase = static_cast<const KV*>(a.kc) + kv0;
   const KV* vbase = static_cast<const KV*>(a.vc) + kv0;
   const int64_t head0 = static_cast<int64_t>(b) * a.hq + kvh * group + g0;
+
+  // paged: the table entry of position p, and the pages [p0, p0 + np)
+  // of the split's positions, staged once where they fit (else each
+  // copy reads its entry from the table)
+  const int* trow =
+      kPage ? a.tables + static_cast<int64_t>(b) * a.maxb : nullptr;
+  auto page_index = [&](int p) {
+    return a.bs_shift >= 0 ? p >> a.bs_shift : p / a.bs;
+  };
+  const int p0 = kPage && ntiles > 0 ? page_index(lo) : 0;
+  const int np = kPage && ntiles > 0 ? page_index(hi - 1) - p0 + 1 : 0;
+  const bool staged = np <= kTblCap;
+  auto page_at = [&](int pi) -> int64_t {
+    const int id = staged ? s_tbl[pi - p0]
+                          : min(max(__ldg(trow + pi), 0), a.nb - 1);
+    return id;
+  };
+  // the element offset of position p's row from the base
+  auto row_off = [&](int p) -> int64_t {
+    if constexpr (kPage) {
+      const int pi = page_index(p);
+      return page_at(pi) * a.page_stride +
+             static_cast<int64_t>(p - pi * a.bs) * a.pos_stride;
+    } else {
+      return p * a.pos_stride;
+    }
+  };
 
   // tile t of the split into ring stage t % kStages: K rows, then (with
   // with_v) V rows, DMAX elements apart; positions past the slice and
@@ -245,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int r = i / CPR, c = i % CPR;
             const bool full = t0 + r < hi && c < cpr;
             const int64_t off =
-                full ? (t0 + r) * a.pos_stride + c * (16 / sizeof(KV)) : 0;
+                full ? row_off(t0 + r) + c * (16 / sizeof(KV)) : 0;
             cp_async16(sk + i * 16, kbase + off, full);
             if (with_v) cp_async16(sv + i * 16, vbase + off, full);
           }
@@ -260,18 +323,43 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int r = i / CPR, c = i % CPR;
             const bool full = t0 + r < hi && c < cpr;
             const int64_t off =
-                full ? (t0 + r) * a.pos_stride + c * (8 / sizeof(KV)) : 0;
+                full ? row_off(t0 + r) + c * (8 / sizeof(KV)) : 0;
             cp_async8(sk + i * 8, kbase + off, full);
             if (with_v) cp_async8(sv + i * 8, vbase + off, full);
           }
+        }
+      }
+      if constexpr (kRows) {
+        // thread i < TILE: tile row i's K scale; TILE + i: its V scale
+        const int i = threadIdx.x, r = i % TILE;
+        if (i < (with_v ? 2 : 1) * TILE) {
+          const bool full = t0 + r < hi;
+          int64_t off = 0;
+          if (full) {
+            const int p = t0 + r, pi = page_index(p);
+            off = (page_at(pi) * a.hkv + kvh) * a.bs + (p - pi * a.bs);
+          }
+          cp_async4(sv + GG::kTileBytes + i * 4,
+                    (i < TILE ? a.ks : a.vs) + off, full);
         }
       }
     }
     cp_async_commit();
   };
 
+  // paged: the table entries are loaded beside q, and staged before the
+  // first copy
+  constexpr int kTblPer = kPage ? (kTblCap + kThreads - 1) / kThreads : 1;
+  int ent[kTblPer];
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) issue(t, !kRef);
+  for (int k = 0; k < kTblPer; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    ent[k] = kPage && staged && i < np ? __ldg(trow + p0 + i) : 0;
+  }
+  if constexpr (!kPage) {
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) issue(t, !kRef);
+  }
 
   // q * scale (* log2 e: scores in log2 units), and for bf16 q times the
   // K scale of each column in int8 mode, so a code needs no multiply of
@@ -281,9 +369,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int j = 0; j < VEC; ++j) {
     const int c = ci * VEC + j;
-    const float ks = kQuant && act ? a.ks[kvh * D + c] : 1.f;
+    const float ks = kColScale && act ? a.ks[kvh * D + c] : 1.f;
     ksr[j] = ks;
-    vsr[j] = kQuant && kRef && act ? a.vs[kvh * D + c] : 1.f;
+    vsr[j] = kColScale && kRef && act ? a.vs[kvh * D + c] : 1.f;
 #pragma unroll
     for (int g = 0; g < G; ++g)
       qr[g][j] = act && g < gn
@@ -299,20 +387,37 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[g][j] = 0.f;
   }
+  if constexpr (kPage) {
+#pragma unroll
+    for (int k = 0; k < kTblPer; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (staged && i < np) s_tbl[i] = min(max(ent[k], 0), a.nb - 1);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) issue(t, !kRef);
+  }
 
   // the scores of IB rows (from row i0 of the thread's rows) of the K
   // tile at sk: the LPR lanes of a row each dot their slice, then sum
   // them (every lane of the row holds every score)
   auto scores = [&](const KV* sk, int i0, float (&sc)[IB * G]) {
+    // row-scale mode: the tile's K row scales lie past its V tile
+    const float* srow = reinterpret_cast<const float*>(
+        reinterpret_cast<const unsigned char*>(sk) + 2 * GG::kTileBytes);
 #pragma unroll
     for (int i = 0; i < IB; ++i) {
       float kf[VEC];
       if (act) {
         load_f32<KV, VEC>(sk + (row + (i0 + i) * ROWS) * DMAX + ci * VEC,
                           kf);
-        if constexpr (kQuant && kRef) {
+        if constexpr (kColScale && kRef) {
 #pragma unroll
           for (int j = 0; j < VEC; ++j) kf[j] *= ksr[j];
+        } else if constexpr (kRows && kRef) {
+          const float s = srow[row + (i0 + i) * ROWS];
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) kf[j] *= s;
         }
       } else {
 #pragma unroll
@@ -327,6 +432,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     row_sum<IB * G, IB * G, LPR / 2>(sc, lane);
+    if constexpr (kRows && !kRef) {
+#pragma unroll
+      for (int i = 0; i < IB; ++i) {
+        const float s = srow[row + (i0 + i) * ROWS];
+#pragma unroll
+        for (int g = 0; g < G; ++g) sc[i * G + g] *= s;
+      }
+    }
   };
   // the block's max of m per head into mb: a warp butterfly over its
   // thread rows, then the warps in order
@@ -448,20 +561,32 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       // P.V over the same rows (zero-filled past the slice)
       if (act) {
+        const float* svs = reinterpret_cast<const float*>(
+                               reinterpret_cast<const unsigned char*>(sk) +
+                               2 * GG::kTileBytes) +
+                           TILE;  // row-scale mode: the V row scales
 #pragma unroll
         for (int i = 0; i < IB; ++i) {
           float vf[VEC];
           load_f32<KV, VEC>(sv + (row + (i0 + i) * ROWS) * DMAX + ci * VEC,
                             vf);
-          if constexpr (kQuant && kRef) {
+          float vrow = 1.f;
+          if constexpr (kRows) vrow = svs[row + (i0 + i) * ROWS];
+          if constexpr (kColScale && kRef) {
 #pragma unroll
             for (int j = 0; j < VEC; ++j) vf[j] *= vsr[j];
+          } else if constexpr (kRows && kRef) {
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) vf[j] *= vrow;
           }
 #pragma unroll
-          for (int g = 0; g < G; ++g)
+          for (int g = 0; g < G; ++g) {
+            const float p =
+                kRows && !kRef ? sc[i * G + g] * vrow : sc[i * G + g];
 #pragma unroll
             for (int j = 0; j < VEC; ++j)
-              acc[g][j] = fmaf(sc[i * G + g], vf[j], acc[g][j]);
+              acc[g][j] = fmaf(p, vf[j], acc[g][j]);
+          }
         }
       }
     }
@@ -522,7 +647,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int w = 0; w < NR; ++w) sum += red[(w * G + g) * DMAX + c];
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) den += s_lw[w][g];
-    if (kQuant && !kRef) sum *= a.vs[kvh * D + c];
+    if (kColScale && !kRef) sum *= a.vs[kvh * D + c];
     if (nsplit == 1)
       out[(head0 + g) * D + c] = pt::from_f32<T>(sum / fmaxf(den, 1e-30f));
     else
@@ -602,11 +727,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 // for G heads per block over rows of DMAX, with nchunk chunks of G heads
 // per kv head. The kernel's dynamic shared memory is allowed once per
 // device (48 KB with the static arrays beside it needs the opt-in too).
-template <typename T, typename KV, int G, int DMAX>
+template <typename T, typename KV, int G, int DMAX, int MODE>
 cudaError_t run(int device, const Args* a, Plan* plan, int nchunk,
                 cudaStream_t stream) {
-  using GG = Geo<T, KV, G, DMAX>;
-  const auto kern = decode_kernel<T, KV, G, DMAX>;
+  using GG = Geo<T, KV, G, DMAX, MODE>;
+  const auto kern = decode_kernel<T, KV, G, DMAX, MODE>;
   static unsigned long long opted = 0;  // a bit per device
   const unsigned long long bit = 1ull << (device & 63);
   if (!(opted & bit)) {
@@ -636,10 +761,102 @@ cudaError_t run(int device, const Args* a, Plan* plan, int nchunk,
   return cudaGetLastError();
 }
 
-// rows padded to 16, 32 or 256 elements (decode_attention_any.cu);
-// dtype and kv_int8 as the C entry takes them, g the heads per block
+// The instantiation for g heads per block over rows of DMAX, by the
+// caller's dtype (q's; kv_int8: int8 caches) and mode. Row scales go
+// with int8 caches only; rows past 128 take at most 4 heads per block.
+template <int MODE, typename T, typename KV, int DMAX>
+cudaError_t by_heads(int device, int g, int nchunk, const Args* a,
+                     Plan* plan, cudaStream_t s) {
+  switch (g) {
+    case 1:
+      return run<T, KV, 1, DMAX, MODE>(device, a, plan, nchunk, s);
+    case 2:
+      if constexpr (MODE != kContig && DMAX > 128 &&
+                    std::is_same<KV, float>::value)
+        return cudaErrorInvalidValue;  // shape_of takes g = 4 (spills)
+      else
+        return run<T, KV, 2, DMAX, MODE>(device, a, plan, nchunk, s);
+    case 4:
+      return run<T, KV, 4, DMAX, MODE>(device, a, plan, nchunk, s);
+    default:
+      if constexpr (DMAX <= 128)
+        return run<T, KV, 8, DMAX, MODE>(device, a, plan, nchunk, s);
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int MODE, int DMAX>
+cudaError_t by_dtype(int device, int dtype, int kv_int8, int g, int nchunk,
+                     const Args* a, Plan* plan, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  if constexpr (MODE == kPagedRows) {
+    if (!kv_int8) return cudaErrorInvalidValue;
+    return dtype == pt::kF32
+               ? by_heads<MODE, float, int8_t, DMAX>(device, g, nchunk, a,
+                                                     plan, s)
+               : by_heads<MODE, bf16, int8_t, DMAX>(device, g, nchunk, a,
+                                                    plan, s);
+  } else {
+    if (dtype == pt::kF32)
+      return kv_int8 ? by_heads<MODE, float, int8_t, DMAX>(device, g, nchunk,
+                                                           a, plan, s)
+                     : by_heads<MODE, float, float, DMAX>(device, g, nchunk,
+                                                          a, plan, s);
+    return kv_int8 ? by_heads<MODE, bf16, int8_t, DMAX>(device, g, nchunk, a,
+                                                        plan, s)
+                   : by_heads<MODE, bf16, bf16, DMAX>(device, g, nchunk, a,
+                                                      plan, s);
+  }
+}
+
+// The padded row and the head chunks of a shape: cudaErrorNotSupported
+// for a head size that is not built, cudaErrorInvalidValue for a bad
+// dtype or group. A kv head's group is cut into chunks of g = 1, 2, 4 or
+// 8 query heads (the smallest power of two that holds it, at most 8, at
+// most 4 for rows past 128). Paged float32 pools past 128 take no g = 2
+// (that instantiation spills: a group of 2 rides in a chunk of 4).
+struct Shape {
+  int dmax, g, nchunk;
+};
+
+inline cudaError_t shape_of(int dtype, int kv_int8, int hq, int hkv, int d,
+                            Shape* sh, bool paged = false) {
+  if (dtype != pt::kF32 && dtype != pt::kBF16) return cudaErrorInvalidValue;
+  if (hkv <= 0 || hq <= 0 || hq % hkv != 0 || d <= 0)
+    return cudaErrorInvalidValue;
+  const bool f32_rows = dtype == pt::kF32 && !kv_int8;
+  const int vec = f32_rows ? (d > 128 ? 8 : 4) : 8;
+  if (d > 256 || d % vec) return cudaErrorNotSupported;
+  sh->dmax = pt::pow2_at_least(d < 16 ? 16 : d);
+  const int group = hq / hkv;
+  const int cap = sh->dmax > 128 ? 4 : 8;
+  sh->g = group >= cap ? cap : pt::pow2_at_least(group);
+  if (paged && f32_rows && sh->dmax > 128 && sh->g == 2) sh->g = 4;
+  sh->nchunk = (group + sh->g - 1) / sh->g;
+  return cudaSuccess;
+}
+
+// contiguous caches, rows padded to 16, 32 or 256 elements
+// (decode_attention_any.cu); dtype and kv_int8 as the C entry takes
+// them, g the heads per block
 cudaError_t select_any(int device, int dtype, int kv_int8, int dmax, int g,
                        int nchunk, const Args* a, Plan* plan,
                        cudaStream_t s);
+
+// The paged instantiations over rows of DMAX (mode kPaged or
+// kPagedRows), each DMAX instantiated in one source:
+// paged_attention.cu 128, paged_attention_64_256.cu 64 and 256,
+// paged_attention_any.cu 16 and 32, so that nvcc builds them in
+// parallel.
+template <int DMAX>
+cudaError_t select_paged(int device, int mode, int dtype, int kv_int8, int g,
+                         int nchunk, const Args* a, Plan* plan,
+                         cudaStream_t s) {
+  if (mode == kPagedRows)
+    return by_dtype<kPagedRows, DMAX>(device, dtype, kv_int8, g, nchunk, a,
+                                      plan, s);
+  return by_dtype<kPaged, DMAX>(device, dtype, kv_int8, g, nchunk, a, plan,
+                                s);
+}
 
 }  // namespace pt_decode

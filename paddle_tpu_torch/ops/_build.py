@@ -75,9 +75,11 @@ _SIGNATURES = {
                                   _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                                   _I, _VP],
-    'pt_paged_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                                  _VP, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                  _I, _VP],
+    'pt_paged_decode_attention': [_I] + [_VP] * 11 + [_I] * 9 + [
+        _F, _I, _I, _VP],
+    'pt_paged_decode_attention_plan': [_I, _I, _I, _I, _I, _I, _VP],
+    'pt_capture_begin': [_VP],
+    'pt_capture_kernels': [_VP, _VP],
     'pt_decode_attention': [_I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                             _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _LL,
                             _LL, _LL, _I, _I, _F, _I, _I, _VP],
@@ -239,6 +241,28 @@ def require_cuda(x, kernel):
     if x.device.type != 'cuda':
         raise ValueError(f'{kernel} kernel: tensors must be on a CUDA '
                          f'device, got {x.device}')
+
+
+def kernels_per_call(fn, device):
+    """The CUDA kernels one call of `fn` enqueues on `device`: fn runs
+    once on a fresh stream (so that its allocations and per-stream
+    buffers exist), then once more while that stream is captured into a
+    CUDA graph, whose kernel nodes are counted. A check for
+    `chip_smoke.py` and the card tests (no path of the port calls it);
+    unlike a profiler trace, it cannot come back empty."""
+    lib = load()
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        check(lib.pt_capture_begin(stream.cuda_stream), 'capture')
+        n = ctypes.c_int(0)
+        try:
+            fn()
+        finally:
+            err = lib.pt_capture_kernels(stream.cuda_stream, ctypes.byref(n))
+        check(err, 'capture')
+    return n.value
 
 
 def dtype_code(t, kernel):

@@ -1,17 +1,19 @@
 """Paged single-token decode attention: the hand-written Hopper kernel
 and its plain version.
 
-The kernel (`csrc/paged_attention.cu`) replaces the TPU kernel
-`paddle_tpu/ops/pallas/paged_attention.py::paged_decode_attention` in
-all three of its modes: bf16 / f32 pages of q's dtype (K8 of PERF.md),
-and int8 pages (K8q) with float32 scales `k_scale` / `v_scale`, either
-per row, (NB, Hkv, BS) pools that ride with their pages (the
-ServingEngine's `QuantPagedKVCache`), or global per-(kv head, dim),
-(Hkv, D) (`block_multihead_attention`'s static cache scales).
-`paged_decode_attention` launches it on CUDA tensors (counted under
-`paged_decode_attention`, or `paged_decode_attention_int8` for int8
-pages); `paged_decode_attention_plain` computes the same function with
-plain PyTorch ops.
+The kernel (`csrc/paged_attention.cu`, on the decode-attention template
+of `csrc/decode_attention.cuh` with a page-table loader) replaces the
+TPU kernel `paddle_tpu/ops/pallas/paged_attention.py::
+paged_decode_attention` in all three of its modes: bf16 / f32 pages of
+q's dtype (K8 of PERF.md), and int8 pages (K8q) with float32 scales
+`k_scale` / `v_scale`, either per row, (NB, Hkv, BS) pools that ride
+with their pages (the ServingEngine's `QuantPagedKVCache`), or global
+per-(kv head, dim), (Hkv, D) (`block_multihead_attention`'s static cache
+scales). `paged_decode_attention` launches it on CUDA tensors (one CUDA
+kernel per call, counted under `paged_decode_attention`, or
+`paged_decode_attention_int8` for int8 pages);
+`paged_decode_attention_plain` computes the same function with plain
+PyTorch ops.
 
 Semantics shared by both: page ids are clamped to [0, NB - 1] (so -1
 and out-of-range table entries are safe), context_lens is clamped to
@@ -21,6 +23,8 @@ scale in float32 before the dot.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
@@ -29,6 +33,10 @@ from .. import _build
 from . import decode_attention as _decode
 
 NEG_INF = -1e30
+# page ids one block stages in shared memory (the kernel's kTblCap): a
+# split of at most 8 tiles of 64 positions spans at most 512 pages (at
+# BS = 1); a wider split reads its entries from the table instead
+TABLE_PAGES = 520
 # scale modes of the C entry (csrc/paged_attention.cu)
 NO_SCALE, ROW_SCALE, HEAD_DIM_SCALE = 0, 1, 2
 
@@ -115,6 +123,28 @@ def paged_decode_attention_plain(q, key_cache, value_cache, block_tables,
     return out[:, None].to(q.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def plan(index, code, mode, Hq, Hkv, D):
+    """The launch geometry of a paged shape on CUDA device `index`
+    (`decode_attention.Plan`; asked of the library once per shape; raises
+    for a head size that is not built). `mode`: the scale mode."""
+    out = (ctypes.c_int * 7)()
+    err = _build.load().pt_paged_decode_attention_plan(index, code, mode, Hq,
+                                                       Hkv, D, out)
+    _build.check(err, 'paged_decode_attention')
+    return _decode.Plan(*out)
+
+
+def split_plan(B, Hkv, MAXB, BS, pl, sms):
+    """(nsplit, chunk) of a launch: K7's context split
+    (`decode_attention.splits`) over the table width MAXB * BS, the
+    blocks' units the kv heads times the plan's head chunks. It depends
+    on the shapes only, never on context_lens, so the launch can be
+    captured in a CUDA graph; splits past a row's count read nothing."""
+    return _decode.splits(B, Hkv * pl.nchunk, MAXB * BS, pl.tile,
+                          pl.blocks_per_sm, sms, pl.stages)
+
+
 def paged_decode_attention(q, key_cache, value_cache, block_tables,
                            context_lens, scale=None, k_scale=None,
                            v_scale=None):
@@ -157,13 +187,29 @@ def paged_decode_attention(q, key_cache, value_cache, block_tables,
     _decode.check_built('paged_decode_attention', key_cache.dtype, D)
     code = _build.dtype_code(q, 'paged_decode_attention')
     out = torch.empty_like(q)
+    if maxb == 0:               # no position: every row is empty
+        return out.zero_()
+    pl = plan(dev.index, code, mode, Hq, Hkv, D)
+    nsplit, chunk = split_plan(B, Hkv, maxb, BS, pl,
+                               _build.sm_count(dev.index))
+    stream = _build.stream_ptr(q)
+    part_acc = part_ml = counters = None     # the splits' partial states
+    if nsplit > 1:
+        part_acc = torch.empty(B, Hq, nsplit, D, dtype=torch.float32,
+                               device=dev)
+        part_ml = torch.empty(B, Hq, nsplit, 2, dtype=torch.float32,
+                              device=dev)
+        counters = _decode._counters(dev, stream, B * Hkv * pl.nchunk)
     lib = _build.load()
     err = lib.pt_paged_decode_attention(
         dev.index, q.data_ptr(), key_cache.data_ptr(),
         value_cache.data_ptr(), k_scale.data_ptr() if mode else 0,
         v_scale.data_ptr() if mode else 0, block_tables.data_ptr(),
-        context_lens.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, NB, BS, maxb,
-        float(scale), code, mode, _build.stream_ptr(q))
+        context_lens.data_ptr(), out.data_ptr(),
+        0 if part_acc is None else part_acc.data_ptr(),
+        0 if part_ml is None else part_ml.data_ptr(),
+        0 if counters is None else counters.data_ptr(), B, Hq, Hkv, D, NB,
+        BS, maxb, nsplit, chunk, float(scale), code, mode, stream)
     key = 'paged_decode_attention_int8' if mode else 'paged_decode_attention'
     _build.check(err, key)
     _build.LAUNCHES[key] += 1

@@ -1307,3 +1307,258 @@ def test_decode_attention_is_one_kernel(card, headmajor):
         if kernels:
             break
     assert len(kernels) == 1 and 'decode_kernel' in kernels[0], kernels
+
+
+# K8 / K8q modes: (q dtype, pool) with pool 'float' (q's dtype), 'row'
+# (int8, (NB, Hkv, BS) scales) or 'hd' (int8, (Hkv, D) scales)
+PAGED_MODES = [(torch.bfloat16, 'float'), (torch.float32, 'float'),
+               (torch.bfloat16, 'row'), (torch.float32, 'row'),
+               (torch.bfloat16, 'hd'), (torch.float32, 'hd')]
+# (Hq, Hkv, D): groups 1, 3, 7, 8, 16 at head sizes 40 (int8 rows not
+# 16-byte aligned), 64, 80, 96, 128, 256 (chunks of 4 heads)
+PAGED_SHAPES = [(2, 2, 64), (6, 2, 80), (28, 4, 128), (16, 2, 96),
+                (16, 1, 256), (8, 1, 128), (3, 3, 256), (7, 1, 64),
+                (3, 1, 40)]
+
+
+def _paged_inputs(rng, card, dtype, pool, B, Hq, Hkv, D, BS, width):
+    """q, pools, table, counts and scales over a table `width` positions
+    wide: pages shuffled and shared between rows, a -1 entry and one past
+    the pool inside row 2's count, row 0's count past the table, row 1's
+    count 0 (the rows there are)."""
+    maxb = -(-width // BS)
+    NB = max(2, B * maxb // 2 + 3)
+    tbl = rng.integers(0, NB, (B, maxb)).astype(np.int32)
+    lens = rng.integers(1, maxb * BS + 1, B).astype(np.int32)
+    lens[0] = maxb * BS + 9
+    if B > 1:
+        tbl[1] = tbl[0][::-1]                # pages shared between rows
+        lens[1] = 0
+    if B > 2:
+        tbl[2, maxb // 3] = -1
+        tbl[2, maxb // 2] = NB + 5           # clamped to the last page
+    q = _randn(rng, (B, 1, Hq, D), card, dtype)
+    ks = vs = None
+    if pool == 'float':
+        kc, vc = (_randn(rng, (NB, Hkv, BS, D), card, dtype)
+                  for _ in range(2))
+    else:
+        kc, vc = (torch.from_numpy(rng.integers(-127, 128, (NB, Hkv, BS, D))
+                                   .astype(np.int8)).to(card)
+                  for _ in range(2))
+        sshape = (NB, Hkv, BS) if pool == 'row' else (Hkv, D)
+        ks, vs = (torch.from_numpy(rng.uniform(0.002, 0.03, sshape)
+                                   .astype(np.float32)).to(card)
+                  for _ in range(2))
+    return (q, kc, vc, torch.from_numpy(tbl).to(card),
+            torch.from_numpy(lens).to(card), ks, vs)
+
+
+def _paged_call(q, kc, vc, tbl, lens, ks, vs, plain=False):
+    fn = (k_paged.paged_decode_attention_plain if plain
+          else k_paged.paged_decode_attention)
+    return fn(q, kc, vc, tbl, lens, None, ks, vs)
+
+
+@pytest.mark.parametrize('dtype,pool', PAGED_MODES,
+                         ids=lambda m: str(m).replace('torch.', ''))
+@pytest.mark.parametrize('BS', [1, 16, 64])
+@pytest.mark.parametrize('Hq,Hkv,D', PAGED_SHAPES)
+def test_paged_split_kernel(card, dtype, pool, BS, Hq, Hkv, D):
+    """K8 / K8q on the decode template against the plain version: tiles
+    that cross pages (BS 1 and 16) or lie inside one (64), splits over a
+    2000-position table, every scale mode, one launch counted under its
+    key."""
+    rng = np.random.default_rng(Hq * 1000 + Hkv * 100 + D + BS)
+    args = _paged_inputs(rng, card, dtype, pool, 3, Hq, Hkv, D, BS, 2000)
+    key = ('paged_decode_attention' if pool == 'float'
+           else 'paged_decode_attention_int8')
+    before = dict(_build.LAUNCHES)
+    got = _paged_call(*args)
+    assert _build.LAUNCHES[key] == before[key] + 1
+    assert sum(_build.LAUNCHES.values()) == sum(before.values()) + 1
+    want = _paged_call(*args, plain=True)
+    rtol, atol = _decode_tol(args[0])
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert not got[1].any(), 'a count-0 row must return zeros'
+
+
+@pytest.mark.parametrize('dtype,pool', PAGED_MODES,
+                         ids=lambda m: str(m).replace('torch.', ''))
+def test_paged_kernel_serving_shapes(card, dtype, pool):
+    """The serving burst's shapes (Llama-7B's 32 heads at BS = 16 over a
+    2048-position table, block_multihead_attention's BS = 64) with
+    counts that end mid-tile and mid-page, against the plain version,
+    with the output's own scale (chip_smoke.py's TENSOR_TOL)."""
+    rng = np.random.default_rng(5)
+    for BS in (16, 64):
+        q, kc, vc, tbl, lens, ks, vs = _paged_inputs(
+            rng, card, dtype, pool, 4, 32, 32, 128, BS, 2048)
+        lens.copy_(torch.tensor([2048 + 3, 0, 517, 33], dtype=torch.int32))
+        got = _paged_call(q, kc, vc, tbl, lens, ks, vs)
+        want = _paged_call(q, kc, vc, tbl, lens, ks, vs, plain=True)
+        _assert_within(got, want)
+
+
+@pytest.mark.parametrize('dtype,pool', PAGED_MODES,
+                         ids=lambda m: str(m).replace('torch.', ''))
+def test_paged_kernel_is_one_kernel_and_repeats_bitwise(card, dtype, pool):
+    """A split call launches one CUDA kernel (the last split combines),
+    counted in a CUDA graph of the call; repeated calls, with another
+    geometry launched in between on the same stream, are the same bits;
+    the stream's counters are left at zero."""
+    rng = np.random.default_rng(29)
+    args = _paged_inputs(rng, card, dtype, pool, 2, 32, 8, 128, 16, 2048)
+    other = _paged_inputs(rng, card, dtype, pool, 3, 28, 4, 128, 64, 700)
+    first = _paged_call(*args)
+    _paged_call(*other)
+    assert torch.equal(first, _paged_call(*args))
+    torch.cuda.synchronize()
+    key = (args[0].device.index, _build.stream_ptr(args[0]))
+    assert not k_decode._COUNTERS[key].any()
+    assert _build.kernels_per_call(lambda: _paged_call(*args), card) == 1
+
+
+def test_kernels_per_call_counts_what_a_call_enqueues(card):
+    """The graph count behind the one-kernel checks: a K7 call is one
+    kernel, two calls are two, an elementwise op is one."""
+    rng = np.random.default_rng(43)
+    q, kc, vc, ks, vs = _decode_inputs(rng, card, 'bfloat16', 1, 2048, 32,
+                                       8, 128)
+    vl = torch.tensor([2000], dtype=torch.int32, device=card)
+
+    def two():
+        _decode_call(False, q, kc, vc, vl, ks, vs)
+        _decode_call(False, q, kc, vc, vl, ks, vs)
+    assert _build.kernels_per_call(
+        lambda: _decode_call(False, q, kc, vc, vl, ks, vs), card) == 1
+    assert _build.kernels_per_call(two, card) == 2
+    assert _build.kernels_per_call(lambda: q.mul_(1.0), card) == 1
+
+
+@pytest.mark.parametrize('dtype,pool', PAGED_MODES[:3],
+                         ids=lambda m: str(m).replace('torch.', ''))
+def test_paged_kernel_in_a_cuda_graph(card, dtype, pool):
+    """One launch captured in a CUDA graph and replayed (new query, new
+    counts, a new table entry copied in between) equals the eager call:
+    the split comes from the table width, not the counts."""
+    rng = np.random.default_rng(31)
+    q, kc, vc, tbl, lens, ks, vs = _paged_inputs(rng, card, dtype, pool, 2,
+                                                 32, 8, 128, 16, 2048)
+    _paged_call(q, kc, vc, tbl, lens, ks, vs)          # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _paged_call(q, kc, vc, tbl, lens, ks, vs)
+    for n, page in ((1500, 3), (37, 0)):
+        q.copy_(_randn(rng, q.shape, card, q.dtype))
+        lens.copy_(torch.tensor([n, 2048], dtype=torch.int32))
+        tbl[1, 5] = page
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, _paged_call(q, kc, vc, tbl, lens, ks, vs))
+
+
+def test_paged_graph_replays_after_its_counters_grow(card):
+    """A K8 graph captured on a stream, then that stream's counter buffer
+    outgrown: the replay still finds its counters (the old buffer is
+    kept) and equals the eager call, and so does an eager launch on the
+    new buffer."""
+    rng = np.random.default_rng(37)
+    args = _paged_inputs(rng, card, torch.bfloat16, 'float', 2, 32, 8, 128,
+                         16, 2048)
+    want = _paged_call(*args)
+    side = torch.cuda.Stream(card)
+    key = (card.index or 0, side.cuda_stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = _paged_call(*args)
+    old = k_decode._COUNTERS[key]
+    with torch.cuda.stream(side):
+        k_decode._counters(args[0].device, side.cuda_stream, old.numel() + 1)
+        grown = k_decode._COUNTERS[key]
+        filler = [torch.full((old.numel(),), 3, dtype=torch.int32,
+                             device=card) for _ in range(8)]
+        for _ in range(2):
+            graph.replay()
+        eager = _paged_call(*args)
+    torch.cuda.synchronize()
+    assert grown is not old and any(b is old for b in k_decode._OUTGROWN)
+    assert torch.equal(out, want) and torch.equal(eager, want)
+    assert not old.any() and not grown.any()
+    del filler
+
+
+@pytest.mark.parametrize('dtype,pool', PAGED_MODES[::2],
+                         ids=lambda m: str(m).replace('torch.', ''))
+def test_paged_kernel_past_the_staged_table(card, dtype, pool):
+    """A table 140000 positions wide at one position a page: each split
+    spans more pages than a block stages in shared memory, so its copies
+    read their page ids from the table."""
+    rng = np.random.default_rng(47)
+    q, kc, vc, tbl, lens, ks, vs = _paged_inputs(rng, card, dtype, pool, 1,
+                                                 2, 1, 64, 1, 140000)
+    pl = k_paged.plan(card.index or 0, _build.dtype_code(q, 'paged'),
+                      {'float': k_paged.NO_SCALE, 'row': k_paged.ROW_SCALE,
+                       'hd': k_paged.HEAD_DIM_SCALE}[pool], 2, 1, 64)
+    nsplit, chunk = k_paged.split_plan(1, 1, 140000, 1, pl,
+                                       _build.sm_count(card.index or 0))
+    assert chunk > k_paged.TABLE_PAGES, (nsplit, chunk)
+    lens.fill_(139990)
+    got = _paged_call(q, kc, vc, tbl, lens, ks, vs)
+    want = _paged_call(q, kc, vc, tbl, lens, ks, vs, plain=True)
+    _assert_within(got, want)
+
+
+def test_paged_plan_does_not_spill(card):
+    """Every paged instantiation the shapes above reach: no spilled
+    bytes, and at least one block an SM."""
+    for dtype, pool in PAGED_MODES:
+        mode = {'float': k_paged.NO_SCALE, 'row': k_paged.ROW_SCALE,
+                'hd': k_paged.HEAD_DIM_SCALE}[pool]
+        code = _build.dtype_code(torch.empty(0, dtype=dtype), 'paged')
+        for Hq, Hkv, D in PAGED_SHAPES + [(32, 32, 128), (32, 8, 128),
+                                          (4, 2, 16), (2, 1, 32)]:
+            pl = k_paged.plan(card.index or 0, code, mode, Hq, Hkv, D)
+            assert pl.local_bytes == 0 and pl.blocks_per_sm >= 1, (
+                dtype, pool, Hq, Hkv, D, pl)
+
+
+@pytest.mark.parametrize('wdtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('R', [1, 7, 2048])
+@pytest.mark.parametrize('N', [4096, 3584, 4104, 100])
+def test_rms_norm_bf16_rows(card, wdtype, R, N):
+    """K1's bf16 forward: the row kernel at 2048 rows (N a multiple of 8,
+    a warp a row in registers; 4104 leaves lanes idle), a block a row at
+    1 and 7 rows and on the scalar path (N = 100), with and without r,
+    against the plain version: one bf16 rounding step of y, r within
+    1e-5."""
+    rng = np.random.default_rng(R * 7 + N)
+    x = _randn(rng, (R, N), card, torch.bfloat16, 2.0)
+    w = (1 + 0.1 * _randn(rng, (N,), card, torch.float32)).to(wdtype)
+    want, want_r = k_rms.rms_norm_plain(x, w, 1e-6, return_r=True)
+    before = _build.LAUNCHES['rms_norm']
+    got = k_rms.rms_norm(x, w, 1e-6)
+    got_r, r = k_rms.rms_norm(x, w, 1e-6, return_r=True)
+    assert _build.LAUNCHES['rms_norm'] == before + 2
+    assert torch.equal(got, got_r)
+    for out in (got, got_r):
+        torch.testing.assert_close(out.float(), want.float(),
+                                   rtol=2 ** -7, atol=2 ** -7)
+    torch.testing.assert_close(r, want_r, rtol=1e-5, atol=0)
+
+
+def test_rms_norm_bf16_unaligned_rows_take_the_scalar_path(card):
+    """A bf16 x that is not 16-byte aligned (a view one element in), in a
+    batch the row kernel would take if it were aligned, still agrees with
+    the plain version."""
+    rng = np.random.default_rng(41)
+    base = _randn(rng, (300 * 4096 + 1,), card, torch.bfloat16)
+    x = base[1:].view(300, 4096)
+    w = 1 + 0.1 * _randn(rng, (4096,), card, torch.float32)
+    got = k_rms.rms_norm(x, w, 1e-6)
+    want = k_rms.rms_norm_plain(x, w, 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -7)
+

@@ -38,6 +38,7 @@ from paddle_tpu_torch.models.generation import (QuantKVCache,
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            cached_attention, llama_tiny)
 from paddle_tpu_torch.ops.hopper import decode_attention as t_decode
+from paddle_tpu_torch.ops.hopper import paged_attention as t_paged
 
 # float32 on both sides; the two differ only in summation order
 DECODE_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -200,6 +201,59 @@ class TestSplitRule:
         assert t_decode.splits(1, 4, 2048, 32, 3, self.SMS) == (32, 64)
         assert t_decode.splits(8, 32, 2048, 32, 4, self.SMS) == (8, 256)
         assert t_decode.splits(1, 32, 32768, 32, 4, self.SMS) == (128, 256)
+
+
+class TestPagedSplitPlan:
+    """K8 / K8q's split (`paged_attention.split_plan`), pure Python: K7's
+    rule over the table width MAXB * BS, with the plan's blocks per SM
+    and tile as arguments (on the card they come from the occupancy
+    calculator)."""
+
+    SMS = 132
+
+    @staticmethod
+    def _plan(tile, bps, nchunk=1):
+        return t_decode.Plan(bps, tile, t_decode.STAGES, 8, nchunk, 128, 0)
+
+    @pytest.mark.parametrize('B,Hkv,MAXB,BS,tile,bps,nchunk', [
+        (4, 32, 64, 16, 32, 4, 1),      # serving, Llama-7B MHA
+        (4, 8, 64, 16, 32, 4, 1),       # GQA 32 / 8
+        (4, 4, 64, 16, 32, 2, 1),       # Qwen2's group 7 (one chunk of 8)
+        (8, 32, 32, 64, 32, 4, 1),      # block_multihead_attention
+        (3, 2, 2000, 1, 64, 3, 2),      # one position a page
+        (2, 1, 300, 7, 64, 4, 2),       # a block size that is no power of 2
+        (1, 8, 4096, 16, 32, 4, 1),     # 65536 positions
+    ])
+    def test_covers_the_table_width(self, B, Hkv, MAXB, BS, tile, bps,
+                                    nchunk):
+        pl = self._plan(tile, bps, nchunk)
+        nsplit, chunk = t_paged.split_plan(B, Hkv, MAXB, BS, pl, self.SMS)
+        S = MAXB * BS
+        # K7's rule over S = the table width, with the head chunks
+        assert (nsplit, chunk) == t_decode.splits(
+            B, Hkv * nchunk, S, tile, bps, self.SMS, t_decode.STAGES)
+        # every position of the table width in exactly one split
+        cover = np.zeros(S, np.int64)
+        for i in range(nsplit):
+            cover[i * chunk:(i + 1) * chunk] += 1
+        assert (cover == 1).all()
+        assert chunk % tile == 0 and 1 <= nsplit <= t_decode.MAX_SPLITS
+        # a split's page ids fit the block's table in shared memory
+        pages = max((min((i + 1) * chunk, S) - 1) // BS - i * chunk // BS
+                    + 1 for i in range(nsplit))
+        assert pages <= t_paged.TABLE_PAGES
+
+    def test_the_counts_do_not_enter(self):
+        """The split depends on the table's width alone: every argument
+        is a shape (so a CUDA graph of one launch replays for any
+        counts), and one width gives one split whatever its pages."""
+        import inspect
+
+        assert list(inspect.signature(t_paged.split_plan).parameters) == [
+            'B', 'Hkv', 'MAXB', 'BS', 'pl', 'sms']
+        pl = self._plan(32, 4)
+        assert (t_paged.split_plan(4, 8, 64, 16, pl, self.SMS)
+                == t_paged.split_plan(4, 8, 16, 64, pl, self.SMS))
 
 
 def test_quant_kv_cache_codes_and_scales_equal_jax():

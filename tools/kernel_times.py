@@ -8,11 +8,15 @@ checkout this file lies in), builds the kernels, and times the decode,
 paged, flash and weight-only kernels with TREE's own chip_smoke.py check
 functions (each checked against its plain version, timed with CUDA
 events and the L2 cache flushed). Prints one JSON line per kernel shape:
-the kernel's name, the shape, and its ms. The shapes are Llama-7B's rows
-of PERF.md's kernel table, K7 / K9 at the GQA groups and head sizes of
-fault E2's repair and K7 over a 32768-position cache, which trees since
-the GQA-group and head-size repair build too (K10f8's since the fp8
-codes), so an older tree and a newer one compare row by row;
+the kernel's name, the shape, its ms, and the plain version's, the
+bound's and the library call's ms where the check gives them. The
+shapes are Llama-7B's rows of PERF.md's kernel table (K1 at phase 3's
+six shapes), K7 / K9 at the GQA groups and head sizes of fault E2's
+repair and K7 over a 32768-position cache, K8 / K8q at Qwen2-7B's group
+7, at block_multihead_attention's 64-position pages and over float32
+pages, which trees since the GQA-group and head-size repair build too
+(K10f8's since the fp8 codes), so an older tree and a newer one compare
+row by row;
 chip_smoke.py's phase 3 holds every shape of the current tree. A flash
 row also names the route its kernels took (`path`: tensor_core or
 cuda_core) where the tree has routes.
@@ -58,7 +62,17 @@ def main():
     rows = []
 
     def add(name, rec):
-        rows.append((name, rec['shape'], rec['ms'], rec.get('path')))
+        rows.append((name, rec))
+
+    # K1 at phase 3's shapes: decode and prefill rows (serving), 6 x 2048
+    # training rows with r in bf16 and float32, Qwen2-7B's hidden size
+    for R, N, dt, with_r in ((4, 4096, bf16, False),
+                             (2048, 4096, bf16, False),
+                             (12288, 4096, bf16, True),
+                             (12288, 4096, f32, True),
+                             (4, 3584, bf16, False),
+                             (2048, 3584, bf16, False)):
+        add('rms_norm', cs.check_rms_norm(torch, timer, R, N, dt, with_r))
 
     for B in (1, 8):
         for Hkv in (32, 8):
@@ -87,6 +101,18 @@ def main():
         for row in (True, False):
             add('paged_decode_attention_int8',
                 cs.check_paged_int8(torch, timer, 32, Hkv, row))
+    # K8 / K8q at Qwen2-7B's group 7 (bf16 and float32 q), over
+    # block_multihead_attention's 64-position pages, over float32 pages
+    for dt in (bf16, f32):
+        add('paged_decode_attention',
+            cs.check_paged(torch, timer, 28, 4, dtype=dt))
+        add('paged_decode_attention_int8',
+            cs.check_paged_int8(torch, timer, 28, 4, True, dtype=dt))
+    add('paged_decode_attention', cs.check_paged(torch, timer, 32, 32, BS=64))
+    add('paged_decode_attention_int8',
+        cs.check_paged_int8(torch, timer, 32, 32, False, BS=64))
+    add('paged_decode_attention',
+        cs.check_paged(torch, timer, 32, 32, dtype=f32))
     for H, Hkv, dt in ((32, 32, bf16), (32, 32, f32), (32, 8, bf16)):
         fwd, bwd = cs.check_flash(torch, timer, 1, H, Hkv, 2048, 128, dt)
         add('flash_attention_fwd', fwd)
@@ -125,11 +151,12 @@ def main():
     for K, N in ((4096, 4096), (4096, 32000)):
         add('quant_matmul_fp8', cs.check_quant_matmul(torch, timer, 2048, K,
                                                       N, bf16, 'e4m3'))
-    for name, shape, ms, path in rows:
-        row = {'tree': tree, 'kernel': name, 'shape': shape, 'ms': ms,
-               'card': card}
-        if path is not None:
-            row['path'] = path
+    for name, rec in rows:
+        row = {'tree': tree, 'kernel': name, 'shape': rec['shape'],
+               'ms': rec['ms'], 'card': card}
+        for key in ('path', 'plain_ms', 'bound_ms', 'library_ms'):
+            if rec.get(key) is not None:
+                row[key] = rec[key]
         print(json.dumps(row), flush=True)
     print(json.dumps({'tree': tree, 'build_s': build_s, 'card': card}))
 
