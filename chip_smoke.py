@@ -115,7 +115,25 @@ Phases, in order (any failure exits non-zero and prints no result):
               nn.quant.weight_only_linear (K10f8); (d) at 2 layers in
               float32, decode logits through the kernels against the
               plain versions and streams of generate, DecodeEngine and
-              ServingEngine (both pool types) equal to theirs.
+              ServingEngine (both pool types) equal to theirs;
+ 12. prefix   per-request sampling, prefix caching and chunked prefill
+              in ServingEngine at Llama-7B width (32 layers, bf16,
+              phase 4's engine settings): (a) 8 requests sharing a
+              512-token system prompt with prefix_cache on and off
+              (tok/s, TTFT, hits, prefill tokens computed); (b) two
+              1536-token prompts arriving while two short streams
+              decode, prefill_chunk=256 against the monolithic engine
+              (the short streams' inter-token latency); (c) four
+              sampled rows beside four greedy rows (sampled streams
+              equal across two runs and two batch orders, greedy rows
+              equal to a greedy-only run); (d) int8 pages with both
+              features; exact K1 / K8 / K8q launches and no held page
+              after each run, the bf16 logits gap of a hit and of a
+              chunked prefill against a monolithic one (bounded); at 2
+              layers in float32, both features' streams equal to the
+              monolithic engine's over float32 and int8 pages, and a
+              one-token step at per-row offsets over a contiguous cache
+              through K7 against the plain versions.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, a JSON object with one record per kernel, and
@@ -1255,10 +1273,21 @@ def profile_window(torch, engine, prompts, card, label='profile'):
     """Trace one engine step that decodes a full window of 4 rows, and
     print the device time by kernel, the kernel count, and the share of
     the step's wall time the device was busy."""
-    from torch.profiler import ProfilerActivity, profile
-
     rids = [engine.submit(p, 16) for p in prompts[:4]]
     engine.step()                 # admissions + first window: not traced
+    trace_step(torch, engine, card, label, f'one window of '
+               f'{engine.decode_window} decode forwards x 4 rows')
+    engine.run()
+    for r in rids:
+        engine.result(r)
+
+
+def trace_step(torch, engine, card, label, what):
+    """Trace one engine step with torch.profiler and print its wall time,
+    the device time by kernel, and the share of the wall the device was
+    busy."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1266,9 +1295,6 @@ def profile_window(torch, engine, prompts, card, label='profile'):
         engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    engine.run()
-    for r in rids:
-        engine.result(r)
     # kernel-level events only (an operator's device time is its
     # kernels' time, counted once)
     rows = sorted(((e.self_device_time_total, e.count, e.key)
@@ -1280,9 +1306,8 @@ def profile_window(torch, engine, prompts, card, label='profile'):
               f'share not measured')
         return
     busy = sum(r[0] for r in rows) / 1e3
-    print(f'{label}: one window of {engine.decode_window} decode forwards '
-          f'x 4 rows under the profiler: wall {wall * 1e3:.1f} ms, device '
-          f'busy {busy:.1f} ms ({busy / (wall * 1e3):.3f}), '
+    print(f'{label}: {what} under the profiler: wall {wall * 1e3:.1f} ms, '
+          f'device busy {busy:.1f} ms ({busy / (wall * 1e3):.3f}), '
           f'{sum(r[1] for r in rows)} kernels [{card}]')
     for t_us, n, key in rows[:15]:
         print(f'{label}:   {t_us / 1e3:9.3f} ms  {n:6d}x  {key[:90]}')
@@ -1323,28 +1348,9 @@ def check_burst(label, engine, prompts, vocab, wall, launches, before,
     """The burst's outputs, exact launch counts (`kernel` L per decode
     forward, K1 2L + 1 per forward, nothing else) and leaks; prints its
     throughput."""
-    from paddle_tpu_torch import ops
-
-    L = engine.model.config.num_hidden_layers
-    for p, o in zip(prompts, outs):
-        if o is None or len(o) != len(p) + 32 or not np_equal(o[:len(p)], p):
-            raise AssertionError(f'{label}: a request did not return '
-                                 f'prompt + 32 ids')
-        if o.min() < 0 or o.max() >= vocab:
-            raise AssertionError(f'{label}: a returned id is outside the '
-                                 f'vocabulary')
-    n_dec = after['decode_forwards'] - before['decode_forwards']
-    n_pre = after['prefill_forwards'] - before['prefill_forwards']
-    want = dict.fromkeys(ops.LAUNCHES, 0)
-    want[kernel] = L * n_dec
-    want['rms_norm'] = (2 * L + 1) * (n_dec + n_pre)
-    if launches != want:
-        raise AssertionError(f'{label}: launch counts {launches} != '
-                             f'expected {want} ({n_dec} decode and {n_pre} '
-                             f'prefill forwards)')
-    if engine.allocator.in_use() != 0:
-        raise AssertionError(f'{label}: {engine.allocator.in_use()} pages '
-                             f'leaked')
+    check_outputs(label, prompts, outs, vocab, [32] * len(prompts))
+    n_dec, n_pre, _ = serving_launches(label, engine, before, after,
+                                       launches, kernel)
     n_tok = after['tokens_generated'] - before['tokens_generated']
     n_steps = after['steps'] - before['steps']
     lens = [len(p) for p in prompts]
@@ -2836,6 +2842,406 @@ def qwen2_phase(torch, np, card):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: per-request sampling, prefix caching and chunked prefill
+# ---------------------------------------------------------------------------
+
+# the largest |logit| difference a prefix-hit or chunked prefill may show
+# against the monolithic one in bf16 at Llama-7B width (max |logit| ~6):
+# a rounding-only control (phase 5's float64 RMSNorm, 33 forwards) moves
+# the served logits by ~0.3 on the card
+CHUNK_BF16_TOL = 0.5
+
+
+def serving_launches(label, engine, before, after, launches, kernel):
+    """The exact launch counts of an engine run: `kernel` L per decode
+    forward, K1 2L + 1 per forward of any kind (admission prefill, chunk,
+    decode), nothing else (prefill and chunk forwards attend through the
+    plain masked path). Returns (decode, prefill, chunk) forwards."""
+    from paddle_tpu_torch import ops
+
+    L = engine.model.config.num_hidden_layers
+    n = {k: after[k] - before[k] for k in ('decode_forwards',
+                                           'prefill_forwards',
+                                           'chunk_forwards')}
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want[kernel] = L * n['decode_forwards']
+    want['rms_norm'] = (2 * L + 1) * sum(n.values())
+    if launches != want:
+        raise AssertionError(f'{label}: launch counts {launches} != '
+                             f'expected {want} ({n})')
+    if engine.allocator.in_use() != 0:
+        raise AssertionError(f'{label}: {engine.allocator.in_use()} pages '
+                             f'leaked')
+    return n['decode_forwards'], n['prefill_forwards'], n['chunk_forwards']
+
+
+def stepped_run(torch, engine, arrivals, watch=()):
+    """Serve `arrivals` [(step index, prompt, submit kwargs)], each
+    submitted just before that step, stepping until the engine drains,
+    with every launch count set to 0 just before and read just after.
+    Returns (wall, launches, stats before, stats after, outputs in
+    arrival order, each request's time from its submission to its first
+    token, [(step wall, tokens each `watch` arrival committed in it)])."""
+    from paddle_tpu_torch import ops
+
+    def generated(rid):
+        req = engine._live.get(rid) or engine._terminal.get(rid)
+        return len(req.generated)
+
+    before = engine.stats()
+    torch.cuda.synchronize()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    last = max(at for at, _p, _kw in arrivals)
+    rids, sent, first, steps = [], {}, {}, []
+    t0 = time.perf_counter()
+    i = 0
+    while i <= last or len(engine.queue) or engine.in_flight():
+        for at, p, kw in arrivals:
+            if at == i:
+                rids.append(engine.submit(p, **kw))
+                sent[rids[-1]] = time.perf_counter()
+        n0 = [generated(rids[w]) for w in watch]
+        t = time.perf_counter()
+        engine.step()
+        now = time.perf_counter()
+        steps.append((now - t, [generated(rids[w]) - n
+                                for w, n in zip(watch, n0)]))
+        for r in rids:
+            if r not in first and generated(r):
+                first[r] = now - sent[r]
+        i += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    after = engine.stats()
+    outs = [engine.result(r) for r in rids]
+    return wall, launches, before, after, outs, [first[r] for r in rids], \
+        steps
+
+
+def check_outputs(label, prompts, outs, vocab, new_tokens):
+    for p, o, m in zip(prompts, outs, new_tokens):
+        if o is None or len(o) != len(p) + m or not np_equal(o[:len(p)], p):
+            raise AssertionError(f'{label}: a request did not return '
+                                 f'prompt + {m} ids')
+        if o.min() < 0 or o.max() >= vocab:
+            raise AssertionError(f'{label}: a returned id is outside the '
+                                 f'vocabulary')
+
+
+def prefill_logits(torch, model, prompt, cuts):
+    """The last-token logits of `prompt` through a private page pool:
+    `cuts` None is one monolithic prefill (the admission path); else the
+    prompt's first cuts[0] tokens (if any) prefill monolithically and
+    each later span up to the next cut (or the end) is one chunk forward
+    over the gathered prefix (`_chunk_kv`, the prefix-hit / chunked
+    path)."""
+    from paddle_tpu_torch.inference.engine import bucket_length
+    from paddle_tpu_torch.inference.serving import _chunk_kv, _prefill_kv
+
+    BS = 16
+    dev = model.device
+    n_pages = math.ceil(len(prompt) / BS)
+    pages = model.init_paged_cache(n_pages + 1, BS)
+    btab = torch.arange(1, n_pages + 1, dtype=torch.int32,
+                        device=dev)[None]
+    ids = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+    edges = [len(prompt)] if cuts is None else list(cuts) + [len(prompt)]
+    with torch.no_grad():
+        p0 = edges[0]
+        if p0:
+            last, pages = _prefill_kv(
+                model, pages, torch.nn.functional.pad(
+                    ids[:, :p0], (0, bucket_length(p0) - p0)),
+                torch.tensor([p0], device=dev), btab)
+        for lo, hi in zip(edges, edges[1:]):
+            Cb = bucket_length(hi - lo)
+            chunk = torch.nn.functional.pad(ids[:, lo:hi],
+                                            (0, Cb - (hi - lo)))
+            last, pages = _chunk_kv(
+                model, pages, chunk, torch.tensor([hi - lo], device=dev),
+                torch.tensor([lo], device=dev), btab, bucket_length(lo + Cb))
+    return last.float()
+
+
+def logits_gap(torch, model, prompt, cuts, label, tol):
+    """max |logit| difference of the cut prefill against the monolithic
+    one, printed and held to `tol`."""
+    mono = prefill_logits(torch, model, prompt, None)
+    cut = prefill_logits(torch, model, prompt, cuts)
+    gap = float((cut - mono).abs().max())
+    same = int(cut.argmax()) == int(mono.argmax())
+    print(f'{label}: {len(prompt)}-token prompt, last-token logits against '
+          f'the monolithic prefill: max |Δ| {gap:.6g} (bound {tol}, max '
+          f'|logit| {float(mono.abs().max()):.4f}), argmax equal {same}')
+    if not gap <= tol:
+        raise AssertionError(f'{label}: logits moved {gap} > {tol}')
+
+
+def pct(np, xs, q):
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def prefix_phase(torch, np, card):
+    """Phase 12: per-request sampling, prefix caching and chunked prefill
+    at Llama-7B width (32 layers, bf16 weights drawn on the card from a
+    seeded generator), ServingEngine(max_slots=4, block_size=16,
+    decode_window=8, max_new_tokens=32): (a) prefix_cache=True against
+    the same burst with it off, in turns off / on / on / off (8
+    requests of one 512-token system prompt plus 32-128 tokens); (b) prefill_chunk=256 against the
+    monolithic engine (two 1536-token prompts arriving while two short
+    streams decode: the short streams' inter-token latency); (c) four
+    sampled rows beside four greedy rows (sampled streams equal across
+    two runs and two batch orders, greedy rows equal to the greedy-only
+    run); (d) an int8 pool with both features; each run with exact K1 /
+    K8 / K8q launches and no page held after it; the bf16 logits gap of
+    a hit and of a chunked prefill; then at 2 layers in float32 the
+    streams of both features equal to the monolithic engine's over
+    float32 and int8 pools, and a one-token forward with per-row offsets
+    over a contiguous cache through K7 equal to the plain versions.
+    Returns the launch counts of its runs by path."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama_7b(), dtype='bfloat16')
+    V = cfg.vocab_size
+    model = LlamaForCausalLM(cfg, seed=0)
+    rng = np.random.default_rng(12)
+    system = rng.integers(3, V, 512).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(3, V, n)]).astype(
+        np.int32) for n in rng.integers(32, 129, 8)]
+    warm = np.concatenate([system, rng.integers(3, V, 40)]).astype(
+        np.int32)
+    paths = {}
+
+    # (a) prefix cache off / on / on / off over the same burst (the
+    # steps are host-bound and swing between runs: compare in turns)
+    res = {}
+    for run, cached in enumerate((False, True, True, False), start=1):
+        engine = ServingEngine(model, prefix_cache=cached, **SERVE_KW)
+        # warm-up, not measured: with the cache on it indexes the system
+        # prompt, as a served system prompt would have been
+        engine.serve([warm], max_new_tokens=8)
+        label = f'prefix {"on" if cached else "off"} (run {run})'
+        wall, launches, before, after, outs, first, _ = stepped_run(
+            torch, engine, [(0, p, {}) for p in prompts])
+        check_outputs(label, prompts, outs, V, [32] * 8)
+        serving_launches(label, engine, before, after, launches,
+                         'paged_decode_attention')
+        paths[label] = launches
+        n_tok = after['tokens_generated'] - before['tokens_generated']
+        pre = after['prefill_tokens'] - before['prefill_tokens']
+        pfx = after['prefix']
+        res[cached] = outs, pre
+        waves = sorted(first)
+        print(f'{label}: 8 requests of a 512-token system prompt + '
+              f'{[len(p) - 512 for p in prompts]} tokens, {n_tok} tokens '
+              f'in {wall:.3f} s: {n_tok / wall:.1f} tok/s, TTFT p50 '
+              f'{pct(np, first, 50) * 1e3:.1f} ms (first wave mean '
+              f'{sum(waves[:4]) / 4 * 1e3:.1f}, second '
+              f'{sum(waves[4:]) / 4 * 1e3:.1f}), prefill tokens computed '
+              f'{pre}, hits {pfx["hits"]}, hit tokens {pfx["hit_tokens"]}, '
+              f'chunk forwards '
+              f'{after["chunk_forwards"] - before["chunk_forwards"]} '
+              f'[{card}]', flush=True)
+        del engine
+    (off, pre_off), (on, pre_on) = res[False], res[True]
+    same = [int(np.sum(np.cumprod(a[len(p):] == b[len(p):])))
+            for p, a, b in zip(prompts, on, off)]
+    print(f'prefix: prefill tokens computed {pre_on} with the cache, '
+          f'{pre_off} without ({pre_on / pre_off:.3f}); leading tokens '
+          f'equal per request {same} of 32 (printed, not asserted: bf16 '
+          f'sums a hit in another order)')
+    if not pre_on < pre_off:
+        raise AssertionError('prefix: the cache computed no fewer tokens')
+    logits_gap(torch, model, prompts[0], [512], 'prefix bf16 hit',
+               CHUNK_BF16_TOL)
+
+    # (b) two long prompts arriving while two short streams decode
+    short = [rng.integers(3, V, 64).astype(np.int32) for _ in range(2)]
+    long = [rng.integers(3, V, 1536).astype(np.int32) for _ in range(2)]
+    arrivals = ([(0, p, dict(max_new_tokens=96)) for p in short]
+                + [(2, p, {}) for p in long])
+    for chunk in (None, 256):
+        engine = ServingEngine(model, prefill_chunk=chunk, **SERVE_KW)
+        engine.serve([short[0][:32]], max_new_tokens=8)
+        label = 'chunked 256' if chunk else 'monolithic'
+        wall, launches, before, after, outs, first, steps = stepped_run(
+            torch, engine, arrivals, watch=(0, 1))
+        check_outputs(label, short + long, outs, V, [96, 96, 32, 32])
+        serving_launches(label, engine, before, after, launches,
+                         'paged_decode_attention')
+        paths[label] = launches
+        # the short streams' per-token latency from the long arrivals on:
+        # each step's wall over the window's tokens, once per token
+        itl = [w / k for w, ns in steps[2:] for k in ns if k
+               for _ in range(k)]
+        print(f'{label}: short streams ITL while two 1536-token prompts '
+              f'prefill: p50 {pct(np, itl, 50) * 1e3:.1f} ms, p90 '
+              f'{pct(np, itl, 90) * 1e3:.1f}, max {max(itl) * 1e3:.1f} over '
+              f'{len(itl)} tokens; long prompts TTFT '
+              f'{first[2] * 1e3:.1f} / {first[3] * 1e3:.1f} ms; '
+              f'{after["chunk_forwards"] - before["chunk_forwards"]} chunk '
+              f'forwards, {after["prefill_forwards"] - before["prefill_forwards"]} '
+              f'prefills, {len(steps)} steps in {wall:.3f} s [{card}]',
+              flush=True)
+        if chunk:
+            # one step of a 256-token chunk of each long prompt (past
+            # their first) beside the short streams' window
+            rids = [engine.submit(p, max_new_tokens=16) for p in short]
+            engine.step()
+            rids += [engine.submit(p, max_new_tokens=8) for p in long]
+            engine.step()
+            trace_step(torch, engine, card, 'chunk profile',
+                       'one step of a 2 x 256-token chunk forward and a '
+                       f'window of {engine.decode_window}')
+            engine.run()
+            for r in rids:
+                engine.result(r)
+        del engine
+    logits_gap(torch, model, long[0], list(range(0, 1536, 256)),
+               'chunked bf16', CHUNK_BF16_TOL)
+
+    # (c) sampled rows beside greedy rows: one bucket, equal budgets, so
+    # every admission wave is one prefill of 4 rows of the same shape
+    sp = [rng.integers(3, V, n).astype(np.int32)
+          for n in rng.integers(33, 65, 8)]
+    sampled = [(p, dict(temperature=0.8, top_k=50, top_p=0.95, seed=s))
+               for s, p in enumerate(sp[:4], start=1)]
+    greedy = [(p, {}) for p in sp[4:]]
+    mixed = [j for pair in zip(sampled, greedy) for j in pair]
+    got = {}
+    for name, jobs in (('mixed', mixed), ('again', mixed),
+                       ('reversed', mixed[::-1]), ('greedy only', greedy)):
+        engine = ServingEngine(model, **SERVE_KW)
+        wall, launches, before, after, outs, _f, _s = stepped_run(
+            torch, engine, [(0, p, kw) for p, kw in jobs])
+        check_outputs(f'sampling {name}', [p for p, _ in jobs], outs, V,
+                      [32] * len(jobs))
+        serving_launches(f'sampling {name}', engine, before, after,
+                         launches, 'paged_decode_attention')
+        paths[f'sampling {name}'] = launches
+        by = {id(p): o for (p, _), o in zip(jobs, outs)}
+        got[name] = [by.get(id(p)) for p in sp]
+        n_tok = after['tokens_generated'] - before['tokens_generated']
+        print(f'sampling {name}: {len(jobs)} requests, {n_tok} tokens in '
+              f'{wall:.3f} s: {n_tok / wall:.1f} tok/s [{card}]', flush=True)
+        del engine
+    rep = all(np_equal(got['mixed'][i], got[k][i]) for i in range(4)
+              for k in ('again', 'reversed'))
+    grd = all(np_equal(got['mixed'][i], got['greedy only'][i])
+              for i in range(4, 8))
+    print(f'sampling: sampled streams (temperature 0.8, top_k 50, top_p '
+          f'0.95) equal across two runs and two batch orders: {rep}; greedy '
+          f'rows equal to the greedy-only run: {grd}')
+    if not (rep and grd):
+        raise AssertionError('sampling: streams depend on the run or the '
+                             'batch')
+
+    # (d) an int8 pool with both features
+    engine = ServingEngine(model, kv_cache_dtype='int8', prefix_cache=True,
+                           prefill_chunk=256, **SERVE_KW)
+    engine.serve([warm], max_new_tokens=8)
+    wall, launches, before, after, outs, first, _ = stepped_run(
+        torch, engine, [(0, p, {}) for p in prompts]
+        + [(1, p, {}) for p in long])
+    check_outputs('int8 prefix+chunked', prompts + long, outs, V, [32] * 10)
+    serving_launches('int8 prefix+chunked', engine, before, after, launches,
+                     'paged_decode_attention_int8')
+    paths['int8 prefix+chunked'] = launches
+    n_tok = after['tokens_generated'] - before['tokens_generated']
+    pfx = after['prefix']
+    print(f'int8 prefix+chunked: 8 system-prompt requests + two 1536-token '
+          f'prompts, {n_tok} tokens in {wall:.3f} s: {n_tok / wall:.1f} '
+          f'tok/s, TTFT p50 {pct(np, first, 50) * 1e3:.1f} ms, hits '
+          f'{pfx["hits"]}, hit tokens {pfx["hit_tokens"]}, chunked '
+          f'admissions {pfx["chunked_admissions"]}, chunk steps '
+          f'{pfx["chunk_steps"]}, prefill tokens '
+          f'{after["prefill_tokens"] - before["prefill_tokens"]} [{card}]',
+          flush=True)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prefix_agreement(torch, np, card, system, prompts, long)
+    print(f'prefix: phase took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return paths
+
+
+def prefix_agreement(torch, np, card, system, prompts, long):
+    """At Llama-7B width, 2 layers, float32: the streams of an engine
+    with both features equal to the monolithic engine's over float32 and
+    int8 pools (asserted), and a one-token forward with per-row write
+    offsets over a contiguous cache (K7, L launches) equal to the plain
+    versions within 1e-3."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    cfg = dataclasses.replace(llama_7b(), num_hidden_layers=2,
+                              dtype='float32')
+    model = LlamaForCausalLM(cfg, seed=2)
+    # a 256-token system prompt (16 pages) with the burst's suffixes, and
+    # a 700-token prompt that prefills in chunks of 128
+    jobs = [np.concatenate([system[:256], p[512:]]) for p in prompts[:4]]
+    jobs.append(long[0][:700])
+    for kv in (None, 'int8'):
+        kw = dict(SERVE_KW, max_new_tokens=16, kv_cache_dtype=kv)
+        want = ServingEngine(model, **kw).serve(jobs)
+        engine = ServingEngine(model, prefix_cache=True, prefill_chunk=128,
+                               **kw)
+        engine.serve([system[:256]], max_new_tokens=4)
+        got = engine.serve(jobs)
+        equal = all(np_equal(a, b) for a, b in zip(got, want))
+        s = engine.stats()['prefix']
+        name = 'int8' if kv else 'float32'
+        print(f'prefix agreement float32, {name} pools, Llama-7B width, 2 '
+              f'layers: {len(jobs)} requests x 16 tokens with prefix_cache '
+              f'and prefill_chunk=128 ({s["hits"]} hits, '
+              f'{s["chunked_admissions"]} chunked admissions, '
+              f'{s["chunk_steps"]} chunk steps) equal to the monolithic '
+              f'engine: {equal} [{card}]', flush=True)
+        if not (equal and s['hits'] and s['chunk_steps']
+                and engine.allocator.in_use() == 0):
+            raise AssertionError(f'prefix agreement ({name} pools): streams '
+                                 f'differ, no hit or chunk, or pages held')
+
+    # one-token steps at per-row offsets over a contiguous cache
+    dev = model.device
+    starts = torch.tensor([0, 37, 100, 5], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ids = torch.randint(3, cfg.vocab_size, (4, 17), device=dev,
+                        generator=gen)
+
+    def run():
+        caches = model.init_cache(4, 160)
+        with torch.no_grad():
+            model(ids[:, :16], caches=caches, kv_write_pos=starts)
+            logits, _ = model(ids[:, 16:], caches=caches,
+                              kv_write_pos=starts + 16)
+        return logits.float()
+
+    got, counts = count_launches(torch, run)
+    with plain_kernels():
+        want = run()
+    L = cfg.num_hidden_layers
+    gap = float((got - want).abs().max())
+    print(f'per-row offsets over a contiguous cache, float32: a 16-token '
+          f'chunk then a one-token step at starts {starts.tolist()}: '
+          f'decode_attention launches {counts["decode_attention"]} (L = '
+          f'{L}), max |kernels - plain| logit {gap:.6g} (bound 1e-3)')
+    if counts['decode_attention'] != L or not gap <= 1e-3:
+        raise AssertionError('per-row offsets: K7 not launched once per '
+                             'layer, or logits off the plain versions')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import numpy as np
@@ -3071,6 +3477,11 @@ def main():
 
         # 11. Qwen2-7B widths: serving, decode, fp8 weights, agreement
         qwen2_launches = qwen2_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 12. per-request sampling, prefix caching, chunked prefill
+        prefix_launches = prefix_phase(torch, np, card)
 
         records = []
         for name, src, rep in (
@@ -3111,7 +3522,7 @@ def main():
                        'decode': decode_launches.get(name, 0),
                        'fused': fused_launches.get(name, 0),
                        'train': train_launches[name]}
-            for paths in (swa_launches, qwen2_launches):
+            for paths in (swa_launches, qwen2_launches, prefix_launches):
                 by_path.update((path, counts.get(name, 0))
                                for path, counts in paths.items())
             records.append({

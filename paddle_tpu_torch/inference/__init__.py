@@ -1,7 +1,9 @@
 from .engine import DEFAULT_BUCKETS, DecodeEngine, bucket_length
-from .serving import (BlockAllocator, OutOfBlocks, Request, RequestFailed,
-                      RequestQueue, ServingEngine)
+from .serving import (BlockAllocator, InvalidSamplingParams, OutOfBlocks,
+                      Request, RequestFailed, RequestQueue, ServingEngine,
+                      prompt_page_hashes)
 
-__all__ = ['BlockAllocator', 'DEFAULT_BUCKETS', 'DecodeEngine', 'OutOfBlocks',
-           'Request', 'RequestFailed', 'RequestQueue', 'ServingEngine',
-           'bucket_length']
+__all__ = ['BlockAllocator', 'DEFAULT_BUCKETS', 'DecodeEngine',
+           'InvalidSamplingParams', 'OutOfBlocks', 'Request', 'RequestFailed',
+           'RequestQueue', 'ServingEngine', 'bucket_length',
+           'prompt_page_hashes']

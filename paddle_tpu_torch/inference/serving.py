@@ -3,42 +3,74 @@
 
   1. `BlockAllocator` owns a pool of fixed-size KV pages shared by all
      in-flight requests: a free list of page ids, reused LIFO, page 0
-     reserved as the scratch page that inactive rows write to. The page
-     pools are allocated once per engine and never resized; allocation
-     is id bookkeeping only.
+     reserved as the scratch page that inactive rows write to, and a
+     refcount per held page. The page pools are allocated once per
+     engine and never resized; allocation is id bookkeeping only.
 
   2. `ServingEngine.step()` is one scheduler iteration over a fixed-slot
      batch (`max_slots` rows): admit queued requests into free slots
      (their prompts prefill into freshly allocated pages, grouped by
-     prompt-length bucket), make sure every live slot owns the pages
+     prompt-length bucket), advance every slot that is mid chunked
+     prefill by one chunk, make sure every decoding slot owns the pages
      its next window can write, then decode `decode_window` tokens for
      every slot — each step one model call over the paged pools, whose
      attention is the paged-decode kernel on the card — and read the
      emitted tokens back once per window.
 
-  3. Preemption: when the pool runs dry, the lowest-priority (then
-     youngest) in-flight request is evicted; its pages are freed and it
-     goes back to the queue with its generated prefix, and later resumes
-     by re-prefilling prompt + prefix. Greedy decoding makes the resumed
-     stream the uninterrupted one.
+  3. Per-request sampling: `submit(temperature=, top_k=, top_p=, seed=)`
+     (engine defaults: greedy). The window chooses each row's token
+     under its own parameters, uploaded as (SLOTS,) tensors: argmax for
+     temperature 0, else Gumbel-max over the row's filtered, tempered
+     logits, with uniforms hashed on the device from (request seed,
+     generated-token index, vocab id). A row's draw depends on nothing
+     else — not its batch, slot, preemption or how many windows ran —
+     so a resumed request replays the uninterrupted stream. The hash
+     is the port's own: sampled streams do not equal the JAX engine's
+     (threefry) draws, only their distribution does.
 
-  4. int8 KV (`kv_cache_dtype='int8'`): the pools hold int8 codes with a
+  4. Prefix caching (`prefix_cache=True`): a page holding a full block
+     of prompt tokens is indexed under the chain hash of the prompt up
+     to it (`prompt_page_hashes`); a later prompt with the same leading
+     pages shares them (refcount + 1) and prefills only the rest. A
+     page whose last holder leaves stays indexed on an LRU of cached
+     pages, harvested oldest first only when the free list is dry. A
+     prompt every cached page covers recomputes its last token into a
+     copy-on-write copy of the boundary page.
+
+  5. Chunked prefill (`prefill_chunk=N`): a context longer than N past
+     its prefix hit prefills N tokens per step, each chunk one forward
+     over the row's prefix gathered out of its pages with per-row write
+     offsets (`kv_write_pos`, the plain masked attention), its new rows
+     scattered back; the slot rides the step's window frozen on the
+     scratch page until its last chunk commits its logits, and decodes
+     its first window in that same step.
+
+  6. Preemption: when the pool runs dry, the lowest-priority (then
+     youngest) in-flight request is evicted; its page references are
+     dropped (a shared or indexed page outlives it) and it goes back to
+     the queue with its generated prefix, and later resumes by
+     re-prefilling prompt + prefix (its prompt pages can hit the cache).
+     The resumed stream is the uninterrupted one.
+
+  7. int8 KV (`kv_cache_dtype='int8'`): the pools hold int8 codes with a
      float32 scale per written row (`QuantPagedKVCache`); a row's codes
      and scale are a pure function of its values, so a re-prefill after
-     preemption rewrites the same bytes and greedy streams stay the
-     uninterrupted ones. The admission prefill writes into a
+     preemption rewrites the same bytes and streams stay the
+     uninterrupted ones. Every multi-token forward (the admission
+     prefill, a chunk over a gathered prefix) writes into a
      `RowQuantKVCache` with the same per-row rule and attends its rows
      dequantized; its bytes and scales are copied into the pages as
      they are. Decode steps run the paged kernel's per-row int8 mode.
 
-Greedy decoding only. Per request, `result(rid)` is what the JAX
-engine returns: the prompt, then `max_new_tokens` tokens, padded with
-eos after an early stop. Sampling, prefix caching, chunked prefill,
-speculative decoding, tensor parallelism, deadlines and load shedding,
-snapshot/restore, telemetry and AOT are not ported yet.
+Per request, `result(rid)` is what the JAX engine returns: the prompt,
+then `max_new_tokens` tokens, padded with eos after an early stop.
+Speculative decoding, deadlines, load shedding, snapshot/restore,
+tensor parallelism, telemetry and AOT are not ported yet: their
+arguments and methods raise NotImplementedError.
 """
 from __future__ import annotations
 
+import hashlib
 import heapq
 import itertools
 import time
@@ -46,7 +78,8 @@ import time
 import numpy as np
 import torch
 
-from ..models.generation import QuantPagedKVCache, RowQuantKVCache
+from ..models.generation import (QuantPagedKVCache, RowQuantKVCache,
+                                 filter_logits_batched)
 from .engine import DEFAULT_BUCKETS, bucket_length
 
 
@@ -67,16 +100,33 @@ class RequestFailed(RuntimeError):
         self.error = error
 
 
+class InvalidSamplingParams(ValueError):
+    """`submit()` refused a request's sampling parameters (temperature
+    < 0, top_p outside (0, 1]) before copying its prompt. top_k is
+    clamped to the vocabulary instead."""
+
+
 def _ceil_div(a, b):
     return -(-a // b)
 
 
 class BlockAllocator:
-    """Free-list allocator over a fixed pool of KV-cache pages.
+    """Free-list allocator over a fixed pool of KV-cache pages, with a
+    refcount per held page and a prefix index.
 
     Page 0 is reserved as the scratch page, so usable capacity is
     num_blocks - 1 and every handed-out id is >= 1. Freed ids are reused
-    LIFO (most recently freed first — deterministic)."""
+    LIFO (most recently freed first — deterministic).
+
+    Prefix caching: `register_prefix` binds a held page that holds a
+    full block of prompt-token KV to its chain hash (first writer wins);
+    `match_prefix` walks a prompt's chain hashes to the longest indexed
+    run; `share` takes one more reference on each of those pages. A page
+    whose last reference is freed stays indexed on an LRU of cached
+    pages; `alloc` harvests that LRU oldest first only once the free
+    list is dry, so caching never shrinks the allocatable pool. `cow`
+    hands a writer a fresh page for a shared one (the caller copies the
+    rows and keeps its reference on the source until the copy ran)."""
 
     def __init__(self, num_blocks, block_size):
         num_blocks = int(num_blocks)
@@ -88,10 +138,17 @@ class BlockAllocator:
         self.block_size = int(block_size)
         # LIFO stack, low ids on top: the first allocs hand out 1, 2, ...
         self._free = list(range(num_blocks - 1, 0, -1))
-        self._held: set = set()
+        self._ref: dict = {}             # held page -> refcount
+        self._index: dict = {}           # chain hash -> page
+        self._hash_of: dict = {}         # indexed page -> chain hash
+        # refcount-0 indexed pages, oldest first (insertion order)
+        self._cached: dict = {}
         self.alloc_count = 0
         self.free_count = 0
         self.high_water = 0
+        self.cow_count = 0
+        self.prefix_shares = 0
+        self.prefix_evictions = 0
         # device bytes one page costs across all layers (k + v), set by
         # the owning engine from its pools
         self.bytes_per_page = None
@@ -101,40 +158,129 @@ class BlockAllocator:
         return self.num_blocks - 1
 
     def available(self):
-        return len(self._free)
+        """Pages an alloc can hand out: the free list and the cached
+        refcount-0 prefix pages."""
+        return len(self._free) + len(self._cached)
 
     def in_use(self):
-        return len(self._held)
+        return len(self._ref)
+
+    def cached(self):
+        return len(self._cached)
+
+    def shared(self):
+        """Held pages with more than one reference."""
+        return sum(1 for c in self._ref.values() if c > 1)
+
+    def refcount(self, page):
+        return self._ref.get(page, 0)
 
     def utilization(self):
-        return len(self._held) / max(self.usable, 1)
+        return len(self._ref) / max(self.usable, 1)
 
     def alloc(self, n):
         """n page ids, or OutOfBlocks (the pool is untouched on
-        failure)."""
+        failure). When the free list alone cannot cover n, cached prefix
+        pages are unindexed oldest first to make up the rest."""
         n = int(n)
         if n < 0:
             raise ValueError(f'cannot allocate {n} pages')
-        if n > len(self._free):
+        if n > self.available():
             raise OutOfBlocks(
-                f'need {n} page(s), {len(self._free)} free '
-                f'({len(self._held)}/{self.usable} in use)')
+                f'need {n} page(s), {self.available()} free '
+                f'({len(self._ref)}/{self.usable} in use)')
+        harvest = max(0, n - len(self._free))
+        for p in list(itertools.islice(self._cached, harvest)):
+            self._unindex(p)
+            del self._cached[p]
+            self._free.append(p)
+        self.prefix_evictions += harvest
         pages = [self._free.pop() for _ in range(n)]
-        self._held.update(pages)
+        for p in pages:
+            self._ref[p] = 1
         self.alloc_count += n
-        self.high_water = max(self.high_water, len(self._held))
+        self.high_water = max(self.high_water, len(self._ref))
         return pages
 
     def free(self, pages):
-        """Return pages to the free list. Freeing a page that is not held
-        (double free, foreign id, the scratch page) raises."""
+        """Drop one reference per listed page. A page's last reference
+        returns it to the free list, or to the cached LRU when it is
+        indexed. Dropping more references than are held (double free,
+        foreign id, the scratch page) raises, and nothing changes."""
         pages = list(pages)
-        if len(set(pages)) != len(pages) or not self._held.issuperset(pages):
+        drops: dict = {}
+        for p in pages:
+            drops[p] = drops.get(p, 0) + 1
+        if any(self._ref.get(p, 0) < k for p, k in drops.items()):
             raise ValueError(f'pages {pages} are not all currently '
                              f'allocated (double-free or foreign id)')
-        self._held.difference_update(pages)
-        self._free.extend(pages)
+        for p in pages:
+            self._ref[p] -= 1
+            if self._ref[p]:
+                continue
+            del self._ref[p]
+            if p in self._hash_of:
+                self._cached[p] = None           # LRU tail (newest)
+            else:
+                self._free.append(p)
         self.free_count += len(pages)
+
+    def match_prefix(self, hashes):
+        """Pages of the longest indexed leading run of `hashes` (held or
+        cached now: `share` them before any other alloc)."""
+        pages = []
+        for h in hashes:
+            p = self._index.get(h)
+            if p is None:
+                break
+            pages.append(p)
+        return pages
+
+    def share(self, pages):
+        """One more reference on each page: held pages count up, cached
+        ones come off the LRU. A free page raises (nothing changes)."""
+        pages = list(pages)
+        for p in pages:
+            if p not in self._ref and p not in self._cached:
+                raise ValueError(
+                    f'page {p} is neither held nor cached — cannot share')
+        for p in pages:
+            if p in self._cached:
+                del self._cached[p]
+                self._ref[p] = 1
+            else:
+                self._ref[p] += 1
+        self.prefix_shares += len(pages)
+        self.high_water = max(self.high_water, len(self._ref))
+        return pages
+
+    def register_prefix(self, page, h):
+        """Bind chain hash `h` to held `page`, whose full block of
+        prompt-token KV is written. First writer wins: a bound hash
+        keeps its page, and this one stays unindexed. Returns whether
+        the binding was made."""
+        if page not in self._ref:
+            raise ValueError(f'page {page} is not allocated')
+        if h in self._index:
+            return False
+        self._index[h] = page
+        self._hash_of[page] = h
+        return True
+
+    def cow(self, page):
+        """A fresh page for a writer of held `page`. The caller keeps its
+        reference on `page` until the rows are copied: freed before, an
+        indexed source could be harvested and overwritten first."""
+        if page not in self._ref:
+            raise ValueError(f'page {page} is not allocated — cannot CoW')
+        new = self.alloc(1)[0]
+        self.cow_count += 1
+        return new
+
+    def _unindex(self, page):
+        h = self._hash_of.pop(page, None)
+        if h is not None and self._index.get(h) == page:
+            del self._index[h]
 
     def stats(self):
         s = {'num_blocks': self.num_blocks, 'block_size': self.block_size,
@@ -142,29 +288,71 @@ class BlockAllocator:
              'utilization': round(self.utilization(), 4),
              'high_water': self.high_water, 'allocs': self.alloc_count,
              'frees': self.free_count}
+        prefix = {'shared_pages': self.shared(),
+                  'cached_pages': len(self._cached),
+                  'indexed_pages': len(self._hash_of),
+                  'cow_pages': self.cow_count,
+                  'shares': self.prefix_shares,
+                  'evictions': self.prefix_evictions}
         if self.bytes_per_page:
             bpp = int(self.bytes_per_page)
             s.update(bytes_per_page=bpp, bytes_total=self.num_blocks * bpp,
                      bytes_in_use=self.in_use() * bpp,
                      bytes_high_water=self.high_water * bpp)
+            prefix.update(bytes_shared=prefix['shared_pages'] * bpp,
+                          bytes_cached=prefix['cached_pages'] * bpp,
+                          bytes_cow=prefix['cow_pages'] * bpp)
+        s['prefix'] = prefix
         return s
+
+
+# the JAX package's salt: equal prompts give equal digests in both
+_PREFIX_SALT = b'paddle_tpu.prefix.v1'
+
+
+def prompt_page_hashes(prompt, block_size):
+    """Chain hashes of the full pages of `prompt`: one 16-byte blake2b
+    digest per `block_size` int32 tokens, each over the previous digest
+    and the page's bytes, so hash k stands for the whole prompt through
+    page k."""
+    prompt = np.asarray(prompt, np.int32).reshape(-1)
+    n = len(prompt) // block_size
+    raw = np.ascontiguousarray(prompt[:n * block_size]).tobytes()
+    step = 4 * block_size
+    out = []
+    h = _PREFIX_SALT
+    for i in range(n):
+        h = hashlib.blake2b(h + raw[i * step:(i + 1) * step],
+                            digest_size=16).digest()
+        out.append(h)
+    return out
 
 
 class Request:
     """One serving request. `generated` accumulates committed tokens
     across admissions (a preempted request keeps its prefix and resumes
-    by re-prefill over prompt + prefix). Terminal states: `finished`
-    (`result` holds the output ids) and `failed` (`reason`, `error`)."""
+    by re-prefill over prompt + prefix). `temperature` / `top_k` /
+    `top_p` / `sample_seed` are its sampling parameters (temperature 0:
+    greedy). Terminal states: `finished` (`result` holds the output
+    ids) and `failed` (`reason`, `error`)."""
 
     __slots__ = ('rid', 'prompt', 'max_new_tokens', 'priority', 'generated',
-                 'seq', 'state', 'admit_seq', 'reason', 'error', 'result')
+                 'seq', 'state', 'admit_seq', 'reason', 'error', 'result',
+                 'temperature', 'top_k', 'top_p', 'sample_seed',
+                 'page_hashes')
 
-    def __init__(self, rid, prompt, max_new_tokens, priority):
+    def __init__(self, rid, prompt, max_new_tokens, priority,
+                 temperature=0.0, top_k=0, top_p=1.0, sample_seed=None):
         self.rid = rid
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.priority = int(priority)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.sample_seed = int(rid if sample_seed is None else sample_seed)
         self.generated: list = []
+        self.page_hashes = None  # the prompt's chain hashes, when needed
         self.seq = None          # arrival order, stamped by RequestQueue
         self.admit_seq = None    # last admission order (preemption ties)
         self.state = 'queued'
@@ -179,6 +367,11 @@ class Request:
     @property
     def context_len(self):
         return len(self.prompt) + len(self.generated)
+
+    def context(self):
+        """Prompt + generated ids (what a re-prefill runs over)."""
+        return np.concatenate([self.prompt,
+                               np.asarray(self.generated, np.int32)])
 
 
 class RequestQueue:
@@ -212,6 +405,68 @@ class RequestQueue:
 
 
 # ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+# A sampled token's randomness is a hash of (request seed, generated-token
+# index, sub-stream, vocab id), computed on the device in int64 tensors
+# that hold 32-bit values: no generator state, so a resumed request
+# re-derives exactly the uniforms of its uninterrupted run.
+_SUB_PROPOSE = 0        # choosing a decode window's token
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """x * c mod 2**32 for x in [0, 2**32) and a 32-bit constant c, in
+    partial products below 2**49 (no int64 overflow)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """murmur3's 32-bit finalizer: a bijection with full avalanche."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _row_keys(seed, gen, sub):
+    """One 32-bit key per row: the request seed (B,), then the row's
+    generated-token index (B,), then the sub-stream id folded in."""
+    k = _mix32((seed.to(torch.int64) ^ 0x9E3779B9) & _M32)
+    k = _mix32(k ^ (gen.to(torch.int64) & _M32))
+    return _mix32(k ^ int(sub))
+
+
+def _gumbel(keys, V):
+    """(B, V) standard Gumbel noise: a uniform in (0, 1) hashed from each
+    row's key and the vocab id, then -log(-log(u))."""
+    v = torch.arange(V, device=keys.device, dtype=torch.int64)
+    h = _mix32(_mix32(keys[:, None] ^ _mul32(v, 0x9E3779B1)))
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def _filtered(logits, temp, topk, topp):
+    """Each row's logits in float32 over its temperature (rows with
+    temperature 0 use 1: their choice is the argmax), then its top-k /
+    nucleus filter."""
+    safe_t = torch.where(temp > 0, temp, torch.ones_like(temp))
+    return filter_logits_batched(logits.float() / safe_t[:, None], topk,
+                                 topp)
+
+
+def _sample_rows(logits, temp, topk, topp, keys):
+    """Each row's next token: argmax where temp == 0, else Gumbel-max
+    over its filtered, tempered logits (a draw from their softmax)."""
+    greedy = logits.float().argmax(-1)
+    f = _filtered(logits, temp, topk, topp)
+    sampled = (f + _gumbel(keys, f.shape[-1])).argmax(-1)
+    return torch.where(temp > 0, sampled, greedy)
+
+
+# ---------------------------------------------------------------------------
 # Device steps
 # ---------------------------------------------------------------------------
 
@@ -242,10 +497,15 @@ def _tmp_cache(model, pages, K, Sb):
     return model.init_cache(K, Sb)
 
 
-def _pool_scatter(pc, tmp_entry, pflat, sflat):
+def _pool_scatter(pc, tmp_entry, pflat, sflat, take=None):
     """Write one layer's contiguous temp-cache rows into its page pool at
-    the flat (page, slot) targets, in place. Int8 pools take the int8
-    bytes and the per-row scales as they are: no second quantization."""
+    the flat (page, slot) targets, in place. `take` (K, S) first picks
+    row b's temp-cache columns take[b] (a chunk scatters only the rows
+    it wrote). Int8 pools take the int8 bytes and the per-row scales as
+    they are: no second quantization."""
+    if take is not None:
+        rows = torch.arange(take.shape[0], device=take.device)[:, None]
+        tmp_entry = [f[rows, take] for f in tmp_entry]
     n = pflat.shape[0]
     if isinstance(pc, QuantPagedKVCache):
         kq, vq, ks, vs = tmp_entry
@@ -259,6 +519,26 @@ def _pool_scatter(pc, tmp_entry, pflat, sflat):
     rows = (n,) + tuple(k.shape[2:])
     pc.kp[pflat, :, sflat, :] = k.reshape(rows).to(pc.kp.dtype)
     pc.vp[pflat, :, sflat, :] = v.reshape(rows).to(pc.vp.dtype)
+
+
+def _pool_gather(pages, btabs, start, L):
+    """Each row's committed prefix [0, start[b]) gathered out of its pages
+    into a contiguous temp cache of length L (columns past start read the
+    scratch page and are never attended). Float pools give (k, v) pairs
+    of the pools' dtype; int8 pools their bytes and per-row scales as a
+    RowQuantKVCache, so a continuation attends exactly the values a
+    paged decode step would."""
+    K, maxb = btabs.shape
+    bs = pages[0].kp.shape[2]
+    s = torch.arange(L, device=btabs.device)
+    page = btabs.long()[:, (s // bs).clamp(max=maxb - 1)]
+    page = torch.where(s[None, :] < start[:, None], page, 0)       # (K, L)
+    slot = (s % bs).expand(K, L)
+    if _pool_quant(pages):
+        return [RowQuantKVCache(pc.kp[page, :, slot], pc.vp[page, :, slot],
+                                pc.ks[page, :, slot], pc.vs[page, :, slot])
+                for pc in pages]
+    return [(pc.kp[page, :, slot], pc.vp[page, :, slot]) for pc in pages]
 
 
 def _prefill_kv(model, pages, ids, real_len, btabs):
@@ -286,21 +566,66 @@ def _prefill_kv(model, pages, ids, real_len, btabs):
     return last, pages
 
 
+def _chunk_kv(model, pages, ids, chunk_len, start, btabs, L, cow=None):
+    """Chunked / continuation prefill into pages: row b owns positions
+    [0, start[b]) in its pages (an earlier chunk's, or shared prefix
+    pages) and appends its chunk ids[b, :chunk_len[b]] at positions
+    start[b] + i. `cow` (src, dst) page ids are copied first (dst :=
+    src over every pool field, int8 scale rows included), so the gather
+    and the scatter both see the private copies the block tables
+    already name. Then each row's prefix is gathered into a contiguous
+    cache of length L (>= start + ids' width, so every write of the
+    forward lands inside it), the chunk runs with per-row write offsets
+    (`kv_write_pos`: causal within the chunk, every prefix row
+    visible), and only the chunk's rows are scattered back (pad
+    columns to the scratch page). Returns (each row's last-token logits
+    (K, V), pages)."""
+    K, Cb = ids.shape
+    if cow is not None:
+        src, dst = cow
+        for pc in pages:
+            for f in pc:
+                f[dst] = f[src]
+    tmp = _pool_gather(pages, btabs, start, L)
+    logits, tmp = model(ids, caches=tmp, kv_write_pos=start)
+    cl = chunk_len.long()
+    last = logits[torch.arange(K, device=ids.device), (cl - 1).clamp_min(0)]
+    bs = pages[0].kp.shape[2]
+    maxb = btabs.shape[1]
+    i = torch.arange(Cb, device=ids.device)
+    wpos = start.long()[:, None] + i[None, :]                       # (K, Cb)
+    page = torch.gather(btabs.long(), 1, (wpos // bs).clamp(max=maxb - 1))
+    page = torch.where(i[None, :] < cl[:, None], page, 0)
+    pflat, sflat = page.reshape(-1), (wpos % bs).reshape(-1)
+    take = wpos.clamp(max=L - 1)
+    for t, pc in zip(tmp, pages):
+        _pool_scatter(pc, t, pflat, sflat, take=take)
+    return last, pages
+
+
 def _window(model, pages, last_logits, btab, ctx, live, budget, *, window,
-            eos_token_id):
-    """One greedy decode window for the whole fixed-slot batch: per step,
-    choose every slot's next token from the carried logits (argmax),
-    then step the model over the paged caches (per-row write positions
-    ctx, attention through the block tables) and advance the committed
-    length of the rows that committed. Rows freeze when they hit eos,
-    burn their budget, or were never live: frozen rows still ride
+            eos_token_id, sampling=None):
+    """One decode window for the whole fixed-slot batch: per step,
+    choose every slot's next token from the carried logits, then step
+    the model over the paged caches (per-row write positions ctx,
+    attention through the block tables) and advance the committed
+    length of the rows that committed. `sampling` None is greedy
+    (argmax) for every row; else (temp, topk, topp, seed, plen) (SLOTS,)
+    tensors, and each row chooses by `_sample_rows` keyed on its seed
+    and generated-token index ctx - plen. Rows freeze when they hit
+    eos, burn their budget, or were never live: frozen rows still ride
     through the forward but commit nothing. Returns (tokens (SLOTS,
     window), last_logits, pages)."""
     pad_tok = eos_token_id if eos_token_id is not None else 0
     finished = ~live
     toks = []
     for t in range(window):
-        tok = last_logits.float().argmax(-1)
+        if sampling is None:
+            tok = last_logits.float().argmax(-1)
+        else:
+            temp, topk, topp, seed, plen = sampling
+            tok = _sample_rows(last_logits, temp, topk, topp,
+                               _row_keys(seed, ctx - plen, _SUB_PROPOSE))
         frozen = finished | (t >= budget)
         tok = torch.where(frozen, pad_tok, tok)
         commit = ~frozen
@@ -314,12 +639,25 @@ def _window(model, pages, last_logits, btab, ctx, live, budget, *, window,
     return torch.stack(toks, 1), last_logits, pages
 
 
+# the JAX engine's arguments the port does not take yet, by feature
+_UNPORTED = dict.fromkeys(('draft', 'num_draft_tokens'),
+                          'speculative decoding')
+_UNPORTED.update(dict.fromkeys(('max_queue', 'admit_watermark',
+                                'shed_policy'), 'load shedding'))
+_UNPORTED.update(dict.fromkeys(('mesh', 'tp'), 'tensor parallelism'))
+_UNPORTED.update(dict.fromkeys(
+    ('postmortem_dir', 'ops_port', 'ops_host', 'watchdog', 'slo_rules',
+     'ts_interval_s', 'metrics_registry', 'journal'), 'telemetry'))
+
+
 class ServingEngine:
-    """Continuous-batching greedy serving over one model.
+    """Continuous-batching serving over one model.
 
         engine = ServingEngine(model, max_slots=8, max_new_tokens=64,
-                               eos_token_id=2)
+                               eos_token_id=2, prefix_cache=True,
+                               prefill_chunk=256)
         rid = engine.submit(prompt_ids)          # 1-D int array
+        rid2 = engine.submit(ids, temperature=0.8, top_p=0.95, seed=7)
         engine.run()                             # drain queue + batch
         out = engine.result(rid)                 # (S + max_new,) ids
 
@@ -328,11 +666,23 @@ class ServingEngine:
     Runs on the model's device. The model must take `block_tables` and
     `kv_write_pos` in its cached forward (the Llama family does).
     `kv_cache_dtype`: None (the model's dtype), 'bfloat16', or 'int8'
-    (int8 pages with per-row scales)."""
+    (int8 pages with per-row scales). `temperature` / `top_k` / `top_p`
+    are the defaults of `submit`. `prefix_cache` shares the pages of
+    equal prompt prefixes; `prefill_chunk` prefills long contexts that
+    many tokens per step (both off by default)."""
 
     def __init__(self, model, max_slots=8, block_size=16, num_blocks=None,
                  max_context_len=None, max_new_tokens=32, decode_window=8,
-                 eos_token_id=None, buckets=None, kv_cache_dtype=None):
+                 temperature=0.0, top_k=0, top_p=1.0, eos_token_id=None,
+                 buckets=None, prefix_cache=False, prefill_chunk=None,
+                 kv_cache_dtype=None, **unported):
+        for name, value in unported.items():
+            if name not in _UNPORTED:
+                raise TypeError(f'ServingEngine got an unexpected keyword '
+                                f'argument {name!r}')
+            if value is not None:
+                raise NotImplementedError(
+                    f'{_UNPORTED[name]} ({name}=) is not ported yet')
         if getattr(model.config, 'sliding_window', None) is not None:
             raise NotImplementedError(
                 'sliding-window models are not paged-servable yet')
@@ -353,9 +703,17 @@ class ServingEngine:
         self.decode_window = int(decode_window)
         if self.decode_window < 1 or self.max_slots < 1:
             raise ValueError('decode_window and max_slots must be >= 1')
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
         self.eos_token_id = (int(eos_token_id) if eos_token_id is not None
                              else None)
         self.buckets = tuple(sorted(buckets)) if buckets else DEFAULT_BUCKETS
+        self.prefix_cache = bool(prefix_cache)
+        self.prefill_chunk = (None if prefill_chunk is None
+                              else int(prefill_chunk))
+        if self.prefill_chunk is not None and self.prefill_chunk < 1:
+            raise ValueError('prefill_chunk must be >= 1 (or None)')
         if max_context_len is None:
             max_context_len = int(getattr(model.config,
                                           'max_position_embeddings', 2048))
@@ -382,12 +740,24 @@ class ServingEngine:
             for f in pc)
 
         # host-authoritative per-slot state (uploaded each window)
-        self._slot_req: list = [None] * self.max_slots
-        self._slot_pages: list = [[] for _ in range(self.max_slots)]
-        self._btab = np.zeros((self.max_slots, self.max_blocks_per_seq),
-                              np.int32)
-        self._ctx = np.zeros((self.max_slots,), np.int32)
-        self._budget = np.zeros((self.max_slots,), np.int32)
+        S = self.max_slots
+        self._slot_req: list = [None] * S
+        self._slot_pages: list = [[] for _ in range(S)]
+        self._btab = np.zeros((S, self.max_blocks_per_seq), np.int32)
+        self._ctx = np.zeros((S,), np.int32)
+        self._budget = np.zeros((S,), np.int32)
+        self._temp = np.zeros((S,), np.float32)
+        self._topk = np.zeros((S,), np.int64)
+        self._topp = np.ones((S,), np.float32)
+        self._seed = np.zeros((S,), np.int64)
+        self._plen = np.zeros((S,), np.int64)
+        # prefill progress: None = decoding; an int = the context tokens
+        # already in pages (the slot is mid chunked / continuation
+        # prefill and rides the window frozen on the scratch page).
+        # `_cow_pending` is the (src, dst) page copy its first chunk
+        # makes; the slot holds a reference on src until then.
+        self._pfill: list = [None] * S
+        self._cow_pending: list = [None] * S
 
         # every submitted request is in `_live` (queued / running /
         # preempted) or `_terminal` (finished / failed, popped by
@@ -396,14 +766,20 @@ class ServingEngine:
         self._live: dict = {}
         self._terminal: dict = {}
         self.counts = {'finished': 0, 'failed': 0}
+        self.prefix_counts = {'hits': 0, 'misses': 0, 'hits_skipped': 0,
+                              'hit_tokens': 0, 'chunked_admissions': 0,
+                              'chunk_steps': 0}
         self._admit_seq = itertools.count()
         self.preemption_count = 0
         self.steps = 0
         # model calls, by kind: what the kernels' launch counts follow
         # (a decode forward runs the paged-attention kernel once per
-        # layer; every forward runs 2 * layers + 1 RMSNorms)
+        # layer; every forward runs 2 * layers + 1 RMSNorms; prefill and
+        # chunk forwards attend through the plain masked path)
         self.prefill_forwards = 0
+        self.chunk_forwards = 0
         self.decode_forwards = 0
+        self.prefill_tokens = 0          # context tokens run through them
         self._tokens_out = 0
         self._serve_time = 0.0
 
@@ -420,20 +796,46 @@ class ServingEngine:
             'serve_time_s': self._serve_time,
             'steps': self.steps,
             'prefill_forwards': self.prefill_forwards,
+            'chunk_forwards': self.chunk_forwards,
             'decode_forwards': self.decode_forwards,
+            'prefill_tokens': self.prefill_tokens,
             'in_flight': self.in_flight(),
             'queue_depth': len(self.queue),
             'preemptions': self.preemption_count,
             **self.counts,
+            'prefix': {'enabled': self.prefix_cache,
+                       'prefill_chunk': self.prefill_chunk,
+                       **self.prefix_counts,
+                       **self.allocator.stats()['prefix']},
             'blocks': self.allocator.stats(),
         }
 
     # -- public API --------------------------------------------------------
 
-    def submit(self, prompt, max_new_tokens=None, priority=0):
-        """Queue one request; returns its id for `result()`. A request
-        that can never fit (longer than max_context_len, or more pages
-        than the whole pool) is refused here."""
+    def submit(self, prompt, max_new_tokens=None, priority=0,
+               deadline_s=None, temperature=None, top_k=None, top_p=None,
+               seed=None):
+        """Queue one request; returns its id for `result()`. Sampling
+        parameters default to the engine's; `seed` (default: the rid)
+        keys the request's random stream. Refused here, before the
+        prompt is copied: temperature < 0 or top_p outside (0, 1]
+        (InvalidSamplingParams), and a request that can never fit
+        (longer than max_context_len, or more pages than the whole
+        pool). top_k clamps to the vocabulary (<= 0 keeps all)."""
+        if deadline_s is not None:
+            raise NotImplementedError('deadlines (deadline_s=) are not '
+                                      'ported yet')
+        temperature = (self.temperature if temperature is None
+                       else float(temperature))
+        if temperature < 0:
+            raise InvalidSamplingParams(
+                f'temperature must be >= 0 (0 = greedy), got {temperature}')
+        top_p = self.top_p if top_p is None else float(top_p)
+        if not 0.0 < top_p <= 1.0:
+            raise InvalidSamplingParams(
+                f'top_p must be in (0, 1], got {top_p}')
+        top_k = self.top_k if top_k is None else int(top_k)
+        top_k = max(0, min(top_k, int(self.model.config.vocab_size)))
         mnt = (self.max_new_tokens if max_new_tokens is None
                else int(max_new_tokens))
         if mnt < 1:
@@ -451,7 +853,9 @@ class ServingEngine:
                 f'request needs {_ceil_div(total, self.block_size)} '
                 f'pages but the pool only has {self.allocator.usable} '
                 f'usable — grow num_blocks')
-        req = Request(self._rid, prompt, mnt, priority)
+        req = Request(self._rid, prompt, mnt, priority,
+                      temperature=temperature, top_k=top_k, top_p=top_p,
+                      sample_seed=self._rid if seed is None else int(seed))
         self._rid += 1
         self._live[req.rid] = req
         self.queue.push(req)
@@ -487,14 +891,23 @@ class ServingEngine:
                 break
         return steps
 
+    def snapshot(self, *args):
+        raise NotImplementedError('snapshot / restore is not ported yet')
+
+    restore = snapshot
+
+    def warmup(self, *args, **kwargs):
+        raise NotImplementedError('AOT warm-up is not ported yet (the port '
+                                  'runs eagerly)')
+
     @torch.no_grad()
     def step(self):
-        """One iteration: admit queued requests into free slots, top up
-        pages for the coming window (preempting if the pool is dry),
-        prefill the admitted prompts into their pages, decode one window
-        over all slots, then commit tokens and retire finished rows from
-        the one host read of the window. Returns the requests that
-        finished this step."""
+        """One iteration: admit queued requests into free slots, advance
+        every mid-prefill slot one chunk, top up pages for the coming
+        window (preempting if the pool is dry), prefill the admitted
+        prompts into their pages, decode one window over all slots, then
+        commit tokens and retire finished rows from the one host read of
+        the window. Returns the requests that finished this step."""
         t0 = time.perf_counter()
         try:
             return self._step_impl()
@@ -506,6 +919,20 @@ class ServingEngine:
         groups = self._admit()
         if not self.in_flight():
             return []
+        # every slot mid prefill advances one chunk; a slot whose last
+        # chunk runs now decodes its first window in this same step, so
+        # the top-up below must already cover it
+        chunk_rows = []
+        for slot, req in enumerate(self._slot_req):
+            p = self._pfill[slot]
+            if req is None or p is None:
+                continue
+            take = req.context_len - p
+            if self.prefill_chunk is not None:
+                take = min(take, self.prefill_chunk)
+            chunk_rows.append((slot, req, p, take))
+            self._pfill[slot] = (None if p + take >= req.context_len
+                                 else p + take)
         self._ensure_window_pages()
         if not self.in_flight():
             return []
@@ -514,21 +941,33 @@ class ServingEngine:
             group = [(s, r) for s, r in group if self._slot_req[s] is r]
             if group:
                 self._prefill_group(Sb, group)
+        chunk_rows = [row for row in chunk_rows
+                      if self._slot_req[row[0]] is row[1]]
+        if chunk_rows:
+            self._chunk_group(chunk_rows)
         W = self.decode_window
         dev = self.device
-        live = np.asarray([r is not None for r in self._slot_req])
+        live = np.asarray([r is not None and p is None
+                           for r, p in zip(self._slot_req, self._pfill)])
+        # slots mid prefill ride the window frozen on the scratch page
+        btab = np.where(live[:, None], self._btab, 0)
+        ctx = np.where(live, self._ctx, 0)
+        sampling = None
+        if (self._temp[live] > 0).any():
+            sampling = tuple(torch.as_tensor(a, device=dev) for a in (
+                self._temp, self._topk, self._topp, self._seed, self._plen))
         toks, self._last_logits, self._pages = _window(
             self.model, self._pages, self._last_logits,
-            torch.as_tensor(self._btab, device=dev),
-            torch.as_tensor(self._ctx, device=dev),
+            torch.as_tensor(btab, device=dev),
+            torch.as_tensor(ctx, device=dev),
             torch.as_tensor(live, device=dev),
             torch.as_tensor(self._budget, device=dev),
-            window=W, eos_token_id=self.eos_token_id)
+            window=W, eos_token_id=self.eos_token_id, sampling=sampling)
         self.decode_forwards += W
         tokens = toks.cpu().numpy()        # the one host read per window
         finished = []
         for slot, req in enumerate(self._slot_req):
-            if req is None:
+            if req is None or not live[slot]:
                 continue
             take = min(W, req.remaining)
             committed = []
@@ -557,23 +996,71 @@ class ServingEngine:
 
     def _admit(self):
         """Fill free slots from the queue head (priority order: a head
-        that cannot get its pages waits, nothing barges past it). Returns
-        this step's admissions grouped by prefill bucket, largest group
+        that cannot get its pages waits, nothing barges past it). With
+        the prefix cache, a head shares the cached pages of its prompt's
+        leading blocks and allocates the rest. A prefix hit, or a
+        context longer than `prefill_chunk`, goes to the chunk path;
+        the rest are returned grouped by prefill bucket, largest group
         first."""
         if not len(self.queue):
             return []
         free = self._free_slots()
         placed = []
         a = self.allocator
+        bs = self.block_size
         while free and len(self.queue):
             req = self.queue.peek()
-            need = _ceil_div(req.context_len, self.block_size)
-            if need > a.available():
+            total_pages = _ceil_div(req.context_len, bs)
+            hit = []
+            skipped = False
+            if self.prefix_cache:
+                if req.page_hashes is None:
+                    req.page_hashes = prompt_page_hashes(req.prompt, bs)
+                hit = a.match_prefix(req.page_hashes)
+            if hit:
+                # taken only when it shrinks the prefill to a smaller
+                # bucket (a short hit saves little and costs a gather);
+                # a skipped hit leaves the pages cached
+                suffix = req.context_len - min(len(hit) * bs,
+                                               req.context_len - 1)
+                if (bucket_length(suffix, self.buckets)
+                        >= bucket_length(req.context_len, self.buckets)):
+                    self.prefix_counts['hits_skipped'] += 1
+                    hit, skipped = [], True
+            # at least the last context token is recomputed (its logits
+            # seed the decode): a hit covering every token backs off one,
+            # into the boundary page, which the slot then copies on write
+            start = min(len(hit) * bs, req.context_len - 1)
+            cow = len(hit) * bs > start
+            need = total_pages - len(hit) + int(cow)
+            # cached pages the hit revives stop being allocatable
+            revive = sum(1 for p in hit if a.refcount(p) == 0)
+            if need > a.available() - revive:
                 break
             self.queue.pop()
+            pages = a.share(hit)
+            if cow:
+                # the slot's table names the copy; its reference on the
+                # source page is kept until the copy has run
+                pages = hit[:-1] + [a.cow(hit[-1])]
+            pages = pages + a.alloc(total_pages - len(hit))
             slot = free.pop(0)
-            self._place(slot, req, a.alloc(need))
-            placed.append((slot, req))
+            self._place(slot, req, pages)
+            if self.prefix_cache:
+                if hit:
+                    self.prefix_counts['hits'] += 1
+                    self.prefix_counts['hit_tokens'] += start
+                elif not skipped:
+                    self.prefix_counts['misses'] += 1
+            chunked = (self.prefill_chunk is not None
+                       and req.context_len - start > self.prefill_chunk)
+            if start > 0 or chunked:
+                self._pfill[slot] = start
+                self._cow_pending[slot] = ((hit[-1], pages[len(hit) - 1])
+                                           if cow else None)
+                self.prefix_counts['chunked_admissions'] += int(chunked)
+            else:
+                placed.append((slot, req))
         by_bucket: dict = {}
         for slot, req in placed:
             Sb = bucket_length(req.context_len, self.buckets)
@@ -581,48 +1068,115 @@ class ServingEngine:
         return sorted(by_bucket.items(), key=lambda kv: -len(kv[1]))
 
     def _place(self, slot, req, pages):
-        """Arm a slot (host bookkeeping; `_prefill_group` moves the KV)."""
+        """Arm a slot (host bookkeeping; the prefill moves the KV)."""
         self._slot_req[slot] = req
         self._slot_pages[slot] = pages
         self._btab[slot] = 0
         self._btab[slot, :len(pages)] = pages
         self._ctx[slot] = req.context_len
         self._budget[slot] = req.remaining
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._topp[slot] = req.top_p
+        self._seed[slot] = req.sample_seed & 0xFFFFFFFF
+        self._plen[slot] = len(req.prompt)
         req.state = 'running'
         req.admit_seq = next(self._admit_seq)
 
     def _prefill_group(self, Sb, group):
-        """Prefill one admission group (one bucket) into its pages and
-        commit each request's next-token logits to its slot's row."""
+        """Prefill one admission group (one bucket) into its pages,
+        commit each request's next-token logits to its slot's row, and
+        index its full prompt pages."""
         dev = self.device
         ids = np.zeros((len(group), Sb), np.int64)
         real_len = np.zeros((len(group),), np.int64)
         btabs = np.zeros((len(group), self.max_blocks_per_seq), np.int32)
         for i, (slot, req) in enumerate(group):
-            toks = np.concatenate([req.prompt,
-                                   np.asarray(req.generated, np.int32)])
-            ids[i, :len(toks)] = toks                         # RIGHT-pad
-            real_len[i] = len(toks)
+            ids[i, :req.context_len] = req.context()          # RIGHT-pad
+            real_len[i] = req.context_len
             btabs[i] = self._btab[slot]
         last, self._pages = _prefill_kv(
             self.model, self._pages, torch.as_tensor(ids, device=dev),
             torch.as_tensor(real_len, device=dev),
             torch.as_tensor(btabs, device=dev))
         self.prefill_forwards += 1
+        self.prefill_tokens += int(real_len.sum())
         slots = torch.as_tensor([s for s, _r in group], device=dev)
         self._last_logits[slots] = last.to(self._last_logits.dtype)
+        for slot, req in group:
+            self._register_prefix_pages(slot, req, 0, req.context_len)
+
+    def _chunk_group(self, rows):
+        """One chunk forward over `rows` = (slot, req, progress, take):
+        the pending copy-on-write copies first, then `_chunk_kv` with
+        the chunk width padded to a bucket and the gathered cache to the
+        bucket of the farthest write. Rows whose chunk completes their
+        context commit their logits; the copies' source references are
+        released once the forward is issued, and the chunk's full prompt
+        pages are indexed."""
+        dev = self.device
+        K = len(rows)
+        Cb = bucket_length(max(t for _s, _r, _p, t in rows), self.buckets)
+        L = bucket_length(max(p for _s, _r, p, _t in rows) + Cb,
+                          self.buckets)
+        ids = np.zeros((K, Cb), np.int64)
+        clen = np.zeros((K,), np.int64)
+        start = np.zeros((K,), np.int64)
+        btabs = np.zeros((K, self.max_blocks_per_seq), np.int32)
+        pairs = []
+        for i, (slot, req, p, take) in enumerate(rows):
+            ids[i, :take] = req.context()[p:p + take]
+            clen[i], start[i] = take, p
+            btabs[i] = self._btab[slot]
+            if self._cow_pending[slot] is not None:
+                pairs.append(self._cow_pending[slot])
+                self._cow_pending[slot] = None
+        cow = None
+        if pairs:
+            cow = tuple(torch.as_tensor(c, device=dev) for c in zip(*pairs))
+        last, self._pages = _chunk_kv(
+            self.model, self._pages, torch.as_tensor(ids, device=dev),
+            torch.as_tensor(clen, device=dev),
+            torch.as_tensor(start, device=dev),
+            torch.as_tensor(btabs, device=dev), L, cow=cow)
+        self.chunk_forwards += 1
+        self.prefill_tokens += int(clen.sum())
+        self.prefix_counts['chunk_steps'] += 1
+        done = [i for i, (s, _r, _p, _t) in enumerate(rows)
+                if self._pfill[s] is None]
+        if done:
+            slots = torch.as_tensor([rows[i][0] for i in done], device=dev)
+            self._last_logits[slots] = last[
+                torch.as_tensor(done, device=dev)].to(self._last_logits.dtype)
+        if pairs:
+            self.allocator.free([src for src, _dst in pairs])
+        for slot, req, p, take in rows:
+            self._register_prefix_pages(slot, req, p, p + take)
+
+    def _register_prefix_pages(self, slot, req, lo, hi):
+        """Index every full prompt page whose KV the forward over
+        context positions [lo, hi) completed (generated tokens are the
+        request's own and never index; a bound hash keeps its first
+        page)."""
+        if req.page_hashes is None:
+            return
+        pages = self._slot_pages[slot]
+        bs = self.block_size
+        for j in range(lo // bs, min(hi // bs, len(req.page_hashes))):
+            self.allocator.register_prefix(pages[j], req.page_hashes[j])
 
     def _ensure_window_pages(self):
-        """Every live slot must own pages covering the positions the
+        """Every decoding slot must own pages covering the positions the
         coming window can write (ctx .. ctx + min(window, remaining)). A
         dry pool preempts the lowest-priority / youngest request until
         the top-up fits (the needy slot may evict itself). A slot whose
         top-up still fails once it is the only request left is
-        unservable: that request fails alone."""
+        unservable: that request fails alone. Slots mid prefill own
+        their pages since admission and are skipped."""
         a = self.allocator
         for slot in range(self.max_slots):
             req = self._slot_req[slot]
-            if req is None:
+            if req is None or self._pfill[slot] is not None:
                 continue
             target = _ceil_div(
                 int(self._ctx[slot]) + min(self.decode_window,
@@ -688,13 +1242,26 @@ class ServingEngine:
         self._retire(req, 'finished', result=out)
 
     def _clear_slot(self, slot):
+        """Drop the slot's page references (a shared or indexed page
+        outlives it), and its pin on a copy-on-write source whose copy
+        never ran."""
         self.allocator.free(self._slot_pages[slot])
+        if self._cow_pending[slot] is not None:
+            self.allocator.free([self._cow_pending[slot][0]])
         self._slot_req[slot] = None
         self._slot_pages[slot] = []
         self._btab[slot] = 0
         self._ctx[slot] = 0
         self._budget[slot] = 0
+        self._temp[slot] = 0.0
+        self._topk[slot] = 0
+        self._topp[slot] = 1.0
+        self._seed[slot] = 0
+        self._plen[slot] = 0
+        self._pfill[slot] = None
+        self._cow_pending[slot] = None
 
 
 __all__ = ['ServingEngine', 'BlockAllocator', 'RequestQueue', 'Request',
-           'OutOfBlocks', 'RequestFailed']
+           'OutOfBlocks', 'RequestFailed', 'InvalidSamplingParams',
+           'prompt_page_hashes']

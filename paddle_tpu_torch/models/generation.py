@@ -40,6 +40,28 @@ def filter_logits(logits, top_k=0, top_p=1.0):
     return logits
 
 
+def filter_logits_batched(logits, top_k, top_p):
+    """Per-row `filter_logits` over (B, V) logits: top_k (B,) int and
+    top_p (B,) float tensors on the logits' device, so one batch mixes
+    greedy, top-k and nucleus rows. A row's top_k <= 0 keeps all and
+    top_k > V clamps to V; a row's top_p == 1.0 keeps all (masked, not
+    computed away: the cumulative sum's rounding must not drop a token
+    of a keep-all row)."""
+    V = logits.shape[-1]
+    tk = top_k.to(device=logits.device, dtype=torch.int64)
+    kth = torch.gather(torch.sort(logits, dim=-1).values, -1,
+                       (V - tk.clamp(1, V))[:, None])
+    logits = torch.where((tk > 0)[:, None] & (logits < kth), float('-inf'),
+                         logits)
+    tp = top_p.to(device=logits.device, dtype=torch.float32)
+    sorted_desc = torch.flip(torch.sort(logits, dim=-1).values, [-1])
+    cum = torch.cumsum(torch.softmax(sorted_desc, dim=-1), dim=-1)
+    cutoff_idx = (cum < tp[:, None]).sum(-1, keepdim=True).clamp(max=V - 1)
+    cutoff = torch.gather(sorted_desc, -1, cutoff_idx)
+    return torch.where((tp < 1.0)[:, None] & (logits < cutoff),
+                       float('-inf'), logits)
+
+
 def default_positions(batch, seq, cache_index=None, kv_write_pos=None,
                       device=None):
     """Token positions (batch, seq): per-row offsets when kv_write_pos

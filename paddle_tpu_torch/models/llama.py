@@ -7,11 +7,14 @@ JAX package's, so one state dict carries across (see
 `framework.io.load_jax_state`): projections are raw (in, out)
 parameters applied as `x @ W`, the embedding table is (vocab, hidden).
 
-The model serves through `inference.ServingEngine`: admission prefill
-runs over a contiguous cache with plain masked attention (as the JAX
-package does), and every decode step runs the paged-attention kernel
-over the engine's page pools (bf16 / float32 pages, or int8 pages with
-per-row scales: `ServingEngine(kv_cache_dtype='int8')`). It trains through `LlamaForCausalLM.loss`
+The model serves through `inference.ServingEngine`: admission prefill,
+and the chunked / prefix-hit continuation at per-row write offsets
+(`kv_write_pos`), run over a contiguous cache with plain masked
+attention (as the JAX package does), and every decode step runs the
+paged-attention kernel over the engine's page pools (bf16 / float32
+pages, or int8 pages with per-row scales:
+`ServingEngine(kv_cache_dtype='int8')`). It trains through
+`LlamaForCausalLM.loss`
 (`training.TrainEngine`): the uncached forward runs the flash-attention
 kernels for >= 128 tokens, every RMSNorm and the loss run their fused
 kernels, forward and backward. It generates through
@@ -215,6 +218,15 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
     (`quantize_kv_row`) and attends the whole cache dequantized through
     the plain masked path, as the JAX package does.
 
+    `kv_write_pos` (B,) over a contiguous cache gives every row its own
+    write offset (the serving engine's chunked and prefix-hit prefill):
+    row b's S new rows land at columns kv_write_pos[b] + i, which must
+    lie inside the cache, and row b's query i attends the columns <=
+    kv_write_pos[b] + i. A RowQuantKVCache writes the rows' scales at
+    the same columns; a QuantKVCache never recalibrates under it. A
+    single-token step takes the decode-attention kernel with per-row
+    lengths kv_write_pos + 1 (same rule as above).
+
     A PagedKVCache or QuantPagedKVCache takes `kv_write_pos` (B,) and
     `block_tables` (B, MAXB) and runs the paged-attention kernel (see
     `_paged_cached_attention`).
@@ -231,55 +243,64 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
                                        block_tables)
     B, S, H, D = q.shape
     if kv_write_pos is not None:
-        raise NotImplementedError(
-            'per-row write offsets over a contiguous cache (chunked '
-            'prefill, speculative verify) are not ported yet')
+        wp = kv_write_pos.reshape(-1).to(torch.int64).expand(B)
+        rows = torch.arange(B, device=q.device)[:, None]
+        wcols = wp[:, None] + torch.arange(S, device=q.device)[None, :]
+        at = (rows, wcols)
+    else:
+        at = (slice(None), slice(cache_index, cache_index + S))
     rowquant = isinstance(cache, RowQuantKVCache)
     quant = isinstance(cache, QuantKVCache)
     if rowquant:
         kq, vq, ks, vs = cache
-        rows = slice(cache_index, cache_index + S)
-        kq[:, rows], ks[:, rows] = quantize_kv_row(k)
-        vq[:, rows], vs[:, rows] = quantize_kv_row(v)
+        kq[at], ks[at] = quantize_kv_row(k)
+        vq[at], vs[at] = quantize_kv_row(v)
         ck = dequantize_kv_row(kq, ks, q.dtype)
         cv = dequantize_kv_row(vq, vs, q.dtype)
         kscale = vscale = None
     elif quant:
         ck, cv, kscale, vscale = cache
-        if S > 1 and int(cache_index) == 0:
+        if S > 1 and kv_write_pos is None and int(cache_index) == 0:
             # calibrate on the index-0 prefill only: a later chunk must
             # not reinterpret the int8 rows already written
             kscale.copy_(calibrate_kv_scale(k))
             vscale.copy_(calibrate_kv_scale(v))
-        ck[:, cache_index:cache_index + S] = quantize_kv_rows(k, kscale)
-        cv[:, cache_index:cache_index + S] = quantize_kv_rows(v, vscale)
+        ck[at] = quantize_kv_rows(k, kscale)
+        cv[at] = quantize_kv_rows(v, vscale)
     else:
         ck, cv = cache
         kscale = vscale = None
-        ck[:, cache_index:cache_index + S] = k.to(ck.dtype)
-        cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
+        ck[at] = k.to(ck.dtype)
+        cv[at] = v.to(cv.dtype)
     if (S == 1 and D % 8 == 0 and not rowquant
             and (kvalid is None or kv_start is not None)):
+        valid = (wp + 1 if kv_write_pos is not None
+                 else int(cache_index) + 1)
         out = ops.dispatch_decode_attention(
-            q, ck, cv, int(cache_index) + 1, start=kv_start, window=window,
+            q, ck, cv, valid, start=kv_start, window=window,
             k_scale=kscale, v_scale=vscale)
         return out, cache
     # valid keys: position <= the query's position, and kvalid / kv_start
     max_len = ck.shape[1]
     kpos = torch.arange(max_len, device=q.device)
-    qpos = cache_index + torch.arange(S, device=q.device)
-    mask = (kpos[None, :] <= qpos[:, None])[None, None]
+    # query positions as (B or 1, 1, S, 1): per row under kv_write_pos
+    qpos = (wcols if kv_write_pos is not None else
+            cache_index + torch.arange(S, device=q.device)[None])
+    qpos = qpos[:, None, :, None]
+    mask = kpos <= qpos
     if kvalid is not None:
         mask = mask & (kvalid[:, None, None, :] > 0)
     if kv_start is not None:
         st = kv_start.reshape(-1)
         mask = mask & (kpos[None, :] >= st[:, None])[:, None, None, :]
     if window is not None:
-        mask = mask & (qpos[:, None] - kpos[None, :] < window)[None, None]
+        mask = mask & (qpos - kpos < window)
     if quant:
         ck = (ck.float() * kscale[None, None]).to(q.dtype)
         cv = (cv.float() * vscale[None, None]).to(q.dtype)
-    out = F.scaled_dot_product_attention(q, ck, cv, attn_mask=mask)
+    # a bf16 cache under a float32 model attends in the model's dtype
+    out = F.scaled_dot_product_attention(q, ck.to(q.dtype), cv.to(q.dtype),
+                                         attn_mask=mask)
     return out, cache
 
 
