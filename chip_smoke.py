@@ -133,7 +133,28 @@ Phases, in order (any failure exits non-zero and prints no result):
               layers in float32, both features' streams equal to the
               monolithic engine's over float32 and int8 pages, and a
               one-token step at per-row offsets over a contiguous cache
-              through K7 against the plain versions.
+              through K7 against the plain versions;
+ 13. spec     speculative decoding at Llama-7B width (32 layers, bf16),
+              k = 4: (a) DecodeEngine.generate_speculative at batch 1
+              (512-token prompt, 64 new tokens) with the model's int8
+              weight-only copy and with a 2-layer draft (its first two
+              layers under its embedding, norm and head) against
+              model.generate in the same call (tok/s, accept rate,
+              target forwards per token, first divergence), and the
+              bf16 gap of a verify forward against one-token decode
+              forwards (bounded); (b)
+              DecodeEngine.generate_speculative at batch 8 (per-row
+              rates); (c) ServingEngine(draft=int8 copy) over phase 4's
+              burst on bf16 and int8 pages against the non-speculative
+              engine (tok/s, TTFT and ITL percentiles), and four
+              sampled rows beside four greedy ones (equal across two
+              runs and two batch orders); exact K1 / K7 / K8 / K8q /
+              K10 launches and no held page after each run; (d) at 2
+              layers in float32, streams of generate_speculative,
+              DecodeEngine and ServingEngine (float32 and int8 pages,
+              prefix cache and chunked prefill) equal to the
+              non-speculative ones, through the kernels and the plain
+              versions, and a self-draft accepting every proposal.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, a JSON object with one record per kernel, and
@@ -2889,6 +2910,10 @@ def stepped_run(torch, engine, arrivals, watch=()):
         req = engine._live.get(rid) or engine._terminal.get(rid)
         return len(req.generated)
 
+    def watched():
+        # arrivals not submitted yet have generated nothing
+        return [generated(rids[w]) if w < len(rids) else 0 for w in watch]
+
     before = engine.stats()
     torch.cuda.synchronize()
     for name in ops.LAUNCHES:
@@ -2902,12 +2927,11 @@ def stepped_run(torch, engine, arrivals, watch=()):
             if at == i:
                 rids.append(engine.submit(p, **kw))
                 sent[rids[-1]] = time.perf_counter()
-        n0 = [generated(rids[w]) for w in watch]
+        n0 = watched()
         t = time.perf_counter()
         engine.step()
         now = time.perf_counter()
-        steps.append((now - t, [generated(rids[w]) - n
-                                for w, n in zip(watch, n0)]))
+        steps.append((now - t, [n1 - n for n1, n in zip(watched(), n0)]))
         for r in rids:
             if r not in first and generated(r):
                 first[r] = now - sent[r]
@@ -3242,6 +3266,474 @@ def prefix_agreement(torch, np, card, system, prompts, long):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: speculative decoding
+# ---------------------------------------------------------------------------
+
+# the largest |logit| difference the target's (k + 1)-token verify forward
+# may show against one-token decode forwards over the same tokens in bf16
+# at Llama-7B width: the verify's GEMMs run at M = k + 1 and its attention
+# is the float32 masked path where decode takes K7, so the two round
+# differently, as a chunk does against a monolithic prefill
+SPEC_BF16_TOL = 0.5
+SPEC_K = 4
+
+
+def leading_equal(np, a, b):
+    """How many leading tokens two streams share."""
+    a, b = np.asarray(a), np.asarray(b)
+    n = min(len(a), len(b))
+    return int(np.sum(np.cumprod(a[:n] == b[:n])))
+
+
+def spec_decode_launches(label, stats, Lt, Ld, got, quant=None):
+    """The exact launch counts of a DecodeEngine.generate_speculative run
+    from its stats: K7 only in the draft's one-token steps (Ld a step),
+    K1 2L + 1 a forward of either model, K10 7Ld + 1 a forward of a draft
+    with int8 weights, nothing else."""
+    n_t = stats['prefill_forwards'] + stats['verify_forwards']
+    n_d = stats['draft_prefill_forwards'] + stats['draft_decode_forwards']
+    want = dict.fromkeys(got, 0)
+    want.update(rms_norm=(2 * Lt + 1) * n_t + (2 * Ld + 1) * n_d,
+                decode_attention=Ld * stats['draft_decode_forwards'])
+    if quant:
+        want[quant] = (7 * Ld + 1) * n_d
+    if got != want:
+        raise AssertionError(f'{label}: launch counts {got} != expected '
+                             f'{want}')
+
+
+def spec_serving_launches(label, engine, before, after, launches, kernel,
+                          quant=None):
+    """The exact launch counts of a speculative engine's run: `kernel` L
+    per one-token forward of either model (the target's decode windows,
+    the draft's k + 1 steps a speculative window), K1 2L + 1 per forward
+    of either model of any kind, K10 7L + 1 per forward of an int8-weight
+    draft, nothing else (prefills, chunks, catch-ups and verifies attend
+    through the plain masked path). Returns the speculative counts."""
+    from paddle_tpu_torch import ops
+
+    Lt = engine.model.config.num_hidden_layers
+    Ld = engine.draft.config.num_hidden_layers
+    n = {k: after[k] - before[k] for k in ('decode_forwards',
+                                           'prefill_forwards',
+                                           'chunk_forwards')}
+    sa, sb = after['spec'], before['spec']
+    n['verify_forwards'] = sa['verify_forwards'] - sb['verify_forwards']
+    d = {k: sa['draft_forwards'][k] - sb['draft_forwards'][k]
+         for k in sa['draft_forwards']}
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want[kernel] = Lt * n['decode_forwards'] + Ld * d['decode']
+    want['rms_norm'] = ((2 * Lt + 1) * sum(n.values())
+                        + (2 * Ld + 1) * sum(d.values()))
+    if quant:
+        want[quant] = (7 * Ld + 1) * sum(d.values())
+    if launches != want:
+        raise AssertionError(f'{label}: launch counts {launches} != '
+                             f'expected {want} ({n}, draft {d})')
+    if engine.allocator.in_use() != 0:
+        raise AssertionError(f'{label}: {engine.allocator.in_use()} pages '
+                             f'held after the run')
+    return {k: sa[k] - sb[k] for k in ('windows', 'proposed', 'accepted')}
+
+
+def layer_draft(torch, model, layers, seed=3):
+    """A draft of `layers` layers at the model's widths carrying the
+    model's embedding, final norm, head and first `layers` layers over
+    through the npz state format's names (framework.io)."""
+    from paddle_tpu_torch.framework import io
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = dataclasses.replace(model.config, num_hidden_layers=layers)
+    draft = LlamaForCausalLM(cfg, device=model.device, seed=seed)
+    keep = {f'model.layers.{i}.' for i in range(layers)}
+    flat = {io.jax_name(k): io.to_numpy(v)
+            for k, v in model.state_dict().items()
+            if not k.startswith('model.layers.')
+            or any(k.startswith(p) for p in keep)}
+    io.load_jax_state(draft, flat)
+    torch.cuda.synchronize()
+    return draft
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def verify_gap(torch, model, prompt, tokens, k, tol):
+    """max |logit| difference of one (k + 1)-token verify forward against
+    k + 1 one-token decode forwards over the same tokens after the same
+    prefill (contiguous bf16 caches), printed and held to `tol`."""
+    dev = model.device
+    S = prompt.shape[1]
+    win = torch.as_tensor(tokens[:k + 1], device=dev)[None]
+    rows = []
+    with torch.no_grad():
+        for verify in (False, True):
+            caches = model.init_cache(1, S + k + 1)
+            model(prompt, caches=caches, cache_index=0)
+            if verify:
+                logits, _ = model(win, caches=caches, cache_index=S)
+                rows.append(logits[0].float())
+            else:
+                rows.append(torch.cat([model(
+                    win[:, i:i + 1], caches=caches, cache_index=S + i)[0][0]
+                    for i in range(k + 1)]).float())
+    gap = float((rows[0] - rows[1]).abs().max())
+    print(f'spec bf16: a {k + 1}-token verify forward against {k + 1} '
+          f'one-token decode forwards after a {S}-token prefill: max |Δ| '
+          f'logit {gap:.6g} (bound {tol}, max |logit| '
+          f'{float(rows[0].abs().max()):.4f}), argmax equal '
+          f'{bool(torch.equal(rows[0].argmax(-1), rows[1].argmax(-1)))}')
+    if not gap <= tol:
+        raise AssertionError(f'spec bf16: verify logits moved {gap} > {tol}')
+
+
+def spec_generate_b1(torch, np, model, drafts, card, total):
+    """(a) speculative decoding at batch 1 (512-token prompt, 64 new
+    tokens, k = 4) with each draft against model.generate in the same
+    call: timed through DecodeEngine.generate_speculative, whose stats
+    give the exact accept counts and launches (it runs the loop of
+    generate_speculative, whose own runs part (d) holds)."""
+    from paddle_tpu_torch.inference import DecodeEngine
+
+    V = model.config.vocab_size
+    L = model.config.num_hidden_layers
+    N, k = 64, SPEC_K
+    prompt = torch.from_numpy(np.random.default_rng(13).integers(
+        3, V, (1, 512))).to(model.device)
+    model.generate(prompt, max_new_tokens=4)                 # warm
+    ref, t_ref = timed(torch, lambda: model.generate(prompt,
+                                                     max_new_tokens=N))
+    ref = ref[0, 512:].tolist()
+    print(f'spec generate b1: model.generate, {N} tokens after a 512-token '
+          f'prompt: {N / t_ref:.2f} tok/s ({t_ref:.3f} s) [{card}]')
+    verify_gap(torch, model, prompt, ref, k, SPEC_BF16_TOL)
+    for name, draft, quant in drafts:
+        Ld = draft.config.num_hidden_layers
+        eng = DecodeEngine(model, max_new_tokens=N)
+        eng.generate_speculative(draft, prompt, max_new_tokens=2,
+                                 num_draft_tokens=k)         # warm
+        eng = DecodeEngine(model, max_new_tokens=N)
+        (out, t_spec), counts = count_launches(torch, lambda: timed(
+            torch, lambda: eng.generate_speculative(draft, prompt,
+                                                    num_draft_tokens=k)))
+        s = eng.stats()
+        spec_decode_launches(f'spec generate b1 {name}', s, L, Ld, counts,
+                             quant)
+        add_counts(total, counts)
+        got = out[0, 512:].tolist()
+        check_outputs(f'spec generate b1 {name}', [prompt[0].cpu().numpy()],
+                      out.cpu().numpy(), V, [N])
+        sp = s['spec']
+        lead = leading_equal(np, got, ref)
+        print(f'spec generate b1 (through DecodeEngine), draft {name}: '
+              f'{N / t_spec:.2f} tok/s ({t_spec:.3f} s, '
+              f'{t_ref / t_spec:.3f}x model.generate), '
+              f'k {k}, {sp["windows"]} windows, accept rate '
+              f'{sp["accept_rate"]:.4f} ({sp["accepted"]} of '
+              f'{sp["proposed"]}), target forwards per token '
+              f'{(1 + sp["windows"]) / N:.4f} (generate: 1), first '
+              f'divergence from generate at token '
+              f'{lead if lead < N else "none"} of {N} (printed, not '
+              f'asserted: bf16); launches '
+              f'{ {k_: v for k_, v in counts.items() if v} } [{card}]',
+              flush=True)
+
+
+def spec_generate_b8(torch, np, model, draft, card, total):
+    """(b) DecodeEngine.generate_speculative at batch 8 (rows commit at
+    their own rates: the draft's K7 at per-row lengths) against
+    model.generate on the same prompts, exact launches."""
+    from paddle_tpu_torch.inference import DecodeEngine
+
+    V = model.config.vocab_size
+    L, Ld = model.config.num_hidden_layers, draft.config.num_hidden_layers
+    N, k = 32, SPEC_K
+    ids = torch.from_numpy(np.random.default_rng(14).integers(
+        3, V, (8, 256))).to(model.device)
+    ref, t_ref = timed(torch, lambda: model.generate(ids, max_new_tokens=N))
+    eng = DecodeEngine(model, max_new_tokens=N)
+    eng.generate_speculative(draft, ids[:, :64], max_new_tokens=4,
+                             num_draft_tokens=k)             # warm
+    before = eng.stats()
+    (out, t_spec), counts = count_launches(torch, lambda: timed(
+        torch, lambda: eng.generate_speculative(draft, ids,
+                                                num_draft_tokens=k)))
+    s = eng.stats()
+    delta = {key: s[key] - before[key] for key in (
+        'prefill_forwards', 'verify_forwards', 'draft_prefill_forwards',
+        'draft_decode_forwards')}
+    spec_decode_launches('spec DecodeEngine b8', delta, L, Ld, counts)
+    add_counts(total, counts)
+    sp = {key: s['spec'][key] - before['spec'][key]
+          for key in ('windows', 'proposed', 'accepted')}
+    leads = [leading_equal(np, out[b, 256:].tolist(), ref[b, 256:].tolist())
+             for b in range(8)]
+    print(f'spec DecodeEngine b8, 2-layer draft: {8 * N / t_spec:.2f} tok/s '
+          f'({t_spec:.3f} s; model.generate b8 {8 * N / t_ref:.2f}), '
+          f'{sp["windows"]} windows, accept rate '
+          f'{sp["accepted"] / sp["proposed"]:.4f}, leading tokens equal to '
+          f'generate per row {leads} of {N} (printed: bf16); launches '
+          f'{ {k_: v for k_, v in counts.items() if v} } [{card}]',
+          flush=True)
+
+
+def spec_serving(torch, np, model, draft, card, paths):
+    """(c) ServingEngine(draft=int8 copy, num_draft_tokens=4): phase 4's
+    burst over bf16 and int8 pools against the non-speculative engine in
+    the same call (tok/s, TTFT, ITL), exact launches, no held page; then
+    four sampled rows beside four greedy ones, equal across two runs and
+    two batch orders."""
+    from paddle_tpu_torch.inference import ServingEngine
+
+    V = model.config.vocab_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, V, n).astype(np.int32)
+               for n in rng.integers(32, 513, 8)]
+    arrivals = ([(0, p, {}) for p in prompts[:2]]
+                + [(1, p, {}) for p in prompts[2:4]]
+                + [(2, p, {}) for p in prompts[4:]])
+    for kv in (None, 'int8'):
+        kernel = ('paged_decode_attention_int8' if kv
+                  else 'paged_decode_attention')
+        outs = {}
+        for spec in (False, True):
+            kw = dict(SERVE_KW, kv_cache_dtype=kv)
+            if spec:
+                kw.update(draft=draft, num_draft_tokens=SPEC_K)
+            engine = ServingEngine(model, **kw)
+            engine.serve([prompts[0][:32]], max_new_tokens=8)    # warm
+            label = (f'spec serving {kv or "bf16"} '
+                     f'{"speculative" if spec else "plain"}')
+            wall, launches, before, after, out, first, steps = stepped_run(
+                torch, engine, arrivals, watch=range(8))
+            check_outputs(label, prompts, out, V, [32] * 8)
+            if spec:
+                sc = spec_serving_launches(label, engine, before, after,
+                                           launches, kernel, 'quant_matmul')
+            else:
+                serving_launches(label, engine, before, after, launches,
+                                 kernel)
+            paths[label] = launches
+            itl = []
+            for r in range(8):
+                seen = False
+                for w, ns in steps:
+                    if ns[r] and seen:
+                        itl += [w / ns[r]] * ns[r]
+                    seen = seen or bool(ns[r])
+            n_tok = after['tokens_generated'] - before['tokens_generated']
+            extra = ''
+            if spec:
+                extra = (f', {sc["windows"]} speculative windows, accept '
+                         f'rate {sc["accepted"] / sc["proposed"]:.4f}, '
+                         f"stats()['spec'] {after['spec']}")
+            print(f'{label}: 8 requests in three waves, {n_tok} tokens in '
+                  f'{wall:.3f} s: {n_tok / wall:.1f} tok/s, TTFT p50 '
+                  f'{pct(np, first, 50) * 1e3:.1f} ms p90 '
+                  f'{pct(np, first, 90) * 1e3:.1f} max '
+                  f'{max(first) * 1e3:.1f}, ITL p50 '
+                  f'{pct(np, itl, 50) * 1e3:.1f} ms p90 '
+                  f'{pct(np, itl, 90) * 1e3:.1f} max {max(itl) * 1e3:.1f}, '
+                  f'{len(steps)} steps{extra} [{card}]', flush=True)
+            outs[spec] = out
+            if spec and kv is None:
+                for p in prompts[:4]:
+                    engine.submit(p, max_new_tokens=16)
+                engine.step()                 # admissions: not traced
+                trace_step(torch, engine, card, 'spec profile',
+                           f'one speculative window (k = {SPEC_K}) x 4 '
+                           f'rows')            # the rest is not served
+            del engine
+            gc.collect()
+        same = [leading_equal(np, a[len(p):], b[len(p):])
+                for p, a, b in zip(prompts, outs[True], outs[False])]
+        print(f'spec serving {kv or "bf16"}: leading tokens equal to the '
+              f'non-speculative engine per request {same} of 32 (printed, '
+              f'not asserted: bf16 verify rounds apart from decode)')
+        torch.cuda.empty_cache()
+
+    # sampled rows beside greedy rows in one speculative engine of 8
+    # slots: one admission wave, so a batch order only permutes the slots
+    # (in bf16 a row's verify logits move with the batch's shapes: the
+    # prefill's rows, the gathered length of the longest context)
+    sp = [rng.integers(3, V, n).astype(np.int32)
+          for n in rng.integers(33, 65, 8)]
+    sampled = [(p, dict(temperature=0.8, top_k=50, top_p=0.95, seed=s))
+               for s, p in enumerate(sp[:4], start=1)]
+    mixed = [j for pair in zip(sampled, [(p, {}) for p in sp[4:]])
+             for j in pair]
+    got = {}
+    for name, jobs in (('mixed', mixed), ('again', mixed),
+                       ('reversed', mixed[::-1])):
+        engine = ServingEngine(model, draft=draft, num_draft_tokens=SPEC_K,
+                               **dict(SERVE_KW, max_slots=8,
+                                      max_context_len=256,
+                                      max_new_tokens=8))
+        wall, launches, before, after, outs, _f, _s = stepped_run(
+            torch, engine, [(0, p, kw) for p, kw in jobs])
+        label = f'spec sampling {name}'
+        check_outputs(label, [p for p, _ in jobs], outs, V,
+                      [8] * len(jobs))
+        sc = spec_serving_launches(label, engine, before, after, launches,
+                                   'paged_decode_attention', 'quant_matmul')
+        paths[label] = launches
+        by = {id(p): o for (p, _), o in zip(jobs, outs)}
+        got[name] = [by[id(p)] for p in sp]
+        print(f'{label}: 4 sampled + 4 greedy requests, '
+              f'{after["tokens_generated"] - before["tokens_generated"]} '
+              f'tokens in {wall:.3f} s, accept rate '
+              f'{sc["accepted"] / sc["proposed"]:.4f} [{card}]', flush=True)
+        del engine
+    rep = all(np_equal(got['mixed'][i], got[k_][i]) for i in range(8)
+              for k_ in ('again', 'reversed'))
+    print(f'spec sampling: streams (temperature 0.8, top_k 50, top_p 0.95 '
+          f'beside greedy, 8 slots) equal across two runs and two batch '
+          f'orders: {rep}')
+    if not rep:
+        raise AssertionError('spec sampling: streams depend on the run or '
+                             'the batch')
+
+
+def spec_agreement(torch, np, card, total):
+    """(d) Llama-7B width, 2 layers, float32, through the kernels and
+    through the plain versions: the greedy streams of
+    generate_speculative, DecodeEngine and ServingEngine (float32 and
+    int8 pools, prefix_cache and prefill_chunk=256) equal to their
+    non-speculative streams; a self-draft accepts every proposal (its
+    prefix-hit and chunked rows included)."""
+    from paddle_tpu_torch.inference import DecodeEngine, ServingEngine
+    from paddle_tpu_torch.models.generation import generate_speculative
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    cfg = dataclasses.replace(llama_7b(), num_hidden_layers=2,
+                              dtype='float32')
+    V = cfg.vocab_size
+    model = LlamaForCausalLM(cfg, seed=4)
+    draft = layer_draft(torch, model, 1)
+    rng = np.random.default_rng(15)
+    ids = torch.from_numpy(rng.integers(3, V, (1, 40))).to(model.device)
+    ids3 = torch.from_numpy(rng.integers(3, V, (3, 40))).to(model.device)
+    checks = []
+    for label, d, x in (('generate_speculative b1', draft, ids),
+                        ('generate_speculative b3', draft, ids3),
+                        ('generate_speculative b1 self-draft', model, ids)):
+        want = model.generate(x, max_new_tokens=16)
+        got, counts = count_launches(torch, lambda: generate_speculative(
+            model, d, x, max_new_tokens=16, num_draft_tokens=SPEC_K))
+        add_counts(total, counts)
+        with plain_kernels():
+            plain = generate_speculative(model, d, x, max_new_tokens=16,
+                                         num_draft_tokens=SPEC_K)
+        checks.append((label, torch.equal(got, want)
+                       and torch.equal(got, plain), None))
+    eng = DecodeEngine(model, max_new_tokens=16)
+    got, counts = count_launches(torch, lambda: eng.generate_speculative(
+        model, ids3, num_draft_tokens=SPEC_K))
+    spec_decode_launches('spec agreement DecodeEngine', eng.stats(), 2, 2,
+                         counts)
+    add_counts(total, counts)
+    checks.append(('DecodeEngine b3 self-draft', torch.equal(
+        got, model.generate(ids3, max_new_tokens=16)),
+        eng.stats()['spec']['accept_rate']))
+    system = rng.integers(3, V, 256)
+    jobs = [np.concatenate([system, rng.integers(3, V, n)])
+            for n in (40, 70, 100, 9)] + [rng.integers(3, V, 700)]
+    for kv in (None, 'int8'):
+        kernel = ('paged_decode_attention_int8' if kv
+                  else 'paged_decode_attention')
+        # decode_window = k + 1 and budgets of its multiples: no
+        # speculative window is cut short, so a self-draft reads 1.0
+        kw = dict(SERVE_KW, max_new_tokens=10, decode_window=SPEC_K + 1,
+                  kv_cache_dtype=kv, prefix_cache=True, prefill_chunk=256)
+        want = ServingEngine(model, **kw).serve(jobs)
+        for label, d in (('draft', draft), ('self-draft', model)):
+            engine = ServingEngine(model, draft=d, num_draft_tokens=SPEC_K,
+                                   **kw)
+            engine.serve([system], max_new_tokens=5)   # index the prompt
+            wall, launches, before, after, got, _f, _s = stepped_run(
+                torch, engine, [(0, p, {}) for p in jobs[:2]]
+                + [(1, p, {}) for p in jobs[2:]])
+            spec_serving_launches(f'spec agreement {kv} {label}', engine,
+                                  before, after, launches, kernel)
+            add_counts(total, launches)
+            pf = after['prefix']
+            if not (pf['hits'] and pf['chunked_admissions']):
+                raise AssertionError('spec agreement: no prefix hit or no '
+                                     'chunked admission')
+            ok = all(np_equal(a, b) for a, b in zip(got, want))
+            if label == 'draft':
+                with plain_kernels():
+                    pe = ServingEngine(model, draft=d,
+                                       num_draft_tokens=SPEC_K, **kw)
+                    pe.serve([system], max_new_tokens=5)
+                    plain = pe.serve(jobs[:2] + jobs[2:])
+                ok = ok and all(np_equal(a, b) for a, b in zip(plain, want))
+            checks.append((f'ServingEngine {kv or "float32"} pools, '
+                           f'{label} ({pf["hits"]} hits, '
+                           f'{pf["chunked_admissions"]} chunked admissions)',
+                           ok, after['spec']['accept_rate'] if
+                           label == 'self-draft' else None))
+            del engine
+    for label, ok, rate in checks:
+        print(f'spec agreement float32, Llama-7B width, 2 layers: {label}: '
+              f'streams equal to the non-speculative ones (and through the '
+              f'plain versions) {ok}'
+              + ('' if rate is None else f', accept rate {rate}')
+              + f' [{card}]')
+        if not ok or rate not in (None, 1.0):
+            raise AssertionError(f'spec agreement: {label}: streams differ '
+                                 f'or a self-draft rejected ({rate})')
+    del model, draft, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_phase(torch, np, card):
+    """Phase 13: speculative decoding at Llama-2-7B widths (32 layers, bf16
+    weights drawn on the card from a seeded generator), k = 4: (a)
+    generate_speculative at batch 1 with the model's int8 weight-only
+    copy (K10 on its one-token steps) and with a 2-layer draft (the
+    model's first two layers under its embedding, norm and head), against
+    model.generate; (b) DecodeEngine.generate_speculative at batch 8;
+    (c) ServingEngine(draft=int8 copy) over phase 4's burst on bf16 and
+    int8 pools against the non-speculative engine, and sampled rows; (d)
+    float32 at 2 layers: streams equal to the non-speculative ones through
+    the kernels and the plain versions, and a self-draft accepting every
+    proposal. Returns the launch counts of its runs as one path."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(llama_7b(), dtype='bfloat16')
+    model = LlamaForCausalLM(cfg, seed=0)
+    qdraft = model.quantize_weights(8)
+    draft2 = layer_draft(torch, model, 2)
+    total = {}
+    spec_generate_b1(torch, np, model, (('2 layers', draft2, None),
+                                        ('int8 copy', qdraft, 'quant_matmul')),
+                     card, total)
+    spec_generate_b8(torch, np, model, draft2, card, total)
+    del draft2
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = {}
+    spec_serving(torch, np, model, qdraft, card, paths)
+    for counts in paths.values():
+        add_counts(total, counts)
+    del model, qdraft
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_agreement(torch, np, card, total)
+    print(f'spec: phase took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return {'speculative': total}
+
+
 def main():
     try:
         import numpy as np
@@ -3482,6 +3974,11 @@ def main():
 
         # 12. per-request sampling, prefix caching, chunked prefill
         prefix_launches = prefix_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 13. speculative decoding: generate, DecodeEngine, ServingEngine
+        spec_launches = spec_phase(torch, np, card)
 
         records = []
         for name, src, rep in (
@@ -3522,7 +4019,8 @@ def main():
                        'decode': decode_launches.get(name, 0),
                        'fused': fused_launches.get(name, 0),
                        'train': train_launches[name]}
-            for paths in (swa_launches, qwen2_launches, prefix_launches):
+            for paths in (swa_launches, qwen2_launches, prefix_launches,
+                          spec_launches):
                 by_path.update((path, counts.get(name, 0))
                                for path, counts in paths.items())
             records.append({

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import inspect
 
+import numpy as np
 import torch
 
 # powers of two: prompt lengths are padded to the smallest bucket that
@@ -37,6 +38,7 @@ class DecodeEngine:
 
         engine = DecodeEngine(model, max_new_tokens=64)
         out = engine.generate(input_ids)                # ids (B, S)
+        out = engine.generate_speculative(draft, ids)   # greedy, lossless
 
     The sampling configuration is fixed at construction. A prompt of
     length S is LEFT-padded to the bucket Sb = bucket_length(S) and
@@ -46,7 +48,12 @@ class DecodeEngine:
     tokens equal an unpadded `model.generate`'s. The JAX engine's
     compile cache, trace counters, AOT export and persistent cache
     manage `jax.jit` and have no counterpart here (the port runs
-    eagerly)."""
+    eagerly).
+
+    `generate_speculative` is greedy speculative decoding with a draft
+    model (see `models.generation.generate_speculative`): its prompts
+    are not padded (as in the JAX engine), and `stats()` counts its
+    forwards of both models and its proposals."""
 
     def __init__(self, model, max_new_tokens=32, temperature=0.0, top_k=0,
                  top_p=1.0, eos_token_id=None, buckets=None):
@@ -61,13 +68,28 @@ class DecodeEngine:
         params = inspect.signature(model.forward).parameters
         self._supports_padding = ('positions' in params
                                   and 'kv_start' in params)
-        self._forwards = {'prefill': 0, 'decode': 0}
+        self._forwards = dict.fromkeys(
+            ('prefill', 'decode', 'verify', 'draft_prefill', 'draft_decode'),
+            0)
+        self.spec_counts = {'windows': 0, 'proposed': 0, 'accepted': 0}
 
     def stats(self):
         """Forward counts since construction and the engine's geometry
-        (kind, decode budget, buckets)."""
-        return {'prefill_forwards': self._forwards['prefill'],
-                'decode_forwards': self._forwards['decode'],
+        (kind, decode budget, buckets). The model's forwards: prefill,
+        decode (one-token) and verify (a speculative window's); the
+        draft's: prefill and decode; `spec`: speculative windows,
+        proposed and accepted draft tokens and their ratio (None before
+        the first window)."""
+        f = self._forwards
+        sc = self.spec_counts
+        return {'prefill_forwards': f['prefill'],
+                'decode_forwards': f['decode'],
+                'verify_forwards': f['verify'],
+                'draft_prefill_forwards': f['draft_prefill'],
+                'draft_decode_forwards': f['draft_decode'],
+                'spec': dict(sc, accept_rate=(
+                    sc['accepted'] / sc['proposed'] if sc['proposed']
+                    else None)),
                 'geometry': {'kind': 'contiguous',
                              'max_new_tokens': self.max_new_tokens,
                              'buckets': self.buckets}}
@@ -105,5 +127,161 @@ class DecodeEngine:
 
     def generate_speculative(self, draft, input_ids, max_new_tokens=None,
                              num_draft_tokens=4):
-        raise NotImplementedError(
-            'speculative decoding is not ported yet (ROADMAP A3 / B1)')
+        """Greedy speculative decoding with `draft` proposing
+        `num_draft_tokens` tokens a window: lossless against `generate`
+        at temperature 0 on this engine's model alone (the engine's
+        sampling configuration does not apply), its eos included.
+        Batch 1 reads the host once per window; batched rows commit at
+        their own rates (per-row `kv_write_pos`). Returns (B, S +
+        max_new_tokens) ids."""
+        from ..models.generation import (_check_speculative_pair,
+                                         _eval_mode, _speculative_loop)
+
+        model = self.model
+        ids = torch.as_tensor(input_ids, device=model.device)
+        B, S = ids.shape
+        mnt = (self.max_new_tokens if max_new_tokens is None
+               else int(max_new_tokens))
+        k = int(num_draft_tokens)
+        if k < 1:
+            raise ValueError('num_draft_tokens must be >= 1')
+        _check_speculative_pair(model, draft, B)
+        with _eval_mode(model, draft), torch.no_grad():
+            gen, counts = _speculative_loop(model, draft, ids, mnt, k,
+                                            self.eos_token_id)
+        f = self._forwards
+        f['prefill'] += 1
+        f['draft_prefill'] += 1
+        f['verify'] += counts['windows']
+        f['draft_decode'] += (k + 1) * counts['windows']
+        for key, n in counts.items():
+            self.spec_counts[key] += n
+        return torch.cat([ids, torch.as_tensor(gen, dtype=ids.dtype,
+                                               device=ids.device)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Speculative windows and their host loops (shared with
+# models/generation.py)
+# ---------------------------------------------------------------------------
+
+def _window_b1(target, draft, tcaches, dcaches, c, L, k):
+    """One batch-1 speculative window at the uniform cache index L: the
+    draft proposes k tokens in k + 1 one-token steps (the last writes the
+    k-th proposal's own KV row), the target verifies [c, d1..dk] in one
+    forward, and the greedy commit rule runs on the device as a cumprod
+    (`_commit_window` is its host-side spec). Returns (drafts (k,), the
+    accepted count m, the next token) as device tensors."""
+    tok, toks = c, []
+    for i in range(k + 1):
+        logits, dcaches = draft(tok, caches=dcaches, cache_index=L + i)
+        if i < k:
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(c.dtype)
+            toks.append(tok)
+    drafts = torch.cat(toks, dim=1)[0]                       # (k,)
+    window = torch.cat([c, drafts[None]], dim=1)             # (1, k + 1)
+    tlogits, tcaches = target(window, caches=tcaches, cache_index=L)
+    choices = torch.argmax(tlogits[0], dim=-1).to(c.dtype)   # (k + 1,)
+    m = torch.cumprod((drafts == choices[:k]).long(), 0).sum()
+    return drafts, m, choices[m]
+
+
+def _spec_loop_host_b1(target, draft, tcaches, dcaches, input_ids,
+                       max_new_tokens, k, eos_token_id):
+    """Batch 1: both prefills, then one window per iteration with ONE
+    host read (the window's candidate, proposals, accepted count and
+    next token together); the next window's candidate stays on the
+    device. Returns ([max_new_tokens ids], counts)."""
+    B, S = input_ids.shape
+    logits, tcaches = target(input_ids, caches=tcaches, cache_index=0)
+    draft(input_ids, caches=dcaches, cache_index=0)
+    c = torch.argmax(logits[:, -1], dim=-1)[:, None].to(input_ids.dtype)
+    counts = {'windows': 0, 'proposed': 0, 'accepted': 0}
+    out, L = [], S
+    while len(out) < max_new_tokens:
+        drafts, m, nxt = _window_b1(target, draft, tcaches, dcaches, c, L,
+                                    k)
+        host = torch.cat([c[0], drafts, m[None].to(c.dtype),
+                          nxt[None]]).tolist()
+        m_h = host[k + 1]
+        committed = host[:m_h + 1]
+        counts['windows'] += 1
+        counts['proposed'] += k
+        counts['accepted'] += m_h
+        out.extend(committed)
+        L += len(committed)
+        c = nxt.view(1, 1)
+        if eos_token_id is not None and eos_token_id in committed:
+            break
+    if eos_token_id is not None:
+        if eos_token_id in out:
+            out = out[:out.index(eos_token_id) + 1]
+        out += [eos_token_id] * (max_new_tokens - len(out))
+    return [out[:max_new_tokens]], counts
+
+
+def _spec_window_batched(target, draft, tcaches, dcaches, c, wp, k):
+    """A batched speculative window: rows write at their own offsets wp
+    (B,) on both models (the draft's one-token steps take K7 at per-row
+    lengths), and the commit rule runs per row. c (B, 1). Returns
+    (drafts (B, k), m (B,), next (B,))."""
+    tok, toks = c, []
+    for i in range(k + 1):
+        logits, dcaches = draft(tok, caches=dcaches, kv_write_pos=wp + i)
+        if i < k:
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(c.dtype)
+            toks.append(tok)
+    drafts = torch.cat(toks, dim=1)                          # (B, k)
+    window = torch.cat([c, drafts], dim=1)                   # (B, k + 1)
+    tlogits, tcaches = target(window, caches=tcaches, kv_write_pos=wp)
+    choices = torch.argmax(tlogits, dim=-1).to(c.dtype)      # (B, k + 1)
+    m = torch.cumprod((drafts == choices[:, :k]).long(), 1).sum(1)
+    return drafts, m, torch.gather(choices, 1, m[:, None])[:, 0]
+
+
+def _spec_loop_host_batched(target, draft, tcaches, dcaches, input_ids,
+                            max_new_tokens, k, eos_token_id):
+    """B > 1: rows commit at their own rates (per-row write offsets) by
+    the batch-1 rule, one host read per window. Finished and full rows
+    still ride through the window but commit nothing; their offset is
+    held inside the cache (torch raises on a write past it, where JAX
+    drops it), and what they write there is never read back. Returns
+    (B lists of max_new_tokens ids, counts)."""
+    B, S = input_ids.shape
+    dev = input_ids.device
+    logits, tcaches = target(input_ids, caches=tcaches, cache_index=0)
+    draft(input_ids, caches=dcaches, cache_index=0)
+    c_host = torch.argmax(logits[:, -1], dim=-1).tolist()
+    counts = {'windows': 0, 'proposed': 0, 'accepted': 0}
+    out = [[] for _ in range(B)]
+    finished = [False] * B
+    L = np.full((B,), S, np.int64)
+
+    def row_needs(b):
+        return not finished[b] and len(out[b]) < max_new_tokens
+
+    while any(row_needs(b) for b in range(B)):
+        c = torch.tensor(c_host, dtype=input_ids.dtype, device=dev)[:, None]
+        wp = torch.as_tensor(np.minimum(L, S + max_new_tokens), device=dev)
+        drafts, m, nxt = _spec_window_batched(target, draft, tcaches,
+                                              dcaches, c, wp, k)
+        host = torch.cat([drafts, m[:, None].to(drafts.dtype),
+                          nxt[:, None].to(drafts.dtype)], 1).tolist()
+        counts['windows'] += 1
+        for b in range(B):
+            if not row_needs(b):
+                continue
+            mb = host[b][k]
+            committed = [c_host[b]] + host[b][:mb]
+            c_host[b] = host[b][k + 1]
+            counts['proposed'] += k
+            counts['accepted'] += mb
+            out[b].extend(committed)
+            if eos_token_id is not None and eos_token_id in committed:
+                out[b] = out[b][:out[b].index(eos_token_id) + 1]
+                finished[b] = True
+            L[b] += len(committed)
+    pad = eos_token_id if eos_token_id is not None else 0
+    return [out[b][:max_new_tokens]
+            + [pad] * (max_new_tokens - len(out[b][:max_new_tokens]))
+            for b in range(B)], counts

@@ -62,11 +62,27 @@
      dequantized; its bytes and scales are copied into the pages as
      they are. Decode steps run the paged kernel's per-row int8 mode.
 
+  8. Speculative decoding (`draft=`, `num_draft_tokens=k`): every step
+     without a chunk runs a propose / verify window instead of a decode
+     window. The draft keeps its own page pools under the same block
+     tables (one allocator serves both) and proposes k tokens in k + 1
+     one-token paged steps; the target verifies each row's (k + 1)
+     tokens in one forward over its pages gathered into a contiguous
+     cache; greedy rows accept the longest prefix the target's argmax
+     agrees with, sampled rows run the rejection-sampling coin (a
+     uniform from the same device-side hash) and resample the residual;
+     only the committed rows' target K/V are scattered back. The
+     verify's next choice is carried on the request (`spec_next`), so a
+     chunk step's window and a resumed request commit it first. Greedy
+     streams equal the non-speculative engine's; rows whose tokens a
+     chunk step's plain window committed catch the draft's pages up
+     before the next speculative window.
+
 Per request, `result(rid)` is what the JAX engine returns: the prompt,
 then `max_new_tokens` tokens, padded with eos after an early stop.
-Speculative decoding, deadlines, load shedding, snapshot/restore,
-tensor parallelism, telemetry and AOT are not ported yet: their
-arguments and methods raise NotImplementedError.
+Deadlines, load shedding, snapshot/restore, tensor parallelism,
+telemetry, the fault seams and AOT are not ported yet: their arguments
+and methods raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -333,13 +349,17 @@ class Request:
     across admissions (a preempted request keeps its prefix and resumes
     by re-prefill over prompt + prefix). `temperature` / `top_k` /
     `top_p` / `sample_seed` are its sampling parameters (temperature 0:
-    greedy). Terminal states: `finished` (`result` holds the output
-    ids) and `failed` (`reason`, `error`)."""
+    greedy). `spec_next` is a speculative window's carried next token
+    (the verify's choice, a rejection's resample included): the next
+    window of either kind commits it first, and it survives preemption,
+    so a resumed stream is the uninterrupted one. Terminal states:
+    `finished` (`result` holds the output ids) and `failed` (`reason`,
+    `error`)."""
 
     __slots__ = ('rid', 'prompt', 'max_new_tokens', 'priority', 'generated',
                  'seq', 'state', 'admit_seq', 'reason', 'error', 'result',
                  'temperature', 'top_k', 'top_p', 'sample_seed',
-                 'page_hashes')
+                 'page_hashes', 'spec_next')
 
     def __init__(self, rid, prompt, max_new_tokens, priority,
                  temperature=0.0, top_k=0, top_p=1.0, sample_seed=None):
@@ -353,6 +373,7 @@ class Request:
         self.sample_seed = int(rid if sample_seed is None else sample_seed)
         self.generated: list = []
         self.page_hashes = None  # the prompt's chain hashes, when needed
+        self.spec_next = None
         self.seq = None          # arrival order, stamped by RequestQueue
         self.admit_seq = None    # last admission order (preemption ties)
         self.state = 'queued'
@@ -412,7 +433,9 @@ class RequestQueue:
 # index, sub-stream, vocab id), computed on the device in int64 tensors
 # that hold 32-bit values: no generator state, so a resumed request
 # re-derives exactly the uniforms of its uninterrupted run.
-_SUB_PROPOSE = 0        # choosing a decode window's token
+_SUB_PROPOSE = 0        # choosing a token (decode windows, draft proposals)
+_SUB_ACCEPT = 1         # a speculative proposal's accept coin
+_SUB_RESAMPLE = 2       # the resample after a speculative rejection
 _M32 = 0xFFFFFFFF
 
 
@@ -448,6 +471,11 @@ def _gumbel(keys, V):
     return -torch.log(-torch.log(u))
 
 
+def _uniform(keys):
+    """One uniform in (0, 1) per row key (the speculative accept coin)."""
+    return ((_mix32(keys) >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
 def _filtered(logits, temp, topk, topp):
     """Each row's logits in float32 over its temperature (rows with
     temperature 0 use 1: their choice is the argmax), then its top-k /
@@ -457,13 +485,26 @@ def _filtered(logits, temp, topk, topp):
                                  topp)
 
 
-def _sample_rows(logits, temp, topk, topp, keys):
+def _filtered_dist(logits, temp, topk, topp):
+    """Each row's filtered, tempered sampling distribution (rows with
+    temperature 0 use 1; their distribution is never consumed)."""
+    return torch.softmax(_filtered(logits, temp, topk, topp), -1)
+
+
+def _sample_rows_dist(logits, temp, topk, topp, keys):
     """Each row's next token: argmax where temp == 0, else Gumbel-max
-    over its filtered, tempered logits (a draw from their softmax)."""
+    over its filtered, tempered logits (a draw from their softmax); and
+    that softmax, from the same filter pass (a speculative proposal
+    needs both)."""
     greedy = logits.float().argmax(-1)
     f = _filtered(logits, temp, topk, topp)
     sampled = (f + _gumbel(keys, f.shape[-1])).argmax(-1)
-    return torch.where(temp > 0, sampled, greedy)
+    return torch.where(temp > 0, sampled, greedy), torch.softmax(f, -1)
+
+
+def _sample_rows(logits, temp, topk, topp, keys):
+    """The token of `_sample_rows_dist`."""
+    return _sample_rows_dist(logits, temp, topk, topp, keys)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -604,7 +645,7 @@ def _chunk_kv(model, pages, ids, chunk_len, start, btabs, L, cow=None):
 
 
 def _window(model, pages, last_logits, btab, ctx, live, budget, *, window,
-            eos_token_id, sampling=None):
+            eos_token_id, sampling=None, forced_tok=None, forced=None):
     """One decode window for the whole fixed-slot batch: per step,
     choose every slot's next token from the carried logits, then step
     the model over the paged caches (per-row write positions ctx,
@@ -612,10 +653,13 @@ def _window(model, pages, last_logits, btab, ctx, live, budget, *, window,
     length of the rows that committed. `sampling` None is greedy
     (argmax) for every row; else (temp, topk, topp, seed, plen) (SLOTS,)
     tensors, and each row chooses by `_sample_rows` keyed on its seed
-    and generated-token index ctx - plen. Rows freeze when they hit
-    eos, burn their budget, or were never live: frozen rows still ride
-    through the forward but commit nothing. Returns (tokens (SLOTS,
-    window), last_logits, pages)."""
+    and generated-token index ctx - plen. `forced` (SLOTS,) bool marks
+    the rows of a speculative engine that carry the verify's next
+    choice `forced_tok` (SLOTS,): they commit it as their first token
+    instead of choosing. Rows freeze when they hit eos, burn their
+    budget, or were never live: frozen rows still ride through the
+    forward but commit nothing. Returns (tokens (SLOTS, window),
+    last_logits, pages)."""
     pad_tok = eos_token_id if eos_token_id is not None else 0
     finished = ~live
     toks = []
@@ -626,6 +670,8 @@ def _window(model, pages, last_logits, btab, ctx, live, budget, *, window,
             temp, topk, topp, seed, plen = sampling
             tok = _sample_rows(last_logits, temp, topk, topp,
                                _row_keys(seed, ctx - plen, _SUB_PROPOSE))
+        if forced is not None and t == 0:
+            tok = torch.where(forced, forced_tok, tok)
         frozen = finished | (t >= budget)
         tok = torch.where(frozen, pad_tok, tok)
         commit = ~frozen
@@ -639,11 +685,131 @@ def _window(model, pages, last_logits, btab, ctx, live, budget, *, window,
     return torch.stack(toks, 1), last_logits, pages
 
 
+def _spec_accept(drafts, pd, tlg, sampling, gen0):
+    """The per-row commit rule of a speculative window over its verify
+    logits tlg (K, k + 1, V) float32 and proposals drafts (K, k): greedy
+    rows accept the longest prefix the target's argmax agrees with and
+    carry its choice at the first disagreement. Sampled rows
+    (`sampling` as in `_window`, pd (K, k, V) the draft's distributions,
+    gen0 (K,) each row's generated-token index at the window's first
+    token) accept proposal i when its coin, hashed from (seed, gen0 + i
+    + 1), falls under min(1, pt / pd), and carry a resample from the
+    normalised residual (pt - pd)+ at the first rejection (after a full
+    accept pd pads with 0, so the residual is pt's bonus distribution).
+    Returns (accepted count m (K,), next token (K,))."""
+    K, k = drafts.shape
+    rows = torch.arange(K, device=tlg.device)
+    tchoice = tlg.argmax(-1)                                 # (K, k + 1)
+    greedy_acc = drafts == tchoice[:, :k]
+    if sampling is None:
+        m = torch.cumprod(greedy_acc.long(), 1).sum(1)
+        return m, tchoice[rows, m]
+    temp, topk, topp, seed, _plen = sampling
+    V = tlg.shape[-1]
+    pt = _filtered_dist(tlg.reshape(K * (k + 1), V),
+                        *(x.repeat_interleave(k + 1)
+                          for x in (temp, topk, topp))).view(K, k + 1, V)
+    px_t = torch.gather(pt[:, :k], 2, drafts[:, :, None])[..., 0]
+    px_d = torch.gather(pd, 2, drafts[:, :, None])[..., 0]
+    idx = gen0[:, None] + torch.arange(1, k + 1, device=tlg.device)
+    u = _uniform(_row_keys(seed[:, None].expand(K, k), idx, _SUB_ACCEPT))
+    samp_acc = u < torch.clamp(px_t / torch.clamp(px_d, min=1e-30),
+                               max=1.0)
+    acc = torch.where((temp > 0)[:, None], samp_acc, greedy_acc)
+    m = torch.cumprod(acc.long(), 1).sum(1)
+    pt_m = pt[rows, m]
+    pd_m = torch.cat([pd, pd.new_zeros(K, 1, V)], 1)[rows, m]
+    res = torch.clamp(pt_m - pd_m, min=0.0)
+    rs = res.sum(-1, keepdim=True)
+    res = torch.where(rs > 0, res / torch.clamp(rs, min=1e-30), pt_m)
+    keys = _row_keys(seed, gen0 + m + 1, _SUB_RESAMPLE)
+    sampled_next = (torch.log(res) + _gumbel(keys, V)).argmax(-1)
+    return m, torch.where(temp > 0, sampled_next, tchoice[rows, m])
+
+
+def _spec_window(target, draft, pages, dpages, last_logits, forced_tok,
+                 forced, btab, ctx, live, budget, *, k, ctx_bucket,
+                 eos_token_id, sampling=None):
+    """One speculative propose / verify / commit window over the
+    fixed-slot batch:
+
+      1. candidate 0: the carried next token where `forced` (the
+         verify's earlier choice, a rejection's resample included), else
+         each row's choice off `last_logits`;
+      2. the draft proposes k tokens in k + 1 one-token steps through
+         its own pools under the same block tables and offsets ctx + i
+         (the last step writes the k-th proposal's KV row), each
+         proposal chosen under the row's sampling parameters;
+      3. the target verifies each row's k + 1 tokens in one forward over
+         its pages gathered into a contiguous cache of `ctx_bucket`
+         positions (per-row write offsets, the plain masked attention);
+      4. `_spec_accept`; the commit count m + 1 clamped by the row's
+         budget, cut after its first eos, 0 for rows not live;
+      5. only the committed rows' target K/V are scattered back into the
+         pages (the rest to the scratch page), so the pages hold what a
+         non-speculative engine would have written.
+
+    Returns (candidates (K, k + 1), commit counts (K,), next tokens
+    (K,), last_logits, pages, dpages): a row's committed tokens are its
+    first commit-count candidates; its next token is the one the host
+    carries on the request."""
+    K = last_logits.shape[0]
+    gen0 = None
+    if sampling is None:
+        cand0 = last_logits.float().argmax(-1)
+    else:
+        temp, topk, topp, seed, plen = sampling
+        gen0 = ctx.long() - plen
+        cand0 = _sample_rows(last_logits, temp, topk, topp,
+                             _row_keys(seed, gen0, _SUB_PROPOSE))
+    cand0 = torch.where(forced, forced_tok, cand0)
+    tok, toks, pds = cand0, [], []
+    for i in range(k + 1):
+        dlogits, dpages = draft(tok[:, None], caches=dpages,
+                                kv_write_pos=ctx + i, block_tables=btab)
+        if i == k:
+            break
+        if sampling is None:
+            tok = dlogits[:, -1].float().argmax(-1)
+        else:
+            tok, pd = _sample_rows_dist(
+                dlogits[:, -1], temp, topk, topp,
+                _row_keys(seed, gen0 + i + 1, _SUB_PROPOSE))
+            pds.append(pd)
+        toks.append(tok)
+    drafts = torch.stack(toks, 1)                            # (K, k)
+    window_ids = torch.cat([cand0[:, None], drafts], 1)      # (K, k + 1)
+    tmp = _pool_gather(pages, btab, ctx, ctx_bucket)
+    tlogits, tmp = target(window_ids, caches=tmp, kv_write_pos=ctx)
+    tlg = tlogits.float()
+    m, next_tok = _spec_accept(drafts, torch.stack(pds, 1) if pds else None,
+                               tlg, sampling, gen0)
+    nc = torch.minimum(m + 1, budget.long())
+    if eos_token_id is not None:
+        iseos = window_ids == eos_token_id
+        first = iseos.long().argmax(1)
+        nc = torch.where(iseos.any(1) & (first < nc), first + 1, nc)
+    nc = torch.where(live, nc, 0)
+    bs = pages[0].kp.shape[2]
+    maxb = btab.shape[1]
+    i = torch.arange(k + 1, device=ctx.device)
+    wpos = ctx.long()[:, None] + i[None, :]                  # (K, k + 1)
+    page = torch.gather(btab.long(), 1, (wpos // bs).clamp(max=maxb - 1))
+    page = torch.where(i[None, :] < nc[:, None], page, 0)
+    pflat, sflat = page.reshape(-1), (wpos % bs).reshape(-1)
+    take = wpos.clamp(max=ctx_bucket - 1)
+    for t, pc in zip(tmp, pages):
+        _pool_scatter(pc, t, pflat, sflat, take=take)
+    rows = torch.arange(K, device=ctx.device)
+    last = tlg[rows, (nc - 1).clamp_min(0)]
+    last_logits = torch.where(live[:, None], last.to(last_logits.dtype),
+                              last_logits)
+    return window_ids, nc, next_tok, last_logits, pages, dpages
+
+
 # the JAX engine's arguments the port does not take yet, by feature
-_UNPORTED = dict.fromkeys(('draft', 'num_draft_tokens'),
-                          'speculative decoding')
-_UNPORTED.update(dict.fromkeys(('max_queue', 'admit_watermark',
-                                'shed_policy'), 'load shedding'))
+_UNPORTED = dict.fromkeys(('max_queue', 'admit_watermark', 'shed_policy'),
+                          'load shedding')
 _UNPORTED.update(dict.fromkeys(('mesh', 'tp'), 'tensor parallelism'))
 _UNPORTED.update(dict.fromkeys(
     ('postmortem_dir', 'ops_port', 'ops_host', 'watchdog', 'slo_rules',
@@ -669,13 +835,16 @@ class ServingEngine:
     (int8 pages with per-row scales). `temperature` / `top_k` / `top_p`
     are the defaults of `submit`. `prefix_cache` shares the pages of
     equal prompt prefixes; `prefill_chunk` prefills long contexts that
-    many tokens per step (both off by default)."""
+    many tokens per step (both off by default). `draft` (a model of the
+    same vocabulary on the same device) turns on speculative decoding
+    with `num_draft_tokens` proposals a window."""
 
     def __init__(self, model, max_slots=8, block_size=16, num_blocks=None,
                  max_context_len=None, max_new_tokens=32, decode_window=8,
                  temperature=0.0, top_k=0, top_p=1.0, eos_token_id=None,
                  buckets=None, prefix_cache=False, prefill_chunk=None,
-                 kv_cache_dtype=None, **unported):
+                 kv_cache_dtype=None, draft=None, num_draft_tokens=4,
+                 **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f'ServingEngine got an unexpected keyword '
@@ -695,6 +864,19 @@ class ServingEngine:
                 f"{kv_cache_dtype!r}")
         self.kv_cache_dtype = (None if kv_cache_dtype is None
                                else kv_dtypes[kv_cache_dtype])
+        self.draft = draft
+        self.spec_window = None
+        if draft is not None:
+            self.spec_window = int(num_draft_tokens)
+            if self.spec_window < 1:
+                raise ValueError('num_draft_tokens must be >= 1')
+            if draft.device != model.device:
+                raise ValueError(
+                    f'the draft is on {draft.device}, the model on '
+                    f'{model.device}: both serve from one device')
+            if getattr(draft.config, 'sliding_window', None) is not None:
+                raise NotImplementedError(
+                    'sliding-window models are not paged-servable yet')
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)
@@ -730,14 +912,19 @@ class ServingEngine:
         # device state, allocated once
         self._pages = model.init_paged_cache(num_blocks, self.block_size,
                                              dtype=self.kv_cache_dtype)
+        # the draft's pools share the target's page ids (same num_blocks
+        # and block_size, the same block tables): one allocator serves
+        # both. The draft's logits are never kept.
+        self._dpages = (None if draft is None else draft.init_paged_cache(
+            num_blocks, self.block_size, dtype=self.kv_cache_dtype))
         self._last_logits = torch.zeros(
             (self.max_slots, model.config.vocab_size),
             dtype=model.cache_dtype(), device=self.device)
         # one page across every layer and every pool field (an int8
-        # pool's scale rows included)
+        # pool's scale rows included), the draft's pools' too
         self.allocator.bytes_per_page = sum(
-            f[0].numel() * f.element_size() for pc in self._pages
-            for f in pc)
+            f[0].numel() * f.element_size()
+            for pc in self._pages + (self._dpages or []) for f in pc)
 
         # host-authoritative per-slot state (uploaded each window)
         S = self.max_slots
@@ -758,6 +945,12 @@ class ServingEngine:
         # makes; the slot holds a reference on src until then.
         self._pfill: list = [None] * S
         self._cow_pending: list = [None] * S
+        # how much of each slot's context the DRAFT's pages hold (<=
+        # _ctx): tokens a chunk step's plain window commits bypass the
+        # draft, and the next speculative or chunk step catches it up
+        # (without that it would propose against missing KV, and the
+        # accept rate would collapse without any error)
+        self._dctx = np.zeros((S,), np.int64)
 
         # every submitted request is in `_live` (queued / running /
         # preempted) or `_terminal` (finished / failed, popped by
@@ -779,7 +972,12 @@ class ServingEngine:
         self.prefill_forwards = 0
         self.chunk_forwards = 0
         self.decode_forwards = 0
+        self.verify_forwards = 0         # a speculative window's (k + 1)
         self.prefill_tokens = 0          # context tokens run through them
+        # the draft's forwards, by kind (its one-token steps run the
+        # paged-attention kernel, k + 1 per speculative window)
+        self.draft_forwards = {'prefill': 0, 'chunk': 0, 'decode': 0}
+        self.spec_counts = {'windows': 0, 'proposed': 0, 'accepted': 0}
         self._tokens_out = 0
         self._serve_time = 0.0
 
@@ -807,6 +1005,20 @@ class ServingEngine:
                        'prefill_chunk': self.prefill_chunk,
                        **self.prefix_counts,
                        **self.allocator.stats()['prefix']},
+            # accept_rate: accepted draft tokens over proposed ones (None
+            # before the first window)
+            'spec': {'enabled': self.draft is not None,
+                     'num_draft_tokens': self.spec_window,
+                     'kv_cache_dtype': (
+                         str(self.kv_cache_dtype).replace('torch.', '')
+                         if self.kv_cache_dtype else None),
+                     **self.spec_counts,
+                     'accept_rate': (
+                         self.spec_counts['accepted']
+                         / self.spec_counts['proposed']
+                         if self.spec_counts['proposed'] else None),
+                     'verify_forwards': self.verify_forwards,
+                     'draft_forwards': dict(self.draft_forwards)},
             'blocks': self.allocator.stats(),
         }
 
@@ -956,13 +1168,22 @@ class ServingEngine:
         if (self._temp[live] > 0).any():
             sampling = tuple(torch.as_tensor(a, device=dev) for a in (
                 self._temp, self._topk, self._topp, self._seed, self._plen))
+        args = (torch.as_tensor(btab, device=dev),
+                torch.as_tensor(ctx, device=dev),
+                torch.as_tensor(live, device=dev),
+                torch.as_tensor(self._budget, device=dev))
+        if self.draft is not None and not chunk_rows:
+            return self._spec_step(live, int(ctx.max()), args, sampling)
+        forced = {}
+        if self.draft is not None:
+            # decoding rows carry the verify's next token: this plain
+            # window (a chunk step's) commits it first
+            forced = dict(zip(('forced_tok', 'forced'),
+                              self._forced_state()))
         toks, self._last_logits, self._pages = _window(
-            self.model, self._pages, self._last_logits,
-            torch.as_tensor(btab, device=dev),
-            torch.as_tensor(ctx, device=dev),
-            torch.as_tensor(live, device=dev),
-            torch.as_tensor(self._budget, device=dev),
-            window=W, eos_token_id=self.eos_token_id, sampling=sampling)
+            self.model, self._pages, self._last_logits, *args,
+            window=W, eos_token_id=self.eos_token_id, sampling=sampling,
+            **forced)
         self.decode_forwards += W
         tokens = toks.cpu().numpy()        # the one host read per window
         finished = []
@@ -976,18 +1197,62 @@ class ServingEngine:
                 committed.append(tok)
                 if self.eos_token_id is not None and tok == self.eos_token_id:
                     break
-            req.generated.extend(committed)
-            self._ctx[slot] += len(committed)
-            # the next window's budget is the current remaining, so a row
-            # can never commit past its max_new_tokens on the device
-            self._budget[slot] = req.remaining
-            self._tokens_out += len(committed)
-            if (req.remaining == 0
-                    or (self.eos_token_id is not None and committed
-                        and committed[-1] == self.eos_token_id)):
-                self._finish(slot, req)
+            # the carried token (if any) was this window's first commit
+            req.spec_next = None
+            if self._commit(slot, req, committed):
                 finished.append(req)
         return finished
+
+    def _spec_step(self, live, max_ctx, args, sampling):
+        """A speculative step's window (every slot decoding): the draft's
+        pages caught up first, then `_spec_window` with the verify's
+        gathered cache long enough for the farthest row's k + 1 writes,
+        and one host read of its candidates, commit counts and next
+        tokens together."""
+        k = self.spec_window
+        catchup = self._draft_catchup_rows()
+        if catchup:
+            self._draft_advance(catchup)
+        ftok, forced = self._forced_state()
+        cand, nc, nxt, self._last_logits, self._pages, self._dpages = \
+            _spec_window(self.model, self.draft, self._pages, self._dpages,
+                         self._last_logits, ftok, forced, *args, k=k,
+                         ctx_bucket=bucket_length(max_ctx + k + 1,
+                                                  self.buckets),
+                         eos_token_id=self.eos_token_id, sampling=sampling)
+        self.verify_forwards += 1
+        self.draft_forwards['decode'] += k + 1
+        self.spec_counts['windows'] += 1
+        host = torch.cat([cand, nc[:, None], nxt[:, None]], 1).cpu().numpy()
+        finished = []
+        for slot, req in enumerate(self._slot_req):
+            if req is None or not live[slot]:
+                continue
+            take = int(host[slot, k + 1])
+            req.spec_next = int(host[slot, k + 2])
+            # the draft's steps wrote every committed position's KV
+            self._dctx[slot] += take
+            self.spec_counts['proposed'] += k
+            self.spec_counts['accepted'] += max(0, take - 1)
+            if self._commit(slot, req, [int(t) for t in host[slot, :take]]):
+                finished.append(req)
+        return finished
+
+    def _commit(self, slot, req, committed):
+        """Append a window's committed tokens to the request and its
+        slot; retire it when it is done. Returns whether it finished."""
+        req.generated.extend(committed)
+        self._ctx[slot] += len(committed)
+        # the next window's budget is the current remaining, so a row
+        # can never commit past its max_new_tokens on the device
+        self._budget[slot] = req.remaining
+        self._tokens_out += len(committed)
+        if (req.remaining == 0
+                or (self.eos_token_id is not None and committed
+                    and committed[-1] == self.eos_token_id)):
+            self._finish(slot, req)
+            return True
+        return False
 
     # -- internals ---------------------------------------------------------
 
@@ -1056,6 +1321,9 @@ class ServingEngine:
                        and req.context_len - start > self.prefill_chunk)
             if start > 0 or chunked:
                 self._pfill[slot] = start
+                # the draft holds the shared prefix pages so far (their
+                # earlier owners wrote them); its chunks advance this
+                self._dctx[slot] = start
                 self._cow_pending[slot] = ((hit[-1], pages[len(hit) - 1])
                                            if cow else None)
                 self.prefix_counts['chunked_admissions'] += int(chunked)
@@ -1080,6 +1348,9 @@ class ServingEngine:
         self._topp[slot] = req.top_p
         self._seed[slot] = req.sample_seed & 0xFFFFFFFF
         self._plen[slot] = len(req.prompt)
+        # a monolithic admission prefills both models in this step; a
+        # chunk-path one overrides this with its start (_admit)
+        self._dctx[slot] = req.context_len
         req.state = 'running'
         req.admit_seq = next(self._admit_seq)
 
@@ -1095,12 +1366,18 @@ class ServingEngine:
             ids[i, :req.context_len] = req.context()          # RIGHT-pad
             real_len[i] = req.context_len
             btabs[i] = self._btab[slot]
-        last, self._pages = _prefill_kv(
-            self.model, self._pages, torch.as_tensor(ids, device=dev),
-            torch.as_tensor(real_len, device=dev),
-            torch.as_tensor(btabs, device=dev))
-        self.prefill_forwards += 1
         self.prefill_tokens += int(real_len.sum())
+        ids, real_len, btabs = (torch.as_tensor(a, device=dev)
+                                for a in (ids, real_len, btabs))
+        last, self._pages = _prefill_kv(self.model, self._pages, ids,
+                                        real_len, btabs)
+        self.prefill_forwards += 1
+        if self.draft is not None:
+            # the draft must hold every admitted row's prompt KV, or its
+            # proposals run against zeros
+            _, self._dpages = _prefill_kv(self.draft, self._dpages, ids,
+                                          real_len, btabs)
+            self.draft_forwards['prefill'] += 1
         slots = torch.as_tensor([s for s, _r in group], device=dev)
         self._last_logits[slots] = last.to(self._last_logits.dtype)
         for slot, req in group:
@@ -1134,13 +1411,25 @@ class ServingEngine:
         cow = None
         if pairs:
             cow = tuple(torch.as_tensor(c, device=dev) for c in zip(*pairs))
-        last, self._pages = _chunk_kv(
-            self.model, self._pages, torch.as_tensor(ids, device=dev),
-            torch.as_tensor(clen, device=dev),
-            torch.as_tensor(start, device=dev),
-            torch.as_tensor(btabs, device=dev), L, cow=cow)
-        self.chunk_forwards += 1
         self.prefill_tokens += int(clen.sum())
+        args = [torch.as_tensor(a, device=dev)
+                for a in (ids, clen, start, btabs)]
+        last, self._pages = _chunk_kv(self.model, self._pages, *args, L,
+                                      cow=cow)
+        self.chunk_forwards += 1
+        if self.draft is not None:
+            # the draft's pages follow the chunk path (the copies on
+            # write included); then every decoding row's draft hole (the
+            # previous chunk step's commits) catches up, so no hole
+            # outgrows one window
+            _, self._dpages = _chunk_kv(self.draft, self._dpages, *args, L,
+                                        cow=cow)
+            self.draft_forwards['chunk'] += 1
+            for slot, _r, p, take in rows:
+                self._dctx[slot] = p + take
+            catchup = self._draft_catchup_rows()
+            if catchup:
+                self._draft_advance(catchup)
         self.prefix_counts['chunk_steps'] += 1
         done = [i for i, (s, _r, _p, _t) in enumerate(rows)
                 if self._pfill[s] is None]
@@ -1152,6 +1441,52 @@ class ServingEngine:
             self.allocator.free([src for src, _dst in pairs])
         for slot, req, p, take in rows:
             self._register_prefix_pages(slot, req, p, p + take)
+
+    def _draft_catchup_rows(self):
+        """Decoding slots whose draft pages lag their committed context
+        (a chunk step's plain window committed tokens past the draft):
+        (slot, req, draft context, hole) rows for `_draft_advance`."""
+        return [(s, r, int(self._dctx[s]), int(self._ctx[s] - self._dctx[s]))
+                for s, r in enumerate(self._slot_req)
+                if r is not None and self._pfill[s] is None
+                and self._ctx[s] > self._dctx[s]]
+
+    def _draft_advance(self, rows):
+        """One chunk forward of the draft appending each row's context
+        tokens [start, start + take) into its pages (no copy on write:
+        these rows are past their prefill), then advance their draft
+        context."""
+        dev = self.device
+        K = len(rows)
+        Cb = bucket_length(max(t for _s, _r, _p, t in rows), self.buckets)
+        L = bucket_length(max(p for _s, _r, p, _t in rows) + Cb,
+                          self.buckets)
+        ids = np.zeros((K, Cb), np.int64)
+        clen = np.zeros((K,), np.int64)
+        start = np.zeros((K,), np.int64)
+        btabs = np.zeros((K, self.max_blocks_per_seq), np.int32)
+        for i, (slot, req, p, take) in enumerate(rows):
+            ids[i, :take] = req.context()[p:p + take]
+            clen[i], start[i] = take, p
+            btabs[i] = self._btab[slot]
+        _, self._dpages = _chunk_kv(
+            self.draft, self._dpages, *(torch.as_tensor(a, device=dev)
+                                        for a in (ids, clen, start, btabs)),
+            L)
+        self.draft_forwards['chunk'] += 1
+        for slot, _r, p, take in rows:
+            self._dctx[slot] = p + take
+
+    def _forced_state(self):
+        """(forced_tok, forced) (SLOTS,) device tensors: the slots whose
+        request carries a speculative window's next token, and it."""
+        forced = np.zeros((self.max_slots,), bool)
+        ftok = np.zeros((self.max_slots,), np.int64)
+        for s, r in enumerate(self._slot_req):
+            if r is not None and r.spec_next is not None:
+                forced[s], ftok[s] = True, r.spec_next
+        return (torch.as_tensor(ftok, device=self.device),
+                torch.as_tensor(forced, device=self.device))
 
     def _register_prefix_pages(self, slot, req, lo, hi):
         """Index every full prompt page whose KV the forward over
@@ -1167,20 +1502,25 @@ class ServingEngine:
 
     def _ensure_window_pages(self):
         """Every decoding slot must own pages covering the positions the
-        coming window can write (ctx .. ctx + min(window, remaining)). A
+        coming window can commit (ctx .. ctx + min(window, remaining)). A
         dry pool preempts the lowest-priority / youngest request until
         the top-up fits (the needy slot may evict itself). A slot whose
         top-up still fails once it is the only request left is
         unservable: that request fails alone. Slots mid prefill own
-        their pages since admission and are skipped."""
+        their pages since admission and are skipped. A speculative
+        window commits up to k + 1 tokens, so the top-up covers
+        max(window, k + 1) positions (the draft's writes past the
+        committed ones that reach no page land on the scratch page)."""
         a = self.allocator
+        adv = self.decode_window
+        if self.spec_window is not None:
+            adv = max(adv, self.spec_window + 1)
         for slot in range(self.max_slots):
             req = self._slot_req[slot]
             if req is None or self._pfill[slot] is not None:
                 continue
             target = _ceil_div(
-                int(self._ctx[slot]) + min(self.decode_window,
-                                           req.remaining),
+                int(self._ctx[slot]) + min(adv, req.remaining),
                 self.block_size)
             while (self._slot_req[slot] is req
                    and target > len(self._slot_pages[slot])):
@@ -1258,6 +1598,7 @@ class ServingEngine:
         self._topp[slot] = 1.0
         self._seed[slot] = 0
         self._plen[slot] = 0
+        self._dctx[slot] = 0
         self._pfill[slot] = None
         self._cow_pending[slot] = None
 

@@ -363,3 +363,276 @@ class GenerationMixin:
                                   cache_index=S + i, **step_extra)
             last = logits[:, -1, :]
         return torch.cat([input_ids, out], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding
+# ---------------------------------------------------------------------------
+
+def _check_speculative_pair(target, draft, batch):
+    """What every speculative entry point refuses up front: a draft on
+    another device than the target, and (batch > 1) a model whose cached
+    forward lacks per-row write offsets."""
+    if draft.device != target.device:
+        raise ValueError(
+            f'the draft is on {draft.device}, the target on '
+            f'{target.device}: speculative decoding runs both on one '
+            f'device')
+    if batch != 1:
+        for m_ in (target, draft):
+            if 'kv_write_pos' not in inspect.signature(
+                    m_.forward).parameters:
+                raise NotImplementedError(
+                    f'{type(m_).__name__} does not support batched '
+                    f'speculative decoding (cached forward lacks '
+                    f'kv_write_pos); loop prompts individually')
+
+
+class _eval_mode:
+    """Both models in eval mode for the call (dropout would break the
+    greedy losslessness and differ between draft and verify); the ones
+    that were training are put back after."""
+
+    def __init__(self, *models):
+        self.models = models
+
+    def __enter__(self):
+        self.restore = [m_ for m_ in self.models
+                        if bool(getattr(m_, 'training', False))]
+        for m_ in self.restore:
+            m_.eval()
+
+    def __exit__(self, *exc):
+        for m_ in self.restore:
+            m_.train()
+
+
+def generate_speculative(target, draft, input_ids, max_new_tokens=32,
+                         num_draft_tokens=4, eos_token_id=None,
+                         kv_cache_int8=False):
+    """Greedy speculative decoding: LOSSLESS, the tokens
+    `target.generate(...)` would give, with one target forward per
+    window of up to k + 1 tokens (k = num_draft_tokens) instead of one
+    per token. Each window the draft proposes k tokens in k + 1
+    one-token steps (the last writes the k-th proposal's own KV row),
+    the target verifies [c, d1..dk] in one forward, and the longest
+    draft prefix the target's argmax agrees with commits with the
+    target's next choice. Rejected rows of both caches are overwritten
+    by the next window (writes start at the committed length, and
+    position masking hides the rows beyond it).
+
+    Batch 1 runs over a uniform cache index and reads the host once per
+    window (the accepted count and the next token together). Batched
+    prompts (B > 1, equal length) commit per row at their own rates
+    through per-row write offsets (`kv_write_pos`; models that lack it
+    are batch-1 only), each row by the rule its solo `generate` follows.
+    kv_cache_int8=True serves both models over int8 caches
+    (`QuantKVCache`, scales calibrated at their prefills), matching
+    `target.generate(..., kv_cache_int8=True)`. Returns (B, S +
+    max_new_tokens) ids, eos-padded after an early stop."""
+    ids = torch.as_tensor(input_ids, device=target.device)
+    B, S = ids.shape
+    if kv_cache_int8 and S < 2:
+        raise ValueError(
+            'kv_cache_int8 needs a multi-token prompt: the per-head '
+            'scales calibrate on the prefill rows')
+    _check_speculative_pair(target, draft, B)
+    with _eval_mode(target, draft), torch.no_grad():
+        gen, _counts = _speculative_loop(target, draft, ids, max_new_tokens,
+                                         num_draft_tokens, eos_token_id,
+                                         kv_cache_int8)
+    return torch.cat([ids, torch.as_tensor(gen, dtype=ids.dtype,
+                                           device=ids.device)], dim=1)
+
+
+def _speculative_loop(target, draft, input_ids, max_new_tokens,
+                      num_draft_tokens, eos_token_id, kv_cache_int8=False):
+    """Both caches sized S + max_new_tokens + k + 1 (room for the last
+    window), then the batch-1 or the batched window loop. Returns (B
+    lists of max_new_tokens ids, {'windows', 'proposed', 'accepted'})."""
+    from ..inference.engine import (_spec_loop_host_b1,
+                                    _spec_loop_host_batched)
+
+    B, S = input_ids.shape
+    k = int(num_draft_tokens)
+    if k < 1:
+        raise ValueError('num_draft_tokens must be >= 1')
+    max_len = S + max_new_tokens + k + 1
+    tcaches = target.init_cache(B, max_len, quantized=kv_cache_int8)
+    dcaches = draft.init_cache(B, max_len, quantized=kv_cache_int8)
+    loop = _spec_loop_host_b1 if B == 1 else _spec_loop_host_batched
+    return loop(target, draft, tcaches, dcaches, input_ids, max_new_tokens,
+                k, eos_token_id)
+
+
+def _commit_window(c, d_row, t_row, k):
+    """The greedy commit rule as a host-side reference: accept the
+    longest draft prefix the target agrees with, commit [c] + that
+    prefix, and take the next token from the target's own choice at the
+    first disagreement (or its bonus choice after a full accept).
+    Returns (committed tokens, next token). The loops run the same rule
+    on the device (m = sum(cumprod(d == t[:k])), next = t[m]); this is
+    the spec they are tested against."""
+    d = np.asarray(d_row)
+    t = np.asarray(t_row)
+    agree = (d[:k] == t[:k]).astype(np.int64)
+    m_acc = int(agree.cumprod().sum())
+    committed = [int(c)] + [int(x) for x in d[:m_acc]]
+    return committed, int(t[m_acc])
+
+
+def _speculative_accept_dists(pt, pd):
+    """The rejection-sampling identity: for target and draft
+    distributions pt, pd (..., V) at one position, 'sample x ~ pd;
+    accept with probability min(1, pt(x) / pd(x)); else resample from
+    norm((pt - pd)+)' outputs exactly pt. Returns (the accept
+    probability of every token, the residual distribution)."""
+    accept = torch.clamp(pt / torch.clamp(pd, min=1e-30), max=1.0)
+    residual = torch.clamp(pt - pd, min=0.0)
+    residual = residual / torch.clamp(residual.sum(-1, keepdim=True),
+                                      min=1e-30)
+    return accept, residual
+
+
+def generate_speculative_sampled(target, draft, input_ids,
+                                 max_new_tokens=32, num_draft_tokens=4,
+                                 temperature=1.0, top_k=0, top_p=1.0,
+                                 rng_key=None, eos_token_id=None):
+    """Sampled speculative decoding (Leviathan / Chen rejection
+    sampling): the draft proposes tokens sampled at `temperature`; each
+    is accepted with probability min(1, p_target / p_draft), and a
+    rejection resamples from the normalised residual (p_target -
+    p_draft)+. The output's law is that of sampling the target directly
+    (with temperature / top_k / top_p applied to both models, the
+    filtered target's). temperature 0 is the greedy, lossless
+    `generate_speculative`.
+
+    Batch 1. `rng_key` (a torch.Generator or an int seed; None is 0)
+    drives the first token and the draft's proposals; the accept coins
+    and resamples come from a second, independent generator seeded by
+    one draw of the first. The host reads once per window (the
+    proposals and both models' distributions together). The streams
+    are the port's own, never the JAX package's threefry draws."""
+    if temperature == 0.0:
+        return generate_speculative(target, draft, input_ids,
+                                    max_new_tokens, num_draft_tokens,
+                                    eos_token_id)
+    ids = torch.as_tensor(input_ids, device=target.device)
+    B, S = ids.shape
+    if B != 1:
+        raise NotImplementedError(
+            'sampled speculative decoding is batch-1; loop prompts '
+            'individually (greedy supports batches)')
+    _check_speculative_pair(target, draft, B)
+    with _eval_mode(target, draft), torch.no_grad():
+        out = _speculative_sampled_loop(
+            target, draft, ids, max_new_tokens, num_draft_tokens,
+            temperature, top_k, top_p, rng_key, eos_token_id)
+    return torch.cat([ids, torch.as_tensor([out], dtype=ids.dtype,
+                                           device=ids.device)], dim=1)
+
+
+def _sampled_dist(logits, temperature, top_k, top_p):
+    """Temperature and top-k / top-p applied to both models'
+    distributions: filtered entries softmax to exact 0, so they can be
+    neither proposed nor resampled."""
+    return torch.softmax(filter_logits(logits.float() / temperature, top_k,
+                                       top_p), dim=-1)
+
+
+def _sampled_prefill(m, caches, ids, cfg):
+    logits, caches = m(ids, caches=caches, cache_index=0)
+    return _sampled_dist(logits[:, -1, :], **cfg)
+
+
+def _sampled_propose(m, caches, c, idx, gen, k, cfg):
+    """The draft samples k tokens in k + 1 one-token steps (the last
+    writes the k-th proposal's KV row); returns them (k,) with the
+    draft's distribution at each (k, V)."""
+    tok, toks, ps = c, [], []
+    for i in range(k + 1):
+        logits, caches = m(tok, caches=caches, cache_index=idx + i)
+        if i == k:
+            break
+        p = _sampled_dist(logits[:, -1], **cfg)
+        tok = torch.multinomial(p, 1, generator=gen)
+        toks.append(tok[0, 0])
+        ps.append(p[0])
+    return torch.stack(toks), torch.stack(ps)
+
+
+def _sampled_verify(m, caches, window, idx, cfg):
+    logits, caches = m(window, caches=caches, cache_index=idx)
+    return _sampled_dist(logits[0], **cfg)
+
+
+def _sampled_commit(d, pt, pd, k, coins):
+    """One window's rejection-sampling commit on the host: proposal i
+    is accepted with probability min(1, pt[i](d_i) / pd[i](d_i)); the
+    first rejection resamples from the residual (pt - pd)+ (pt itself
+    when pt <= pd everywhere), a full accept draws the bonus token from
+    pt[k]. d (k,), pt (k + 1, V), pd (k, V) on the CPU in float64;
+    `coins` a CPU torch.Generator. Returns (accepted proposals, next
+    token)."""
+    def draw(p):
+        return int(torch.multinomial(p, 1, generator=coins))
+
+    accepted = []
+    for i in range(k):
+        x = int(d[i])
+        accept, residual = _speculative_accept_dists(pt[i], pd[i])
+        if float(torch.rand((), dtype=torch.float64,
+                            generator=coins)) < float(accept[x]):
+            accepted.append(x)
+            continue
+        return accepted, draw(residual if residual.sum() > 0 else pt[i])
+    return accepted, draw(pt[k])
+
+
+def _speculative_sampled_loop(target, draft, input_ids, max_new_tokens,
+                              num_draft_tokens, temperature, top_k, top_p,
+                              rng_key, eos_token_id):
+    B, S = input_ids.shape
+    k = int(num_draft_tokens)
+    if k < 1:
+        raise ValueError('num_draft_tokens must be >= 1')
+    dev = input_ids.device
+    max_len = S + max_new_tokens + k + 1
+    tcaches = target.init_cache(B, max_len)
+    dcaches = draft.init_cache(B, max_len)
+    cfg = dict(temperature=float(temperature), top_k=int(top_k),
+               top_p=float(top_p))
+    gen = _generator(rng_key, dev)
+    p_last = _sampled_prefill(target, tcaches, input_ids, cfg)
+    _sampled_prefill(draft, dcaches, input_ids, cfg)
+    c = torch.multinomial(p_last, 1, generator=gen)              # (1, 1)
+    # the accept / resample coins: an independent stream, seeded by one
+    # draw of the proposal stream (the exactness proof assumes the coins
+    # do not correlate with the proposals)
+    coins = torch.Generator().manual_seed(int(torch.randint(
+        0, 2 ** 31 - 1, (1,), generator=gen, device=dev)))
+    c_host = int(c)
+    out, L = [], S
+    while len(out) < max_new_tokens:
+        c = torch.tensor([[c_host]], dtype=input_ids.dtype, device=dev)
+        drafts, pd = _sampled_propose(draft, dcaches, c, L, gen, k, cfg)
+        pt = _sampled_verify(target, tcaches,
+                             torch.cat([c, drafts[None].to(c.dtype)], 1),
+                             L, cfg)
+        # one host read per window: proposals and both distributions
+        V = pt.shape[-1]
+        host = torch.cat([pt.double().reshape(-1), pd.double().reshape(-1),
+                          drafts.double()]).cpu()
+        accepted, nxt = _sampled_commit(
+            host[-k:].long(), host[:(k + 1) * V].view(k + 1, V),
+            host[(k + 1) * V:-k].view(k, V), k, coins)
+        committed = [c_host] + accepted
+        out.extend(committed)
+        if eos_token_id is not None and eos_token_id in committed:
+            out = out[:out.index(eos_token_id) + 1]
+            break
+        c_host = nxt
+        L += len(committed)
+    if eos_token_id is not None and len(out) < max_new_tokens:
+        out += [eos_token_id] * (max_new_tokens - len(out))
+    return out[:max_new_tokens]

@@ -1562,3 +1562,123 @@ def test_rms_norm_bf16_unaligned_rows_take_the_scalar_path(card):
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
                                atol=2 ** -7)
 
+
+
+def _plain_kernels():
+    """Every decode-path kernel swapped for its plain version."""
+    import contextlib
+    from unittest import mock
+
+    stack = contextlib.ExitStack()
+    for mod, name in ((k_rms, 'rms_norm'), (k_decode, 'decode_attention'),
+                      (k_paged, 'paged_decode_attention'),
+                      (k_qmm, 'quant_matmul')):
+        stack.enter_context(mock.patch.object(mod, name,
+                                              getattr(mod, name + '_plain')))
+    return stack
+
+
+def _spec_models(card):
+    """A float32 2-layer target and a draft of its first layer (its
+    embedding, final norm and head), on the card."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+
+    cfg = llama_tiny(vocab_size=128, hidden_size=64, layers=2)
+    target = LlamaForCausalLM(cfg, device=card, seed=0)
+    draft = LlamaForCausalLM(llama_tiny(vocab_size=128, hidden_size=64,
+                                        layers=1), device=card, seed=1)
+    own = target.state_dict()
+    draft.load_state_dict({k: own[k] for k in draft.state_dict()})
+    return target, draft
+
+
+def test_speculative_generate_runs_the_decode_kernels(card):
+    """generate_speculative and DecodeEngine.generate_speculative on the
+    card (float32, 2 layers): tokens equal to generate and to the run
+    through the plain versions; the draft's one-token steps launch K7
+    once per layer, k + 1 a window (none in a prefill or verify), K1
+    2L + 1 a forward of either model, K10 7L + 1 a forward of an int8
+    draft."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.generation import generate_speculative
+
+    target, draft = _spec_models(card)
+    k, n = 3, 10
+    for B, kv8, qdraft in ((1, False, False), (3, False, False),
+                           (1, True, False), (1, False, True)):
+        ids = torch.from_numpy(np.random.default_rng(B).integers(
+            3, 128, (B, 9))).to(card)
+        d = draft.quantize_weights(8) if qdraft else draft
+        kw = dict(max_new_tokens=n, num_draft_tokens=k, kv_cache_int8=kv8)
+        before = dict(_build.LAUNCHES)
+        out = generate_speculative(target, d, ids, **kw)
+        got = {name: _build.LAUNCHES[name] - before[name]
+               for name in before}
+        # the draft's one-token steps alone launch K7 (1 layer, k + 1 a
+        # window): the windows, and from them every other count
+        w, rest = divmod(got['decode_attention'], k + 1)
+        assert w > 0 and rest == 0
+        assert got['rms_norm'] == 5 * (1 + w) + 3 * (1 + (k + 1) * w)
+        assert got['quant_matmul'] == (8 * (1 + (k + 1) * w) if qdraft
+                                       else 0)
+        assert got['paged_decode_attention'] == 0
+        assert torch.equal(out, target.generate(ids, max_new_tokens=n,
+                                                kv_cache_int8=kv8))
+        with _plain_kernels():
+            assert torch.equal(out, generate_speculative(target, d, ids,
+                                                         **kw))
+        if not kv8:
+            eng = DecodeEngine(target, max_new_tokens=n)
+            assert torch.equal(out, eng.generate_speculative(
+                d, ids, num_draft_tokens=k))
+            assert eng.stats()['spec']['windows'] == w
+
+
+@pytest.mark.parametrize('kv', [None, 'int8'])
+def test_speculative_serving_runs_the_paged_kernels(card, kv):
+    """ServingEngine(draft=) on the card (float32, 2 layers, prefix cache
+    and chunked prefill on): streams equal to the non-speculative
+    engine's and to the run through the plain versions; K8 (K8q over int8
+    pools) launches once per layer of every one-token forward, the
+    draft's k + 1 a window beside the target's decode window; K1 2L + 1
+    a forward of either model; a self-draft accepts every proposal."""
+    from paddle_tpu_torch.inference import ServingEngine
+
+    target, draft = _spec_models(card)
+    rng = np.random.default_rng(7)
+    system = rng.integers(3, 128, 24)
+    prompts = [np.concatenate([system, rng.integers(3, 128, n)])
+               for n in (5, 9, 3)] + [rng.integers(3, 128, 30)]
+    kw = dict(max_slots=2, block_size=8, max_context_len=64,
+              max_new_tokens=12, decode_window=4, buckets=(16, 64),
+              kv_cache_dtype=kv, prefix_cache=True, prefill_chunk=8)
+    kernel = ('paged_decode_attention_int8' if kv
+              else 'paged_decode_attention')
+
+    def serve(d):
+        eng = ServingEngine(target, draft=d, num_draft_tokens=3, **kw)
+        before = dict(_build.LAUNCHES)
+        outs = eng.serve(prompts)
+        got = {name: _build.LAUNCHES[name] - before[name]
+               for name in before}
+        return eng.stats(), outs, got
+
+    want = ServingEngine(target, **kw).serve(prompts)
+    for d, Ld in ((draft, 1), (target, 2)):
+        s, outs, got = serve(d)
+        sp = s['spec']
+        assert all(np.array_equal(a, b) for a, b in zip(outs, want))
+        assert sp['windows'] > 0 and s['prefix']['hits'] > 0
+        assert got[kernel] == 2 * s['decode_forwards'] + Ld * 4 * sp[
+            'windows']
+        n_t = (s['prefill_forwards'] + s['chunk_forwards']
+               + s['decode_forwards'] + sp['verify_forwards'])
+        assert got['rms_norm'] == 5 * n_t + (2 * Ld + 1) * sum(
+            sp['draft_forwards'].values())
+        assert got['decode_attention'] == 0
+        if d is target:
+            assert sp['accept_rate'] == 1.0
+    with _plain_kernels():
+        _s, plain, got = serve(draft)
+    assert all(np.array_equal(a, b) for a, b in zip(plain, want))
+    assert not any(got.values())

@@ -293,10 +293,12 @@ def _prompts(B, S, seed):
 
 
 def _jax_generate(jm, ids, **kw):
+    """The JAX model's generate under one jax.jit (compiled once, where
+    its eager prefill compiles every operation), the mask a constant."""
     am = kw.pop('attention_mask', None)
-    return np.asarray(jm.generate(
-        jnp.asarray(ids), attention_mask=None if am is None
-        else jnp.asarray(am), **kw))
+    am = None if am is None else jnp.asarray(am)
+    return np.asarray(jax.jit(lambda x: jm.generate(
+        x, attention_mask=am, **kw))(jnp.asarray(ids)))
 
 
 class TestGenerate:
@@ -348,8 +350,6 @@ class TestGenerate:
         ids = torch.from_numpy(_prompts(1, 4, 8))
         with pytest.raises(NotImplementedError, match='beam'):
             tm.generate(ids, num_beams=2)
-        with pytest.raises(NotImplementedError, match='speculative'):
-            DecodeEngine(tm).generate_speculative(tm, ids)
         with pytest.raises(ValueError, match='multi-token prompt'):
             tm.generate(ids[:, :1], kv_cache_int8=True)
 

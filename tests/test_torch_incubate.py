@@ -415,14 +415,18 @@ class TestFusedMultiTransformer:
         rng = np.random.default_rng(4)
         x = rng.normal(size=(B, S, E)).astype(np.float32)
         jc, tc = jm.gen_cache(B, T), tm.gen_cache(B, T)
-        jx, jc = jm(jnp.asarray(x), caches=jc)
+        # the JAX layer under one jax.jit per call shape (an eager run
+        # compiles every operation)
+        jprefill = jax.jit(lambda x, c: jm(x, caches=c))
+        jstep = jax.jit(lambda x, c, t: jm(x, caches=c, time_step=t))
+        jx, jc = jprefill(jnp.asarray(x), jc)
         with torch.no_grad():
             tx, tc = tm(torch.from_numpy(x), caches=tc)
             np.testing.assert_allclose(tx.numpy(), np.asarray(jx),
                                        **STACK_TOL)
             for i in range(3):
                 st = rng.normal(size=(B, 1, E)).astype(np.float32)
-                jx, jc = jm(jnp.asarray(st), caches=jc, time_step=S + i)
+                jx, jc = jstep(jnp.asarray(st), jc, S + i)
                 tx, tc = tm(torch.from_numpy(st), caches=tc, time_step=S + i)
                 np.testing.assert_allclose(tx.numpy(), np.asarray(jx),
                                            **STACK_TOL)

@@ -9,6 +9,7 @@ single-token steps over the block tables).
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,7 +106,10 @@ class TestLogits:
         jm, tm = _pair(**cfg)
         ids = np.random.default_rng(0).integers(0, cfg['vocab_size'],
                                                 (2, 21))
-        want = np.asarray(jm(jnp.asarray(ids, jnp.int32)))
+        # the JAX forward under one jax.jit (an eager run compiles every
+        # operation)
+        want = np.asarray(jax.jit(lambda x: jm(x))(jnp.asarray(ids,
+                                                               jnp.int32)))
         with torch.no_grad():
             got = tm(torch.from_numpy(ids))
         np.testing.assert_allclose(got.numpy(), want, **LOGIT_TOL)
@@ -147,8 +151,14 @@ class TestLogits:
         btab = btab.astype(np.int32)
         jpages = jm.init_paged_cache(NB, BS)
         tpages = tm.init_paged_cache(NB, BS)
-        jlast, jpages = jax_prefill_kv(jm, jpages, jnp.asarray(ids),
-                                       jnp.asarray(lens), jnp.asarray(btab))
+        # the JAX side under one jax.jit per forward shape (compiled
+        # once, where an eager run compiles every operation)
+        jprefill = jax.jit(lambda pages, ids, lens, btab: jax_prefill_kv(
+            jm, pages, ids, lens, btab))
+        jstep = jax.jit(lambda tok, pages, ctx, btab: jm(
+            tok, caches=pages, kv_write_pos=ctx, block_tables=btab))
+        jlast, jpages = jprefill(jpages, jnp.asarray(ids), jnp.asarray(lens),
+                                 jnp.asarray(btab))
         with torch.no_grad():
             tlast, tpages = _prefill_kv(tm, tpages, torch.from_numpy(ids),
                                         torch.from_numpy(lens),
@@ -158,9 +168,8 @@ class TestLogits:
         ctx = lens.astype(np.int32)
         for step in range(5):
             tok = np.asarray(jlast).argmax(-1).astype(np.int32)[:, None]
-            jlogits, jpages = jm(jnp.asarray(tok), caches=jpages,
-                                 kv_write_pos=jnp.asarray(ctx),
-                                 block_tables=jnp.asarray(btab))
+            jlogits, jpages = jstep(jnp.asarray(tok), jpages,
+                                    jnp.asarray(ctx), jnp.asarray(btab))
             with torch.no_grad():
                 tlogits, tpages = tm(torch.from_numpy(tok), caches=tpages,
                                      kv_write_pos=torch.from_numpy(ctx),

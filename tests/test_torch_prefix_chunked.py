@@ -293,8 +293,11 @@ def test_default_engine_unchanged_and_refusals():
     assert s['prefill_tokens'] == 50 and len(out[0]) == 25 + 8
     with pytest.raises(ValueError, match='prefill_chunk'):
         ServingEngine(tm, prefill_chunk=0, **BASE)
-    with pytest.raises(NotImplementedError, match='speculative'):
-        ServingEngine(tm, draft=tm, **BASE)
+    for knob, feature in (('max_queue', 'load shedding'),
+                          ('mesh', 'tensor parallelism'),
+                          ('journal', 'telemetry')):
+        with pytest.raises(NotImplementedError, match=feature):
+            ServingEngine(tm, **{knob: 1}, **BASE)
     with pytest.raises(TypeError, match='unexpected'):
         ServingEngine(tm, no_such_knob=1, **BASE)
     with pytest.raises(NotImplementedError, match='deadline'):

@@ -257,7 +257,10 @@ class TestQuantizeWeights:
         jqm = jax_quantized(bits)
         ids = np.random.default_rng(bits).integers(
             3, CFG['vocab_size'], (2, 6)).astype(np.int32)
-        want = np.asarray(jqm.generate(jnp.asarray(ids), max_new_tokens=8))
+        # the JAX generate under one jax.jit (its eager prefill compiles
+        # every operation)
+        want = np.asarray(jax.jit(lambda x: jqm.generate(
+            x, max_new_tokens=8))(jnp.asarray(ids)))
         other = LlamaForCausalLM(llama_tiny(**CFG), device='cpu', seed=3)
         qm = other.quantize_weights(bits)
         io.load_jax_state(qm, _jax_state(jqm))

@@ -224,8 +224,10 @@ class TestQwen2Model:
         group 7), then DecodeEngine, each token-equal to JAX."""
         jm, tm = _models()
         ids = np.stack(_prompts(2, (9, 9)))
-        want = np.asarray(jm.generate(jnp.asarray(ids), max_new_tokens=10,
-                                      kv_cache_int8=kv8))
+        # the JAX generate under one jax.jit (its eager prefill compiles
+        # every operation)
+        want = np.asarray(jax.jit(lambda x: jm.generate(
+            x, max_new_tokens=10, kv_cache_int8=kv8))(jnp.asarray(ids)))
         got = tm.generate(torch.from_numpy(ids), max_new_tokens=10,
                           kv_cache_int8=kv8)
         np.testing.assert_array_equal(got.numpy(), want)
