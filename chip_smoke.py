@@ -155,6 +155,28 @@ Phases, in order (any failure exits non-zero and prints no result):
               prefix cache and chunked prefill) equal to the
               non-speculative ones, through the kernels and the plain
               versions, and a self-draft accepting every proposal.
+ 14. moe      the MoE language model (MoEForCausalLM), run right after
+              phase 3 so that its trace is the process's first profiler
+              session: (a) MoEConfig() at the JAX package's defaults,
+              full width and depth (24 layers, 64 routed experts top-6
+              and 2 shared, 14.2 B parameters, 28.5 GB of bf16 weights
+              seeded on the card): generate at b1 and b8 over 512-token
+              prompts, 32 new tokens, bf16 and int8 KV caches, then
+              DecodeEngine at b8 (tok/s, ms per prefill and per decode
+              forward, exact launches of K1 2L + 1, X1 3L and K7 L, the
+              distinct experts a decode step reads and its byte bound,
+              one b8 decode forward traced); (b) Mixtral-8x7B's
+              published widths (its config.json typed in, through the
+              port's hf_mixtral_config) at 4 of its 32 layers: generate
+              at b1 and b8, and a bf16 cached prefill's logits against
+              the uncached forward where the routing agrees (bounded);
+              (c) float32 at (a)'s widths, 2 layers: decode logits
+              through the kernels against the plain versions (b1 and a
+              left-padded b3), and the model as its own draft in
+              generate_speculative and DecodeEngine accepting every
+              proposal; (d) X1, the grouped expert product, against its
+              plain version in phase 3 at (a)'s and (b)'s decode and
+              prefill shapes, bf16 and float32.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, a JSON object with one record per kernel, and
@@ -1564,6 +1586,7 @@ def plain_kernels():
     from paddle_tpu_torch.ops.hopper import decode_attention as hd
     from paddle_tpu_torch.ops.hopper import flash_attention as hf
     from paddle_tpu_torch.ops.hopper import headmajor_attention as hh
+    from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as hm
     from paddle_tpu_torch.ops.hopper import paged_attention as hp
     from paddle_tpu_torch.ops.hopper import quant_matmul as hq
     from paddle_tpu_torch.ops.hopper import rms_norm as hr
@@ -1579,7 +1602,8 @@ def plain_kernels():
                           (hd, 'decode_attention'),
                           (hh, 'decode_attention_headmajor'),
                           (hq, 'quant_matmul'), (hq, 'quant_matmul_int4'),
-                          (hq, 'quant_matmul_fp8')):
+                          (hq, 'quant_matmul_fp8'),
+                          (hm, 'moe_grouped_matmul')):
             stack.enter_context(mock.patch.object(
                 mod, name, getattr(mod, name + '_plain')))
         yield
@@ -1658,10 +1682,12 @@ def count_launches(torch, fn):
     (synchronised): (result, counts)."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.ops.hopper import flash_attention as hf
+    from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as hm
     from paddle_tpu_torch.ops.hopper import quant_matmul as hq
 
     torch.cuda.synchronize()
-    for counts in (ops.LAUNCHES, hq.PATH_LAUNCHES, hf.FLASH_PATH_LAUNCHES):
+    for counts in (ops.LAUNCHES, hq.PATH_LAUNCHES, hf.FLASH_PATH_LAUNCHES,
+                   hm.PATH_LAUNCHES):
         for name in counts:
             counts[name] = 0
     out = fn()
@@ -1710,12 +1736,15 @@ def profile_forward(torch, fn, label, card, phase='decode'):
     for t_us, c, key in rows[:12]:
         print(f'{phase} profile {label}:   {t_us / 1e3:8.3f} ms  {c:5d}x  '
               f'{key[:90]}')
-    dec = [r for r in rows if 'pt_decode::' in r[2]]
-    if dec:
-        ms = sum(r[0] for r in dec) / 1e3
-        print(f'{phase} profile {label}: decode attention (K7) '
-              f'{ms:.3f} ms in {sum(r[1] for r in dec)} launches, '
-              f'{ms / busy:.3f} of device time')
+    for what, tag in (('decode attention (K7)', 'pt_decode::'),
+                      ('grouped expert product (X1)', 'moe_skinny_kernel'),
+                      ('grouped expert product (X1)', 'moe_tiled_kernel')):
+        hits = [r for r in rows if tag in r[2]]
+        if hits:
+            ms = sum(r[0] for r in hits) / 1e3
+            print(f'{phase} profile {label}: {what} {ms:.3f} ms in '
+                  f'{sum(r[1] for r in hits)} launches, {ms / busy:.3f} of '
+                  f'device time')
 
 
 def bench_decode(torch, model, batch, label, card, quant=None,
@@ -3734,6 +3763,451 @@ def spec_phase(torch, np, card):
     return {'speculative': total}
 
 
+# ---------------------------------------------------------------------------
+# 14. the MoE language model
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's published config.json (mistralai/Mixtral-8x7B-v0.1),
+# typed in; phase 14b runs MIXTRAL_LAYERS of its 32 layers (the 93 GB of
+# bf16 weights do not fit on one card)
+MIXTRAL_8X7B = {
+    'architectures': ['MixtralForCausalLM'], 'hidden_act': 'silu',
+    'hidden_size': 4096, 'intermediate_size': 14336,
+    'max_position_embeddings': 32768, 'model_type': 'mixtral',
+    'num_attention_heads': 32, 'num_experts_per_tok': 2,
+    'num_hidden_layers': 32, 'num_key_value_heads': 8,
+    'num_local_experts': 8, 'rms_norm_eps': 1e-05, 'rope_theta': 1e6,
+    'router_aux_loss_coef': 0.02, 'sliding_window': None,
+    'tie_word_embeddings': False, 'torch_dtype': 'bfloat16',
+    'vocab_size': 32000}
+MIXTRAL_LAYERS = 4
+MOE_PROMPT, MOE_NEW = 512, 32
+# bf16 |Δ logit| of a cached prefill against the uncached forward with
+# the routing held (`prefill_gap`)
+MOE_BF16_TOL = 0.5
+
+
+def x1_routing(np, T, E, k, seed):
+    """The expert offsets (E + 1,) int32 of T tokens' top-k choices over
+    seeded router logits, and the experts that received rows."""
+    lg = np.random.default_rng(seed).normal(size=(T, E))
+    counts = np.bincount(np.argsort(-lg, axis=1)[:, :k].reshape(-1),
+                         minlength=E)
+    return (np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
+            int((counts > 0).sum()))
+
+
+def check_moe_matmul(torch, np, timer, T, E, k, K, N, dtype):
+    """X1 at one product of the MoE path: T tokens' top-k rows sorted by
+    expert (seeded routing) times (E, K, N) weights, against its plain
+    version (a torch.matmul per expert, offsets read on the host), with
+    the path the wrapper took. The bound counts the bytes of x, of the
+    experts that received rows and of y, and 2 R K N operations at the
+    dtype's peak. The library call is torch._grouped_mm (bf16; its
+    error against the plain version recorded too), timed where it
+    runs."""
+    from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as k_
+
+    off, distinct = x1_routing(np, T, E, k, T * 7 + E + K)
+    R = T * k
+    g = torch.Generator(device='cuda').manual_seed(R + K + N)
+    x = torch.randn(R, K, device='cuda', generator=g).to(dtype)
+    w = (0.02 * torch.randn(E, K, N, device='cuda', generator=g)).to(dtype)
+    offsets = torch.from_numpy(off).cuda()
+    before = dict(k_.PATH_LAUNCHES)
+    out = k_.moe_grouped_matmul(x, w, offsets)
+    took = [p for p, n in k_.PATH_LAUNCHES.items() if n != before[p]]
+    ref = k_.moe_grouped_matmul_plain(x, w, offsets)
+    torch.cuda.synchronize()
+    what = (f'moe_grouped_matmul T={T} E={E} top-{k} R={R} K={K} N={N} '
+            f'{dname(torch, dtype)}')
+    if took != [k_.path(R, E)]:
+        raise AssertionError(f'{what} took {took}, not {k_.path(R, E)}')
+    # float32: sums of K products in another order; bf16: one rounding
+    # of the float32 sum on top
+    tol = {'float32': (1e-4, 1e-4), 'bfloat16': TENSOR_TOL['bfloat16']}[
+        dname(torch, dtype)]
+    err = within(out, ref, tol, what)
+    item = x.element_size()
+    nbytes = R * K * item + distinct * K * N * item + R * N * item \
+        + (E + 1) * 4
+    b_, by = bound_ms(nbytes, 2 * R * K * N,
+                      BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    iters = 20 if R <= 64 else 5
+    rec = {
+        'shape': f'x ({R}, {K}) {dname(torch, dtype)} sorted over {E} '
+                 f'experts ({distinct} with rows, top-{k} of {T} tokens), '
+                 f'w ({E}, {K}, {N})',
+        'path': took[0], 'experts_with_rows': distinct,
+        'max_abs_err': err, 'tolerance': tol_text(tol),
+        'ms': timer(lambda: k_.moe_grouped_matmul(x, w, offsets),
+                    iters=iters),
+        'plain_ms': timer(lambda: k_.moe_grouped_matmul_plain(x, w, offsets),
+                          iters=iters),
+        'bound_ms': b_, 'bound_by': by, 'library_ms': None,
+        'library': 'torch._grouped_mm (bf16 only)'}
+    if dtype == torch.bfloat16 and hasattr(torch, '_grouped_mm'):
+        ends = offsets[1:]
+        try:
+            lib = torch._grouped_mm(x, w, offs=ends)
+            rec['library_err'] = (lib.float() - ref.float()).abs().max(
+            ).item()
+            rec['library_ms'] = timer(lambda: torch._grouped_mm(
+                x, w, offs=ends), iters=iters)
+        except RuntimeError as e:     # a yardstick only: record why not
+            rec['library'] = f'torch._grouped_mm: {e}'[:200]
+    del x, w, out, ref
+    return rec
+
+
+def moe_launches(label, counts, L, forwards, decode_forwards):
+    """The MoE path's exact launch counts: K1 2L + 1 and X1 3L per
+    forward of any kind (every cached forward routes dropless), K7 L per
+    one-token forward, nothing else."""
+    want = dict.fromkeys(counts, 0)
+    want.update(rms_norm=(2 * L + 1) * forwards,
+                moe_grouped_matmul=3 * L * forwards,
+                decode_attention=L * decode_forwards)
+    if counts != want:
+        raise AssertionError(f'{label}: launch counts {counts} != expected '
+                             f'{want}')
+
+
+def moe_generate(torch, np, model, B, label, card, total, kv8=False):
+    """generate at batch B over P = MOE_PROMPT seeded tokens a row: a
+    warm call, a timed prefill (max_new_tokens=1, two calls) and a timed
+    call of N = MOE_NEW new tokens, with exact launch counts; prints
+    tok/s, ms per prefill and ms per decode forward ((the N call - the
+    faster prefill) / (N - 1)). Returns the prompts and the N call's
+    output."""
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    P, N = MOE_PROMPT, MOE_NEW
+    ids = torch.from_numpy(np.random.default_rng(B + 40).integers(
+        3, cfg.vocab_size, (B, P))).to(model.device)
+    kw = dict(kv_cache_int8=kv8)
+    model.generate(ids, max_new_tokens=2, **kw)            # warm
+
+    def prefill():
+        ts = []
+        for _ in range(2):
+            _, t = timed(torch, lambda: model.generate(
+                ids, max_new_tokens=1, **kw))
+            ts.append(t)
+        return ts
+
+    ts, counts = count_launches(torch, prefill)
+    moe_launches(f'moe {label} prefill', counts, L, 2, 0)
+    add_counts(total, counts)
+    (out, t), counts = count_launches(torch, lambda: timed(
+        torch, lambda: model.generate(ids, max_new_tokens=N, **kw)))
+    moe_launches(f'moe {label}', counts, L, N, N - 1)
+    add_counts(total, counts)
+    check_outputs(f'moe {label}', list(ids.cpu().numpy()),
+                  list(out.cpu().numpy()), cfg.vocab_size, [N] * B)
+    pre = min(ts)
+    ms = (t - pre) / (N - 1) * 1e3
+    print(f'moe {label}: generate b{B}, {P}-token prompts, {N} new tokens: '
+          f'{B * N / t:.2f} tok/s ({t:.3f} s), prefill {pre * 1e3:.2f} ms '
+          f'(calls {", ".join(f"{x * 1e3:.2f}" for x in ts)}), '
+          f'{ms:.2f} ms per decode forward ({B / ms * 1e3:.2f} tokens/s '
+          f'of decode); launches per forward K1 {2 * L + 1}, X1 {3 * L}, '
+          f'K7 {L} per one-token forward '
+          f'({ {k: v for k, v in counts.items() if v} }) [{card}]',
+          flush=True)
+    return ids, out
+
+
+def routed(torch, fn, force=None):
+    """fn()'s result and, per MoE layer call during it, each token's
+    chosen experts (T, k), read on the host outside every timed run.
+    With `force` (such a list from another run) each layer call takes
+    those experts instead of its own top-k: its gate values are its own
+    probabilities at them, renormalised over the k, so only the
+    discrete choice is held."""
+    from paddle_tpu_torch.distributed import moe as dmoe
+
+    seen = []
+    inner_apply, inner_gates = dmoe.ragged_expert_apply, dmoe._topk_gates
+
+    def record(tokens, expert_idx, *a, **kw):
+        seen.append(expert_idx)
+        return inner_apply(tokens, expert_idx, *a, **kw)
+
+    def held(logits, k):
+        probs, _, _, aux = inner_gates(logits, k)
+        idx = force[len(seen)]
+        vals = torch.gather(probs, 1, idx)
+        return probs, vals / vals.sum(-1, keepdim=True), idx, aux
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(dmoe, 'ragged_expert_apply',
+                                              record))
+        if force is not None:
+            stack.enter_context(mock.patch.object(dmoe, '_topk_gates',
+                                                  held))
+        out = fn()
+    return out, seen
+
+
+def prefill_gap(torch, model, prompt, card):
+    """A bf16 cached prefill's logits (plain masked attention) against
+    the uncached forward's (flash attention) over one prompt. Routing is
+    discrete: where bf16 rounding moves a router logit across a near-tie
+    the token takes other experts and its logits move by O(1), and so do
+    the later tokens that attend to it. So the share of positions routed
+    alike and their logits are printed, and the bound holds on a second
+    uncached forward whose every layer takes the cached run's experts
+    (its own gate probabilities at them)."""
+    with torch.no_grad():
+        caches = model.init_cache(1, prompt.shape[1])
+        (cached, _), rc = routed(torch, lambda: model(
+            prompt, caches=caches, cache_index=0))
+        (uncached, _), ru = routed(torch, lambda: model(prompt))
+        (held, _), _ = routed(torch, lambda: model(prompt), force=rc)
+    alike = torch.stack([(torch.sort(a, -1)[0] == torch.sort(b, -1)[0])
+                         .all(-1) for a, b in zip(rc, ru)]).all(0)
+    gap = (cached.float() - uncached.float()).abs().amax(-1)[0]
+    same = (cached.argmax(-1) == uncached.argmax(-1)).float().mean().item()
+    first = int((~alike).nonzero()[0]) if not bool(alike.all()) else None
+    err = (cached.float() - held.float()).abs().max().item()
+    print(f'moe (b) bf16: {prompt.shape[1]}-token prefill, cached (plain '
+          f'masked attention) against uncached (flash) logits: positions '
+          f'routed alike in every layer {alike.float().mean().item():.4f} '
+          f'(the first that is not: {first}), argmax equal at {same:.4f}, '
+          f'max |Δ| {gap.max().item():.6g} (max |logit| '
+          f'{uncached.float().abs().max().item():.4f}); with the cached '
+          f'run\'s experts held: max |Δ| {err:.6g} (bound {MOE_BF16_TOL}) '
+          f'[{card}]', flush=True)
+    if not err <= MOE_BF16_TOL:
+        raise AssertionError(f'moe (b): with the routing held, the cached '
+                             f'prefill logits moved {err} > {MOE_BF16_TOL}')
+
+
+def moe_step_experts(torch, np, model, ids):
+    """The distinct routed experts each layer's expert product reads in
+    one one-token decode step after the prompts' prefill (read on the
+    host in an instrumented step, outside every timed run), and the
+    least bytes that step reads: every layer's attention and router
+    weights, its shared experts and its distinct routed experts, the
+    head and the embedding rows."""
+    cfg = model.config
+    B, P = ids.shape
+    with torch.no_grad():
+        caches = model.init_cache(B, P + 1)
+        logits, _ = model(ids, caches=caches, cache_index=0)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        _, chosen = routed(torch, lambda: model(tok, caches=caches,
+                                                cache_index=P))
+    seen = [int(torch.unique(c).numel()) for c in chosen]
+    del caches
+    item = model.embed_tokens.element_size()
+    H, M = cfg.hidden_size, cfg.intermediate_size
+    D = cfg.head_dim
+    attn = (2 * cfg.num_attention_heads + 2 * cfg.num_key_value_heads) \
+        * D * H * item
+    expert = 3 * H * M * item
+    nbytes = sum(attn + H * cfg.num_experts * 4
+                 + (n + cfg.num_shared_experts) * expert for n in seen) \
+        + H * cfg.vocab_size * item + B * H * item
+    return seen, nbytes
+
+
+def moe_full_phase(torch, np, card, total):
+    """(a) MoEConfig() at the JAX package's defaults, full width and
+    depth, bf16 weights seeded on the card."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
+
+    cfg = MoEConfig()
+    L = cfg.num_hidden_layers
+    t = time.perf_counter()
+    model = MoEForCausalLM(cfg, seed=0, dtype='bfloat16')
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f'moe (a): MoEConfig() (vocab {cfg.vocab_size}, hidden '
+          f'{cfg.hidden_size}, {L} layers, {cfg.num_attention_heads} / '
+          f'{cfg.num_key_value_heads} heads of {cfg.head_dim}, '
+          f'{cfg.num_experts} routed experts top-{cfg.top_k} + '
+          f'{cfg.num_shared_experts} shared, intermediate '
+          f'{cfg.intermediate_size}): {n_params / 1e9:.2f} B parameters, '
+          f'{nbytes / 1e9:.2f} GB bf16, seeded on the card in '
+          f'{time.perf_counter() - t:.1f} s', flush=True)
+    streams = {}
+    for B, kv8 in ((1, False), (1, True), (8, False), (8, True)):
+        label = f'(a) b{B} {"int8 KV" if kv8 else "bf16 cache"}'
+        ids, streams[B, kv8] = moe_generate(torch, np, model, B, label, card,
+                                            total, kv8)
+        if kv8:
+            lead = min(leading_equal(np, a, b) for a, b in zip(
+                streams[B, True][:, MOE_PROMPT:].tolist(),
+                streams[B, False][:, MOE_PROMPT:].tolist()))
+            print(f'moe {label}: the int8-KV stream leaves the bf16 one at '
+                  f'token {lead if lead < MOE_NEW else "none"} of {MOE_NEW}'
+                  f' (first over the rows; printed, not asserted: int8 '
+                  f'codes and bf16 router near-ties)', flush=True)
+        else:
+            seen, step_bytes = moe_step_experts(torch, np, model, ids)
+            print(f'moe {label}: distinct routed experts a decode step '
+                  f'reads, per layer: min {min(seen)} / mean '
+                  f'{sum(seen) / len(seen):.2f} / max {max(seen)} of '
+                  f'{cfg.num_experts} ({cfg.top_k} per token); the step '
+                  f'reads at least {step_bytes / 1e9:.3f} GB of weights: '
+                  f'bound {step_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms '
+                  f'[{card}]', flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # DecodeEngine at b8 (the prompts fill the 512 bucket)
+    eng = DecodeEngine(model, max_new_tokens=MOE_NEW)
+    ids = torch.from_numpy(np.random.default_rng(48).integers(
+        3, cfg.vocab_size, (8, MOE_PROMPT))).to(model.device)
+    eng.generate(ids, max_new_tokens=2)
+    (out, dt), counts = count_launches(torch, lambda: timed(
+        torch, lambda: eng.generate(ids)))
+    moe_launches('moe (a) DecodeEngine b8', counts, L, MOE_NEW, MOE_NEW - 1)
+    add_counts(total, counts)
+    same = bool(torch.equal(out, streams[8, False]))
+    print(f'moe (a) DecodeEngine b8: {8 * MOE_NEW / dt:.2f} tok/s end to '
+          f'end ({MOE_PROMPT}-token prompts, the 512 bucket: no padding, '
+          f'{MOE_NEW} new tokens, {dt:.3f} s); streams equal to generate '
+          f'b8\'s {same} [{card}]', flush=True)
+    if not same:
+        raise AssertionError('moe (a): DecodeEngine and generate disagree '
+                             'on unpadded prompts')
+    # one b8 decode forward traced (the process's first profiler
+    # session: phase 14 runs right after the kernel checks)
+    with torch.no_grad():
+        caches = model.init_cache(8, MOE_PROMPT + 2)
+        logits, _ = model(ids, caches=caches, cache_index=0)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        model(tok, caches=caches, cache_index=MOE_PROMPT)
+        profile_forward(torch, lambda: model(tok, caches=caches,
+                                             cache_index=MOE_PROMPT + 1),
+                        'moe (a) b8 bf16', card)
+    del model, eng, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_mixtral_phase(torch, np, card, total):
+    """(b) Mixtral-8x7B's published widths through the port's
+    hf_mixtral_config, MIXTRAL_LAYERS of its 32 layers, bf16 seeded
+    weights: generate at b1 and b8, and the bf16 cached prefill's logits
+    against the uncached forward (dropless, flash attention)."""
+    from paddle_tpu_torch.models.convert import hf_mixtral_config
+    from paddle_tpu_torch.models.moe_lm import MoEForCausalLM
+
+    cfg = dataclasses.replace(hf_mixtral_config(MIXTRAL_8X7B),
+                              num_hidden_layers=MIXTRAL_LAYERS)
+    model = MoEForCausalLM(cfg, seed=0, dtype='bfloat16')
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f'moe (b): Mixtral-8x7B widths (hidden {cfg.hidden_size}, '
+          f'intermediate {cfg.intermediate_size}, {cfg.num_attention_heads} '
+          f'/ {cfg.num_key_value_heads} heads, {cfg.num_experts} experts '
+          f'top-{cfg.top_k}, vocab {cfg.vocab_size}, rope_theta '
+          f'{cfg.rope_theta:g}, dispatch {cfg.dispatch_mode}) at '
+          f'{MIXTRAL_LAYERS} of its 32 layers (depth cut: 93 GB of bf16 '
+          f'weights do not fit on one card): {nbytes / 1e9:.2f} GB bf16',
+          flush=True)
+    for B in (1, 8):
+        ids, out = moe_generate(torch, np, model, B, f'(b) Mixtral b{B}',
+                                card, total)
+    prefill_gap(torch, model, ids[:1], card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_agreement(torch, np, card, total, steps=16, f32_tol=1e-3):
+    """(c) float32 at (a)'s widths, 2 layers: the logits of every forward
+    of generate (b1, and a left-padded b3) through the kernels against
+    the plain versions within f32_tol, equal streams; the model as its
+    own draft in generate_speculative and
+    DecodeEngine.generate_speculative accepting every proposal, streams
+    equal to generate's."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.generation import generate_speculative
+    from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
+
+    cfg = dataclasses.replace(MoEConfig(), num_hidden_layers=2,
+                              dispatch_mode='ragged')
+    model = MoEForCausalLM(cfg, seed=1)
+    rng = np.random.default_rng(6)
+    dev = model.device
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, (1, 21))).to(dev)
+    padded = torch.from_numpy(rng.integers(3, cfg.vocab_size, (3, 21))).to(
+        dev)
+    am = torch.ones_like(padded)
+    am[0, :9] = 0
+    am[2, :4] = 0
+    padded = padded * am
+    n = steps + 1
+    for label, kw in (('b1', dict(input_ids=ids)),
+                      ('left-padded b3', dict(input_ids=padded,
+                                              attention_mask=am))):
+        def gen():
+            return model.generate(max_new_tokens=n, **kw)
+
+        (toks, lk), counts = count_launches(
+            torch, lambda: capture_logits(torch, model, gen))
+        moe_launches(f'moe (c) {label}', counts, 2, n, steps)
+        add_counts(total, counts)
+        with plain_kernels():
+            (ptoks, lp), pcounts = count_launches(
+                torch, lambda: capture_logits(torch, model, gen))
+        if any(pcounts.values()):
+            raise AssertionError(f'the plain run launched {pcounts}')
+        err = (lk - lp).abs().max().item()
+        print(f'moe (c) float32, {label}: MoEConfig() widths, 2 layers, '
+              f'{steps} decode steps: max |kernels - plain| logit '
+              f'{err:.6g} (bound {f32_tol:g}, max |logit| '
+              f'{lp.abs().max().item():.4f}); tokens equal '
+              f'{bool(torch.equal(toks, ptoks))} [{card}]', flush=True)
+        if not (err <= f32_tol and torch.equal(toks, ptoks)):
+            raise AssertionError(f'moe (c) {label}: kernels and plain '
+                                 f'versions disagree ({err} > {f32_tol} or '
+                                 f'tokens)')
+    want = model.generate(ids, max_new_tokens=n)
+    eng = DecodeEngine(model, max_new_tokens=n)
+    (spec, eng_out), counts = count_launches(torch, lambda: (
+        generate_speculative(model, model, ids, max_new_tokens=n,
+                             num_draft_tokens=SPEC_K),
+        eng.generate_speculative(model, ids, num_draft_tokens=SPEC_K)))
+    add_counts(total, counts)
+    rate = eng.stats()['spec']['accept_rate']
+    print(f'moe (c) float32: the model as its own draft (k {SPEC_K}): '
+          f'generate_speculative and DecodeEngine equal to generate '
+          f'{bool(torch.equal(spec, want))} / '
+          f'{bool(torch.equal(eng_out, want))}, accept rate {rate} [{card}]',
+          flush=True)
+    if not (torch.equal(spec, want) and torch.equal(eng_out, want)
+            and rate == 1.0):
+        raise AssertionError('moe (c): a self-draft must accept every '
+                             'proposal and equal generate')
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_phase(torch, np, card):
+    """Phase 14: the MoE language model (MoEForCausalLM) on the card, its
+    expert products on X1: (a) MoEConfig() at full width and depth, (b)
+    Mixtral-8x7B's widths at MIXTRAL_LAYERS layers, (c) float32
+    agreement at 2 layers and a self-draft. (d), X1's rows in phase 3,
+    runs with the kernel checks. Returns the launch counts of its runs as
+    one path."""
+    t_phase = time.perf_counter()
+    total = {}
+    moe_full_phase(torch, np, card, total)
+    moe_mixtral_phase(torch, np, card, total)
+    moe_agreement(torch, np, card, total)
+    print(f'moe: phase took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return {'moe': total}
+
+
 def main():
     try:
         import numpy as np
@@ -3916,6 +4390,20 @@ def main():
         torch.cuda.empty_cache()
         path_crossover(torch, timer, card)
         torch.cuda.empty_cache()
+        # 14 (d). the grouped expert product X1: the 64-expert model's
+        # decode at b1 / b8 (gate / up, then down) and 512-token prefill,
+        # then Mixtral-8x7B's decode at b1 / b8 and 512-token prefill
+        cases['moe_grouped_matmul'] = [
+            check_moe_matmul(torch, np, timer, T, E, k, K, N, dt)
+            for E, k, shapes in (
+                (64, 6, ((1, 2048, 1408), (1, 1408, 2048), (8, 2048, 1408),
+                         (8, 1408, 2048), (512, 2048, 1408),
+                         (512, 1408, 2048))),
+                (8, 2, ((1, 4096, 14336), (1, 14336, 4096),
+                        (8, 4096, 14336), (8, 14336, 4096),
+                        (512, 4096, 14336), (512, 14336, 4096))))
+            for T, K, N in shapes for dt in (bf16, f32)]
+        torch.cuda.empty_cache()
         for name, cs in cases.items():
             for c in cs:
                 print(f'kernel {name}: {json.dumps(c)} [{card}]', flush=True)
@@ -3936,7 +4424,20 @@ def main():
             print(f'rms_norm {c["shape"]}: {c["ms"]:.4f} ms, bound '
                   f'{c["bound_ms"]:.4f}, F.rms_norm '
                   f'{c["library_ms"]:.4f} [{card}]')
+        for c in cases['moe_grouped_matmul']:
+            lib = ('' if c['library_ms'] is None
+                   else f', torch._grouped_mm {c["library_ms"]:.4f}')
+            print(f'moe_grouped_matmul {c["shape"]} ({c["path"]}): '
+                  f'{c["ms"]:.4f} ms, bound {c["bound_ms"]:.4f} '
+                  f'({c["bound_by"]}), plain {c["plain_ms"]:.4f}{lib} '
+                  f'[{card}]')
         del timer
+        torch.cuda.empty_cache()
+
+        # 14 (a)-(c). the MoE language model, right after the kernel
+        # checks: its profile is the process's first profiler session
+        moe_launches_ = moe_phase(torch, np, card)
+        gc.collect()
         torch.cuda.empty_cache()
 
         # 4-5. serving, launch counts, leaks, logits; then int8 serving
@@ -4011,7 +4512,8 @@ def main():
                 ('quant_matmul_int4', 'quant_matmul.cu',
                  'quant_matmul.py:154'),
                 ('quant_matmul_fp8', 'quant_matmul.cu',
-                 'quant_matmul.py:124')):
+                 'quant_matmul.py:124'),
+                ('moe_grouped_matmul', 'moe_grouped_matmul.cu', None)):
             cs = cases[name]
             head = cs[0]       # the main path's shape and dtype
             by_path = {'serving': serve_launches[name],
@@ -4020,13 +4522,15 @@ def main():
                        'fused': fused_launches.get(name, 0),
                        'train': train_launches[name]}
             for paths in (swa_launches, qwen2_launches, prefix_launches,
-                          spec_launches):
+                          spec_launches, moe_launches_):
                 by_path.update((path, counts.get(name, 0))
                                for path, counts in paths.items())
             records.append({
                 'name': name, 'route': 'cuda',
                 'source': f'paddle_tpu_torch/csrc/{src}',
-                'replaces': f'paddle_tpu/ops/pallas/{rep}',
+                # X1 replaces XLA's lax.ragged_dot, not a Pallas kernel
+                'replaces': (f'paddle_tpu/ops/pallas/{rep}' if rep else
+                             'paddle_tpu/distributed/moe.py:104'),
                 'launches': sum(by_path.values()),
                 'launches_by_path': by_path,
                 'max_abs_err': max(c['max_abs_err'] for c in cs),

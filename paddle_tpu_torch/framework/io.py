@@ -60,7 +60,9 @@ def array_dtype(arr):
 
 
 def to_tensor(arr):
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape (scalar
+    # buffers such as an MoE layer's aux_loss)
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if _is_bf16(arr):
         return torch.from_numpy(arr.view(np.int16).copy()).view(
             torch.bfloat16)

@@ -11,6 +11,10 @@ path calls.
   ids: the flash kernel's K5s forward at 128 tokens or more), then paged
   decode (K8 for bf16 / float32 pages, K8q's (Hkv, D) mode for int8
   pages with static scales).
+- `fused_moe`: the fused serving MoE layer (top-k over precomputed
+  gate logits, SwiGLU experts with a fused gate + up weight, int8 weights
+  dequantized by their scales) on the dropless path of
+  `distributed.moe`, whose expert products run the grouped kernel X1.
 - `fused_multi_transformer` and `fused_multi_transformer_decode_step`:
   the pre/post-norm decoder stack with per-layer weight lists; prefill
   through `scaled_dot_product_attention` (K5 at 128 tokens or more),
@@ -38,7 +42,7 @@ from ...models.llama import apply_rotary
 from ...nn.functional.attention import NEG_INF, scaled_dot_product_attention
 from ...nn.functional.norm import layer_norm
 
-__all__ = ['block_multihead_attention', 'fused_dropout_add',
+__all__ = ['block_multihead_attention', 'fused_dropout_add', 'fused_moe',
            'fused_multi_transformer', 'fused_multi_transformer_decode_step',
            'masked_multihead_attention']
 
@@ -557,3 +561,60 @@ def fused_multi_transformer_decode_step(
         pre_layer_norm=pre_layer_norm, epsilon=epsilon, cache_kvs=cache_kvs,
         seq_lens=seq_lens, time_step=time_step, activation=activation,
         training=False, norm_type=norm_type)
+
+
+def fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias=None,
+              ffn1_scale=None, ffn2_bias=None, ffn2_scale=None,
+              quant_method='None', moe_topk=2, norm_topk_prob=True):
+    """Paddle's fused serving MoE over x (B, S, d): per-token top-k over
+    the precomputed gate logits `gate_weight` (B, S, E) (softmax in
+    float32, ties to the lower expert), renormalised over the k chosen
+    with `norm_topk_prob`; SwiGLU experts with the fused gate + up
+    weight `ffn1_weight` (E, d, 2 dff: its first half the gate) and
+    `ffn2_weight` (E, dff, d). quant_method='weight_only_int8' takes int8
+    codes dequantized by `ffn1_scale` (E, 2 dff) / `ffn2_scale` (E, d).
+    The experts run the dropless path of `distributed.moe` (the grouped
+    kernel X1 on the card); `ffn2_bias` (E, d) is added after it, each
+    token's experts' biases weighted by its gate values. `ffn1_bias`
+    (inside the activation) and other quant methods raise, as in the JAX
+    package."""
+    from ...distributed.moe import ragged_expert_apply
+
+    if quant_method not in ('None', None, 'weight_only_int8'):
+        raise NotImplementedError(f'quant_method={quant_method!r}')
+    if quant_method == 'weight_only_int8' and (ffn1_scale is None
+                                               or ffn2_scale is None):
+        raise ValueError(
+            "quant_method='weight_only_int8' requires ffn1_scale and "
+            'ffn2_scale — raw int8 codes without scales would silently '
+            'produce garbage')
+    if ffn1_bias is not None:
+        raise NotImplementedError(
+            'ffn1_bias (inside the activation) is not supported by the '
+            'ragged path; fold it into the checkpoint')
+    B, S, d = x.shape
+    logits = gate_weight.float().reshape(B * S, -1)
+    E = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = vals[:, :moe_topk], idx[:, :moe_topk]
+    if norm_topk_prob:
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)
+    w1, w2 = ffn1_weight, ffn2_weight
+    if ffn1_scale is not None:
+        w1 = w1.float() * ffn1_scale[:, None, :]
+    if ffn2_scale is not None:
+        w2 = w2.float() * ffn2_scale[:, None, :]
+    w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
+    half = w1.shape[-1] // 2
+    out = ragged_expert_apply(
+        x.reshape(B * S, d), expert_idx, gate_vals,
+        w1[..., :half].contiguous(), w1[..., half:].contiguous(),
+        w2.contiguous(), E)
+    if ffn2_bias is not None:
+        oh = (expert_idx[..., None]
+              == torch.arange(E, device=x.device)).float()
+        weight = (oh * gate_vals[..., None]).sum(1)              # (T, E)
+        out = out + (weight @ ffn2_bias.float().reshape(E, d)).to(out.dtype)
+    return out.reshape(B, S, d)

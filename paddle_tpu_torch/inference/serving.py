@@ -88,6 +88,7 @@ from __future__ import annotations
 
 import hashlib
 import heapq
+import inspect
 import itertools
 import time
 
@@ -852,6 +853,13 @@ class ServingEngine:
             if value is not None:
                 raise NotImplementedError(
                     f'{_UNPORTED[name]} ({name}=) is not ported yet')
+        for m_, role in ((model, 'model'), (draft, 'draft')):
+            if m_ is not None and 'block_tables' not in inspect.signature(
+                    m_.forward).parameters:
+                raise NotImplementedError(
+                    f'{type(m_).__name__} lacks block_tables in its cached '
+                    f'forward: paged serving needs the Llama-family '
+                    f'cached_attention; use DecodeEngine for this {role}')
         if getattr(model.config, 'sliding_window', None) is not None:
             raise NotImplementedError(
                 'sliding-window models are not paged-servable yet')

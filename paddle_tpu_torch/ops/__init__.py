@@ -20,6 +20,7 @@ from ._build import LAUNCHES, on_card
 from .hopper import decode_attention as _decode
 from .hopper import flash_attention as _flash
 from .hopper import headmajor_attention as _headmajor
+from .hopper import moe_grouped_matmul as _moe
 from .hopper import paged_attention as _paged
 from .hopper import quant_matmul as _qmm
 from .hopper import rms_norm as _rms
@@ -186,8 +187,26 @@ def quant_matmul_int4(x, wq_packed, scale):
     return fn(x, wq_packed, scale)
 
 
+def moe_grouped_matmul(x, w, offsets):
+    """The dropless MoE layer's grouped expert product (kernel X1 of
+    PERF.md, in place of XLA's `ragged_dot`): x (R, K) rows sorted by
+    expert, w (E, K, N) in x's dtype, offsets (E + 1,) int32 from 0 to R
+    -> (R, N), each expert's rows times its weight with float32 sums. On
+    the card the offsets stay on the device (one launch, no host read).
+    Inference only: raises when x or w needs a gradient."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            'moe_grouped_matmul has no backward yet: MoE training is not '
+            'ported (ROADMAP B6); run the dropless path under '
+            'torch.no_grad()')
+    fn = (_moe.moe_grouped_matmul if on_card(x, 'moe_grouped_matmul')
+          else _moe.moe_grouped_matmul_plain)
+    return fn(x, w, offsets)
+
+
 __all__ = ['LAUNCHES', 'decode_attention', 'decode_attention_headmajor',
            'dispatch_decode_attention',
-           'flash_attention', 'paged_decode_attention', 'quant_matmul',
+           'flash_attention', 'moe_grouped_matmul',
+           'paged_decode_attention', 'quant_matmul',
            'quant_matmul_fp8', 'quant_matmul_int4', 'rms_norm',
            'softmax_cross_entropy']

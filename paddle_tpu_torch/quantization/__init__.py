@@ -20,7 +20,13 @@ def quantize_matmul_weights(model, bits=8, min_features=64, exclude=()):
     names (e.g. a model's `embed_tokens`); `exclude` adds path
     substrings. A tied LM head served off the embedding stays full
     precision. The original model is untouched: the new one holds copies
-    of the parameters that stay, and the codes of those that went."""
+    of the parameters that stay, and the codes of those that went.
+
+    At bits=8 the JAX package also quantizes 3-D batched MoE expert
+    weights (E, in, out) into `QuantizedExpertWeight`s, which are not
+    ported (ROADMAP B4): such a parameter raises NotImplementedError
+    rather than staying full precision unseen. At bits=4 the experts
+    stay full precision, as in the JAX package."""
     if bits not in (4, 8):
         raise ValueError(f'bits must be 4 or 8, got {bits}')
     targets = []
@@ -32,9 +38,16 @@ def quantize_matmul_weights(model, bits=8, min_features=64, exclude=()):
         for name, p in mod.named_parameters(recurse=False):
             full = f'{path}.{name}' if path else name
             if (name in nq or any(e in full for e in exclude)
-                    or not p.requires_grad or p.dim() != 2
-                    or min(p.shape) < min_features
+                    or not p.requires_grad or p.dim() not in (2, 3)
+                    or min(p.shape[-2:]) < min_features
                     or not p.is_floating_point()):
+                continue
+            if p.dim() == 3:
+                if bits == 8:
+                    raise NotImplementedError(
+                        f'{full}: batched expert weights {tuple(p.shape)} '
+                        f'would quantize into a QuantizedExpertWeight, '
+                        f'which is not ported yet (ROADMAP B4)')
                 continue
             targets.append((path, name, p))
         for cname, child in mod.named_children():

@@ -17,6 +17,7 @@ from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops.hopper import decode_attention as k_decode
 from paddle_tpu_torch.ops.hopper import flash_attention as k_flash
 from paddle_tpu_torch.ops.hopper import headmajor_attention as k_hm
+from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as k_moe
 from paddle_tpu_torch.ops.hopper import paged_attention as k_paged
 from paddle_tpu_torch.ops.hopper import quant_matmul as k_qmm
 from paddle_tpu_torch.ops.hopper import rms_norm as k_rms
@@ -1572,7 +1573,7 @@ def _plain_kernels():
     stack = contextlib.ExitStack()
     for mod, name in ((k_rms, 'rms_norm'), (k_decode, 'decode_attention'),
                       (k_paged, 'paged_decode_attention'),
-                      (k_qmm, 'quant_matmul')):
+                      (k_qmm, 'quant_matmul'), (k_moe, 'moe_grouped_matmul')):
         stack.enter_context(mock.patch.object(mod, name,
                                               getattr(mod, name + '_plain')))
     return stack
@@ -1682,3 +1683,187 @@ def test_speculative_serving_runs_the_paged_kernels(card, kv):
         _s, plain, got = serve(draft)
     assert all(np.array_equal(a, b) for a, b in zip(plain, want))
     assert not any(got.values())
+
+
+# ---------------------------------------------------------------------------
+# X1: the grouped expert product of the dropless MoE layer
+# ---------------------------------------------------------------------------
+
+def _routing(rng, T, E, k, empty=()):
+    """Expert offsets (E + 1,) int32 of T tokens' top-k choices over
+    random router logits; experts in `empty` receive no rows."""
+    lg = rng.normal(size=(T, E))
+    lg[:, list(empty)] = -np.inf
+    idx = np.argsort(-lg, axis=1)[:, :k].reshape(-1)
+    counts = np.bincount(idx, minlength=E)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def _x1_inputs(card, rng, T, E, k, K, N, dtype, empty=()):
+    off = _routing(rng, T, E, k, empty)
+    R = int(off[-1])
+    x = _randn(rng, (R, K), card, dtype)
+    w = (0.02 * torch.from_numpy(rng.normal(size=(E, K, N)).astype(
+        np.float32))).to(card, dtype)
+    return x, w, torch.from_numpy(off).to(card)
+
+
+# float32: sums of up to 14336 products in another order; bf16: one
+# rounding of the float32 sum on top
+X1_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2 ** -7, 2 ** -7)}
+# (T, E, k, K, N): the 64-expert model's decode at batch 1 and 8 (gate /
+# up, then down) and its 512-token prefill; Mixtral-8x7B's decode at
+# batch 1 and 8 and a 512-token prefill
+X1_SHAPES = [(1, 64, 6, 2048, 1408), (8, 64, 6, 2048, 1408),
+             (8, 64, 6, 1408, 2048), (512, 64, 6, 2048, 1408),
+             (1, 8, 2, 4096, 14336), (8, 8, 2, 14336, 4096),
+             (512, 8, 2, 4096, 14336)]
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('T,E,k,K,N', X1_SHAPES)
+def test_moe_grouped_matmul_kernel(card, T, E, k, K, N, dtype):
+    rng = np.random.default_rng(T + E + K)
+    x, w, off = _x1_inputs(card, rng, T, E, k, K, N, dtype)
+    before = dict(k_moe.PATH_LAUNCHES)
+    got = k_moe.moe_grouped_matmul(x, w, off)
+    took = [p for p, n in k_moe.PATH_LAUNCHES.items() if n != before[p]]
+    assert took == [k_moe.path(x.shape[0], E)]
+    want = k_moe.moe_grouped_matmul_plain(x, w, off)
+    rtol, atol = X1_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol * want.abs().max().item())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('p', ['skinny', 'tiled'])
+@pytest.mark.parametrize('T,E,k,K,N,empty', [
+    (5, 6, 2, 37, 100, (1, 4)),         # no 16-byte rows, a column tail
+    (40, 6, 3, 600, 72, (0,)),          # K past a staged chunk
+    (3, 11, 1, 64, 64, (2, 3, 5, 6, 7, 8, 9))])   # most experts empty
+def test_moe_grouped_matmul_paths_and_empty_experts(card, p, T, E, k, K, N,
+                                                    empty, dtype):
+    rng = np.random.default_rng(K + N)
+    x, w, off = _x1_inputs(card, rng, T, E, k, K, N, dtype, empty)
+    got = k_moe.launch_path(p, x, w, off)
+    want = k_moe.moe_grouped_matmul_plain(x, w, off)
+    rtol, atol = X1_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol * want.abs().max().item())
+    # bitwise repeatable: no atomics
+    assert torch.equal(got, k_moe.launch_path(p, x, w, off))
+
+
+def test_moe_grouped_matmul_no_rows_and_refusals(card):
+    w = torch.zeros(4, 8, 16, device=card)
+    before = _build.LAUNCHES['moe_grouped_matmul']
+    y = ops.moe_grouped_matmul(torch.zeros(0, 8, device=card), w,
+                               torch.zeros(5, dtype=torch.int32,
+                                           device=card))
+    assert y.shape == (0, 16) and y.device.type == 'cuda'
+    assert _build.LAUNCHES['moe_grouped_matmul'] == before
+    off = torch.tensor([0, 1, 1, 2, 2], dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match='share a dtype'):
+        ops.moe_grouped_matmul(torch.zeros(2, 8, device=card), w.bfloat16(),
+                               off)
+    with pytest.raises(ValueError, match='contiguous'):
+        k_moe.moe_grouped_matmul(torch.zeros(8, 2, device=card).T, w, off)
+    with pytest.raises(NotImplementedError, match='experts'):
+        k_moe.moe_grouped_matmul(torch.zeros(2, 8, device=card),
+                                 torch.zeros(1025, 8, 4, device=card),
+                                 torch.zeros(1026, dtype=torch.int32,
+                                             device=card))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_moe_layer_dropless_in_a_cuda_graph(card, dtype):
+    """The dropless layer's forward (gating, sort, offsets, three X1
+    launches, the combine, shared experts) captured in a CUDA graph and
+    replayed over new inputs, which route to other experts, equals the
+    eager forward: nothing on the path reads the device on the host."""
+    from paddle_tpu_torch.distributed.moe import MoELayer
+
+    layer = MoELayer(256, 192, num_experts=64, top_k=6, num_shared_experts=2,
+                     dispatch_mode='ragged', dtype=dtype, device=card,
+                     generator=torch.Generator(device=card).manual_seed(0))
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (8, 1, 256), card, dtype)
+    with torch.no_grad():
+        layer(x, dropless=True)                  # warm
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = layer(x, dropless=True)
+        seen = []
+        for seed in (4, 5):
+            x.copy_(_randn(np.random.default_rng(seed), x.shape, card,
+                           dtype))
+            graph.replay()
+            torch.cuda.synchronize()
+            want = layer(x, dropless=True)
+            assert torch.equal(out, want)
+            gates = x.reshape(8, 256).to(torch.float32) @ layer.gate
+            seen.append(torch.sort(gates, dim=-1, descending=True,
+                                   stable=True)[1][:, :6])
+        assert not torch.equal(seen[0], seen[1])     # the routing moved
+
+
+def _moe_models(card):
+    """A float32 2-layer MoE model (16 experts, top 4, a shared expert)
+    and a draft of its first layer (its embedding, final norm and
+    head), on the card."""
+    from paddle_tpu_torch.models.moe_lm import MoEForCausalLM, moe_tiny
+
+    cfg = moe_tiny(vocab_size=128, num_experts=16, top_k=4,
+                   dispatch_mode='ragged')
+    target = MoEForCausalLM(cfg, device=card, seed=0)
+    draft = MoEForCausalLM(moe_tiny(vocab_size=128, num_experts=16, top_k=4,
+                                    num_hidden_layers=1,
+                                    dispatch_mode='ragged'),
+                           device=card, seed=1)
+    own = target.state_dict()
+    draft.load_state_dict({k: own[k] for k in draft.state_dict()})
+    return target, draft
+
+
+def test_moe_generate_runs_the_kernels(card):
+    """generate (plain, left-padded, int8 KV), DecodeEngine and
+    generate_speculative of an MoE model on the card (float32): every
+    forward launches K1 2L + 1 times and X1 3L times, every one-token
+    forward K7 L times; tokens equal to the run through the plain
+    versions; the self-draft accepts every proposal."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.generation import generate_speculative
+
+    target, draft = _moe_models(card)
+    L, n = 2, 10
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        3, 128, (3, 9))).to(card)
+    am = torch.ones_like(ids)
+    am[0, :4] = 0
+    runs = {'plain': lambda: target.generate(ids, max_new_tokens=n),
+            'padded': lambda: target.generate(ids * am, max_new_tokens=n,
+                                              attention_mask=am),
+            'kv8': lambda: target.generate(ids, max_new_tokens=n,
+                                           kv_cache_int8=True),
+            'engine': lambda: DecodeEngine(target, max_new_tokens=n,
+                                           buckets=(16,)).generate(ids)}
+    for name, run in runs.items():
+        before = dict(_build.LAUNCHES)
+        out = run()
+        got = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        assert got == dict(dict.fromkeys(before, 0), rms_norm=5 * n,
+                           moe_grouped_matmul=3 * L * n,
+                           decode_attention=L * (n - 1)), name
+        with _plain_kernels():
+            assert torch.equal(out, run()), name
+    want = target.generate(ids, max_new_tokens=n)
+    for d in (draft, target):
+        out = generate_speculative(target, d, ids, max_new_tokens=n,
+                                   num_draft_tokens=3)
+        assert torch.equal(out, want)
+        eng = DecodeEngine(target, max_new_tokens=n)
+        assert torch.equal(out, eng.generate_speculative(
+            d, ids, num_draft_tokens=3))
+        if d is target:
+            assert eng.stats()['spec']['accept_rate'] == 1.0
