@@ -163,20 +163,27 @@ Phases, in order (any failure exits non-zero and prints no result):
               seeded on the card): generate at b1 and b8 over 512-token
               prompts, 32 new tokens, bf16 and int8 KV caches, then
               DecodeEngine at b8 (tok/s, ms per prefill and per decode
-              forward, exact launches of K1 2L + 1, X1 3L and K7 L, the
+              forward, exact launches of K1 2L + 1, X1 3L and K7 L,
+              every prefill launch of X1 on the tensor cores, the
               distinct experts a decode step reads and its byte bound,
-              one b8 decode forward traced); (b) Mixtral-8x7B's
-              published widths (its config.json typed in, through the
-              port's hf_mixtral_config) at 4 of its 32 layers: generate
-              at b1 and b8, and a bf16 cached prefill's logits against
-              the uncached forward where the routing agrees (bounded);
+              one b8 decode forward and one b8 512-token prefill forward
+              traced); (b) Mixtral-8x7B's published widths (its
+              config.json typed in, through the port's
+              hf_mixtral_config) at 4 of its 32 layers: generate at b1
+              and b8 (one b8 prefill forward traced), and a bf16 cached
+              prefill's logits against the uncached forward where the
+              routing agrees (bounded);
               (c) float32 at (a)'s widths, 2 layers: decode logits
               through the kernels against the plain versions (b1 and a
               left-padded b3), and the model as its own draft in
               generate_speculative and DecodeEngine accepting every
               proposal; (d) X1, the grouped expert product, against its
               plain version in phase 3 at (a)'s and (b)'s decode and
-              prefill shapes, bf16 and float32.
+              prefill shapes, bf16 and float32, and at their b8
+              512-token prefills in bf16 (every bf16 prefill row on the
+              tensor cores and timed on the CUDA-core tiles too), then
+              bf16 on the skinny path and the tensor cores at R = 0.5E
+              .. 16E rows (the crossover that sets the skinny bound).
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, a JSON object with one record per kernel, and
@@ -1737,8 +1744,9 @@ def profile_forward(torch, fn, label, card, phase='decode'):
         print(f'{phase} profile {label}:   {t_us / 1e3:8.3f} ms  {c:5d}x  '
               f'{key[:90]}')
     for what, tag in (('decode attention (K7)', 'pt_decode::'),
-                      ('grouped expert product (X1)', 'moe_skinny_kernel'),
-                      ('grouped expert product (X1)', 'moe_tiled_kernel')):
+                      ('X1 skinny', 'moe_skinny_kernel'),
+                      ('X1 CUDA-core tiles', 'moe_tiled_kernel'),
+                      ('X1 tensor cores', 'moe_tc_kernel')):
         hits = [r for r in rows if tag in r[2]]
         if hits:
             ms = sum(r[0] for r in hits) / 1e3
@@ -3797,13 +3805,18 @@ def x1_routing(np, T, E, k, seed):
             int((counts > 0).sum()))
 
 
+X1_TOL = {'float32': (1e-4, 1e-4), 'bfloat16': TENSOR_TOL['bfloat16']}
+
+
 def check_moe_matmul(torch, np, timer, T, E, k, K, N, dtype):
     """X1 at one product of the MoE path: T tokens' top-k rows sorted by
     expert (seeded routing) times (E, K, N) weights, against its plain
     version (a torch.matmul per expert, offsets read on the host), with
-    the path the wrapper took. The bound counts the bytes of x, of the
-    experts that received rows and of y, and 2 R K N operations at the
-    dtype's peak. The library call is torch._grouped_mm (bf16; its
+    the path the wrapper took (a bf16 row past the skinny path on an
+    aligned shape must take the tensor cores, and is then timed on the
+    CUDA-core tiles too: `tiled_ms`). The bound counts the bytes of x, of
+    the experts that received rows and of y, and 2 R K N operations at
+    the dtype's peak. The library call is torch._grouped_mm (bf16; its
     error against the plain version recorded too), timed where it
     runs."""
     from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as k_
@@ -3821,12 +3834,15 @@ def check_moe_matmul(torch, np, timer, T, E, k, K, N, dtype):
     torch.cuda.synchronize()
     what = (f'moe_grouped_matmul T={T} E={E} top-{k} R={R} K={K} N={N} '
             f'{dname(torch, dtype)}')
-    if took != [k_.path(R, E)]:
-        raise AssertionError(f'{what} took {took}, not {k_.path(R, E)}')
+    want = k_.path(R, E, K, N, dtype, True)
+    if took != [want]:
+        raise AssertionError(f'{what} took {took}, not {want}')
+    if (dtype == torch.bfloat16 and R > k_.SKINNY_MEAN_ROWS[dtype] * E
+            and K % 8 == 0 and N % 8 == 0 and took != ['tensor_core']):
+        raise AssertionError(f'{what} took {took}, not tensor_core')
     # float32: sums of K products in another order; bf16: one rounding
     # of the float32 sum on top
-    tol = {'float32': (1e-4, 1e-4), 'bfloat16': TENSOR_TOL['bfloat16']}[
-        dname(torch, dtype)]
+    tol = X1_TOL[dname(torch, dtype)]
     err = within(out, ref, tol, what)
     item = x.element_size()
     nbytes = R * K * item + distinct * K * N * item + R * N * item \
@@ -3846,6 +3862,14 @@ def check_moe_matmul(torch, np, timer, T, E, k, K, N, dtype):
                           iters=iters),
         'bound_ms': b_, 'bound_by': by, 'library_ms': None,
         'library': 'torch._grouped_mm (bf16 only)'}
+    if took == ['tensor_core']:
+        # the CUDA-core tiles this route replaced, in the same call
+        tiled = within(k_.launch_path('tiled', x, w, offsets), ref, tol,
+                       f'{what} on tiled')
+        rec['tiled_max_abs_err'] = tiled
+        rec['tiled_ms'] = timer(lambda: k_.launch_path('tiled', x, w,
+                                                       offsets),
+                                iters=iters)
     if dtype == torch.bfloat16 and hasattr(torch, '_grouped_mm'):
         ends = offsets[1:]
         try:
@@ -3858,6 +3882,52 @@ def check_moe_matmul(torch, np, timer, T, E, k, K, N, dtype):
             rec['library'] = f'torch._grouped_mm: {e}'[:200]
     del x, w, out, ref
     return rec
+
+
+X1_CROSSOVER = ((64, 6, ((2048, 1408), (1408, 2048))),
+                (8, 2, ((4096, 14336), (14336, 4096))))
+
+
+def moe_crossover(torch, np, timer, card, shapes=X1_CROSSOVER,
+                  mults=(0.5, 1, 1.5, 2, 4, 6, 8, 10, 12, 16)):
+    """X1 in bf16 at R = m E rows for m in `mults` (T = ceil(m E / k)
+    tokens' seeded top-k routing; 0.5E .. 16E: the decode shapes lie at
+    0.09E .. 2E) at the 64-expert model's and Mixtral-8x7B's products,
+    on the skinny path and on the tensor cores in one call, each held to
+    the plain version: the evidence for bf16's SKINNY_MEAN_ROWS (float32
+    has no tensor-core route and keeps R <= 8 E). Returns the rows."""
+    from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as k_
+
+    rows = []
+    for E, k, kn in shapes:
+        for K, N in kn:
+            g = torch.Generator(device='cuda').manual_seed(E + K + N)
+            w = (0.02 * torch.randn(E, K, N, device='cuda', generator=g)
+                 ).to(torch.bfloat16)
+            for m in mults:
+                T = math.ceil(m * E / k)
+                off, _ = x1_routing(np, T, E, k, T + K)
+                offsets = torch.from_numpy(off).cuda()
+                R = T * k
+                x = torch.randn(R, K, device='cuda', generator=g).to(
+                    torch.bfloat16)
+                ref = k_.moe_grouped_matmul_plain(x, w, offsets)
+                ms = {}
+                for p in ('skinny', 'tensor_core'):
+                    within(k_.launch_path(p, x, w, offsets), ref,
+                           X1_TOL['bfloat16'],
+                           f'X1 R={R} E={E} {K}x{N} on {p}')
+                    ms[p] = timer(lambda: k_.launch_path(p, x, w, offsets),
+                                  iters=10)
+                rows.append({'E': E, 'K': K, 'N': N, 'R': R,
+                             'rows_per_expert': R / E, **ms})
+                print(f'moe crossover: R={R} ({R / E:.2f} E) E={E} '
+                      f'{K}x{N} bf16: skinny {ms["skinny"]:.4f} ms, '
+                      f'tensor_core {ms["tensor_core"]:.4f} ms '
+                      f'(bound now {k_.SKINNY_MEAN_ROWS[torch.bfloat16]} '
+                      f'E) [{card}]', flush=True)
+            del w
+    return rows
 
 
 def moe_launches(label, counts, L, forwards, decode_forwards):
@@ -3873,13 +3943,26 @@ def moe_launches(label, counts, L, forwards, decode_forwards):
                              f'{want}')
 
 
+def x1_routes(total):
+    """Add X1's launches per route since the last count_launches to
+    `total`, under 'X1 <route>'; returns them."""
+    from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as hm
+
+    routes = dict(hm.PATH_LAUNCHES)
+    add_counts(total, {f'X1 {p}': n for p, n in routes.items()})
+    return routes
+
+
 def moe_generate(torch, np, model, B, label, card, total, kv8=False):
     """generate at batch B over P = MOE_PROMPT seeded tokens a row: a
     warm call, a timed prefill (max_new_tokens=1, two calls) and a timed
-    call of N = MOE_NEW new tokens, with exact launch counts; prints
-    tok/s, ms per prefill and ms per decode forward ((the N call - the
-    faster prefill) / (N - 1)). Returns the prompts and the N call's
-    output."""
+    call of N = MOE_NEW new tokens, with exact launch counts (every
+    prefill launch of X1 on the route `path()` gives its B P k rows: the
+    tensor cores in bf16); prints tok/s, ms per prefill and ms per
+    decode forward ((the N call - the faster prefill) / (N - 1)).
+    Returns the prompts and the N call's output."""
+    from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as hm
+
     cfg = model.config
     L = cfg.num_hidden_layers
     P, N = MOE_PROMPT, MOE_NEW
@@ -3899,10 +3982,20 @@ def moe_generate(torch, np, model, B, label, card, total, kv8=False):
     ts, counts = count_launches(torch, prefill)
     moe_launches(f'moe {label} prefill', counts, L, 2, 0)
     add_counts(total, counts)
+    dtype = model.embed_tokens.dtype
+    H, M, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    route = hm.path(B * P * cfg.top_k, E, H, M, dtype, True)
+    if hm.path(B * P * cfg.top_k, E, M, H, dtype, True) != route or \
+            x1_routes(total) != {p: 6 * L if p == route else 0
+                                 for p in hm.PATH_LAUNCHES}:
+        raise AssertionError(f'moe {label} prefill: X1 routes '
+                             f'{hm.PATH_LAUNCHES}, not 3L a forward on '
+                             f'{route}')
     (out, t), counts = count_launches(torch, lambda: timed(
         torch, lambda: model.generate(ids, max_new_tokens=N, **kw)))
     moe_launches(f'moe {label}', counts, L, N, N - 1)
     add_counts(total, counts)
+    x1_routes(total)
     check_outputs(f'moe {label}', list(ids.cpu().numpy()),
                   list(out.cpu().numpy()), cfg.vocab_size, [N] * B)
     pre = min(ts)
@@ -3913,8 +4006,8 @@ def moe_generate(torch, np, model, B, label, card, total, kv8=False):
           f'{ms:.2f} ms per decode forward ({B / ms * 1e3:.2f} tokens/s '
           f'of decode); launches per forward K1 {2 * L + 1}, X1 {3 * L}, '
           f'K7 {L} per one-token forward '
-          f'({ {k: v for k, v in counts.items() if v} }) [{card}]',
-          flush=True)
+          f'({ {k: v for k, v in counts.items() if v} }; X1 prefills on '
+          f'{route}) [{card}]', flush=True)
     return ids, out
 
 
@@ -4085,6 +4178,10 @@ def moe_full_phase(torch, np, card, total):
         profile_forward(torch, lambda: model(tok, caches=caches,
                                              cache_index=MOE_PROMPT + 1),
                         'moe (a) b8 bf16', card)
+        # and one b8 512-token prefill forward (X1 on the tensor cores)
+        profile_forward(torch, lambda: model(ids, caches=caches,
+                                             cache_index=0),
+                        'moe (a) b8 bf16', card, phase='prefill')
     del model, eng, caches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4114,6 +4211,12 @@ def moe_mixtral_phase(torch, np, card, total):
     for B in (1, 8):
         ids, out = moe_generate(torch, np, model, B, f'(b) Mixtral b{B}',
                                 card, total)
+    with torch.no_grad():
+        caches = model.init_cache(8, MOE_PROMPT)
+        profile_forward(torch, lambda: model(ids, caches=caches,
+                                             cache_index=0),
+                        'moe (b) Mixtral b8 bf16', card, phase='prefill')
+    del caches
     prefill_gap(torch, model, ids[:1], card)
     del model
     gc.collect()
@@ -4392,7 +4495,9 @@ def main():
         torch.cuda.empty_cache()
         # 14 (d). the grouped expert product X1: the 64-expert model's
         # decode at b1 / b8 (gate / up, then down) and 512-token prefill,
-        # then Mixtral-8x7B's decode at b1 / b8 and 512-token prefill
+        # then Mixtral-8x7B's decode at b1 / b8 and 512-token prefill;
+        # then both b8 512-token prefills in bf16 (where the operations
+        # come level with the bytes or take over)
         cases['moe_grouped_matmul'] = [
             check_moe_matmul(torch, np, timer, T, E, k, K, N, dt)
             for E, k, shapes in (
@@ -4402,7 +4507,12 @@ def main():
                 (8, 2, ((1, 4096, 14336), (1, 14336, 4096),
                         (8, 4096, 14336), (8, 14336, 4096),
                         (512, 4096, 14336), (512, 14336, 4096))))
-            for T, K, N in shapes for dt in (bf16, f32)]
+            for T, K, N in shapes for dt in (bf16, f32)] + [
+            check_moe_matmul(torch, np, timer, 4096, E, k, K, N, bf16)
+            for E, k, K, N in ((64, 6, 2048, 1408), (64, 6, 1408, 2048),
+                               (8, 2, 4096, 14336), (8, 2, 14336, 4096))]
+        torch.cuda.empty_cache()
+        moe_crossover(torch, np, timer, card)
         torch.cuda.empty_cache()
         for name, cs in cases.items():
             for c in cs:
@@ -4427,8 +4537,10 @@ def main():
         for c in cases['moe_grouped_matmul']:
             lib = ('' if c['library_ms'] is None
                    else f', torch._grouped_mm {c["library_ms"]:.4f}')
+            tiled = (f' (CUDA-core tiles {c["tiled_ms"]:.4f})'
+                     if 'tiled_ms' in c else '')
             print(f'moe_grouped_matmul {c["shape"]} ({c["path"]}): '
-                  f'{c["ms"]:.4f} ms, bound {c["bound_ms"]:.4f} '
+                  f'{c["ms"]:.4f} ms{tiled}, bound {c["bound_ms"]:.4f} '
                   f'({c["bound_by"]}), plain {c["plain_ms"]:.4f}{lib} '
                   f'[{card}]')
         del timer
@@ -4542,6 +4654,21 @@ def main():
                 # past the skinny path, bf16 x takes the tensor cores
                 records[-1]['tensor_core_source'] = \
                     'paddle_tpu_torch/csrc/quant_matmul_tc.cu'
+            if name == 'moe_grouped_matmul':
+                # past the skinny path, bf16 takes the tensor cores (the
+                # prefills of phase 14's generate calls)
+                records[-1]['tensor_core_source'] = \
+                    'paddle_tpu_torch/csrc/moe_grouped_matmul_tc.cu'
+                records[-1]['launches_by_route'] = {
+                    p: moe_launches_['moe'].get(f'X1 {p}', 0)
+                    for p in ('skinny', 'tensor_core', 'tiled')}
+                # bf16 decode on the skinny path, prefills on the tensor
+                # cores (float32 and odd shapes take the CUDA-core tiles:
+                # phase 3's rows)
+                by_route = records[-1]['launches_by_route']
+                if not (by_route['skinny'] and by_route['tensor_core']):
+                    raise AssertionError(f'X1 routes phase 14 never '
+                                         f'launched: {by_route}')
             if name.startswith('flash_attention'):
                 # bf16 up to D = 128 (the main paths) on the tensor cores;
                 # float32 and bf16 past 128 on the CUDA cores

@@ -23,13 +23,13 @@
 //
 // Bound: at decode sizes (R = T * k rows: 6 at batch 1, 48 at batch 8 for
 // top 6) bytes, the K x N weight slab of each expert that has rows, read
-// once. The skinny path (the wrapper takes it while R <= 8 E) gives a
-// block one expert's tile of up to 4 rows and a strip of 64 (bf16) or 32
-// (float32) columns. Its 256 threads are 8 column lanes x 32 K lanes, and
-// a lane takes 8 consecutive weight rows a step: it issues their 8
-// 16-byte loads (a warp reads 4 rows x 128 consecutive bytes at a time)
-// and its 16-byte loads of the tile's x rows over the same 8 columns of
-// K (L1 / L2 hits, shared by the 8 column lanes) before it uses any, so
+// once. The skinny path (the wrapper takes it while R <= E in bf16, 8 E in
+// float32) gives a block one expert's tile of up to 4 rows and a strip of
+// 64 (bf16) or 32 (float32) columns. Its 256 threads are 8 column lanes x
+// 32 K lanes, and a lane takes 8 consecutive weight rows a step: it issues
+// their 8 16-byte loads (a warp reads 4 rows x 128 consecutive bytes at a
+// time) and its 16-byte loads of the tile's x rows over the same 8 columns
+// of K (L1 / L2 hits, shared by the 8 column lanes) before it uses any, so
 // a block keeps 32 KB of weights in flight with no shared-memory staging
 // and no barrier in its loop. The K lanes' sums are added by shuffles
 // inside a warp, then across the 8 warps in shared memory in a fixed
@@ -37,68 +37,25 @@
 // column tail past N, or an N that does not keep the rows 16-byte
 // aligned, takes scalar loads; so does x when K is not a multiple of 8.
 //
-// The tiled path (prefill: R = 3072 rows for a 512-token prompt at top 6)
-// computes 64 x 64 output tiles over 16-wide K steps, x and w staged in
-// shared memory as float32 (the next step's loads issued into registers
-// before the current step's FMAs), 4 x 4 outputs a thread, on the CUDA
-// cores. The tensor cores for this path are later work (ROADMAP D18).
+// The tiled path computes 64 x 64 output tiles over 16-wide K steps, x
+// and w staged in shared memory as float32 (the next step's loads issued
+// into registers before the current step's FMAs), 4 x 4 outputs a
+// thread, on the CUDA cores. It takes the rows past the skinny path that
+// the tensor cores do not (moe_grouped_matmul_tc.cu takes bf16 prefill
+// rows): float32, which TF32 would round, and bf16 with K or N not a
+// multiple of 8 or unaligned pointers.
 
 #include "common.cuh"
+#include "moe_grouped_matmul.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxExperts = 1024;
 constexpr int kSkinnyRows = 4;          // rows a skinny block owns
 constexpr int kLanesN = 8;              // column lanes of a skinny block
 constexpr int kLanesK = kThreads / kLanesN;
 constexpr int kRowsK = 8;               // consecutive K rows a lane takes
 constexpr int kTileM = 64, kTileN = 64, kTileK = 16;
-
-struct Pair {
-  int e, r0, r1;
-};
-
-// The block's (expert, row tile) pair for slot `slot`, tiles of `bm`
-// rows in expert order: warp 0 scans the tile counts (each lane a run of
-// experts, then a shuffle scan), and the lane whose run holds the slot
-// writes the pair. False past the last pair (uniform over the block).
-__device__ __forceinline__ bool find_pair(const int* __restrict__ offsets,
-                                          int E, int bm, int slot,
-                                          int* s_off, Pair* s_pair) {
-  for (int i = threadIdx.x; i <= E; i += blockDim.x) s_off[i] = offsets[i];
-  if (threadIdx.x == 0) s_pair->e = -1;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const int per = (E + 31) / 32;
-    const int e0 = min(E, lane * per), e1 = min(E, e0 + per);
-    int mine = 0;
-    for (int e = e0; e < e1; ++e)
-      mine += (s_off[e + 1] - s_off[e] + bm - 1) / bm;
-    int incl = mine;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += v;
-    }
-    if (slot >= incl - mine && slot < incl) {
-      int t = slot - (incl - mine);
-      for (int e = e0; e < e1; ++e) {
-        const int n = (s_off[e + 1] - s_off[e] + bm - 1) / bm;
-        if (t < n) {
-          s_pair->e = e;
-          s_pair->r0 = s_off[e] + t * bm;
-          s_pair->r1 = min(s_off[e + 1], s_pair->r0 + bm);
-          break;
-        }
-        t -= n;
-      }
-    }
-  }
-  __syncthreads();
-  return s_pair->e >= 0;
-}
 
 // n elements of T from p (16-byte aligned, n * sizeof(T) a multiple of
 // 16) by 16-byte loads

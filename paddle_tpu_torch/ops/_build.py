@@ -91,6 +91,8 @@ _SIGNATURES = {
                            _I, _I, _VP],
     'pt_moe_grouped_matmul': [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                               _I, _VP],
+    'pt_moe_grouped_matmul_tc': [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                 _VP],
 }
 
 _lib = None

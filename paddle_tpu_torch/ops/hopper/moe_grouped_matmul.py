@@ -1,9 +1,10 @@
 """The grouped expert product of the dropless MoE layer (X1 of PERF.md):
 the hand-written Hopper kernel and its plain version.
 
-The kernel (`csrc/moe_grouped_matmul.cu`) replaces XLA's
-`jax.lax.ragged_dot` at `paddle_tpu/distributed/moe.py:104-106`, which
-the JAX package leaves outside Pallas:
+The kernels (`csrc/moe_grouped_matmul.cu`: the skinny and CUDA-core
+tiled paths; `csrc/moe_grouped_matmul_tc.cu`: the tensor cores) replace
+XLA's `jax.lax.ragged_dot` at `paddle_tpu/distributed/moe.py:104-106`,
+which the JAX package leaves outside Pallas:
 
     y[offsets[e]:offsets[e + 1]] = x[offsets[e]:offsets[e + 1]] @ w[e]
 
@@ -11,12 +12,13 @@ x (R, K) with its rows sorted by expert, w (E, K, N), both bf16 or both
 float32; offsets (E + 1,) int32, nondecreasing from 0 to R (the
 exclusive scan of the group sizes); float32 sums; y (R, N) in x's dtype.
 
-The kernel reads the offsets on the device: its grid comes from R and E
-alone and each block finds its (expert, row tile) pair itself, so one
-product is one launch, no count is read on the host, and the launch can
-be captured in a CUDA graph. `moe_grouped_matmul_plain` loops over the
-experts with `torch.matmul` on slices, reading the offsets on the host:
-the CPU path, and the yardstick the kernel is held to.
+Each kernel reads the offsets on the device: its grid comes from R, E
+and N alone and each block finds its (expert, row tile) pair itself,
+so one product is one launch, no count is read on the host, and the
+launch can be captured in a CUDA graph. `moe_grouped_matmul_plain`
+loops over the experts with `torch.matmul` on slices, reading the
+offsets on the host: the CPU path, and the yardstick the kernels are
+held to.
 """
 from __future__ import annotations
 
@@ -24,20 +26,42 @@ import torch
 
 from .. import _build
 
-MAX_EXPERTS = 1024          # the kernel stages the offsets in shared memory
-SKINNY_MEAN_ROWS = 8        # the skinny path's bound on R / E
+MAX_EXPERTS = 1024          # the kernels stage the offsets in shared memory
+# the skinny path's bound on R / E: float32 (the CUDA-core tiles past
+# it), and bf16, where the tensor cores match or beat it from R = E / 2
+# and beat it at every measured shape from R = E (chip_smoke.py's
+# moe_crossover, PERF.md)
+SKINNY_MEAN_ROWS = {torch.float32: 8, torch.bfloat16: 1}
 
 # launches per path, beside `_build.LAUNCHES`' count
-PATH_LAUNCHES = {'skinny': 0, 'tiled': 0}
+PATH_LAUNCHES = {'skinny': 0, 'tensor_core': 0, 'tiled': 0}
 
 
-def path(R, E):
-    """The kernel a product of R sorted rows over E experts takes:
-    'skinny' (decode: each expert's weight slab streamed once for every
-    4 of its rows) while R <= 8 E, a row or two an expert at decode
-    sizes; else 'tiled' (64 x 64 output tiles). Shapes only: never the
-    counts."""
-    return 'skinny' if R <= SKINNY_MEAN_ROWS * E else 'tiled'
+def path(R, E, K, N, dtype, ptrs_aligned):
+    """The kernel a product of R sorted rows (R, K) over E experts'
+    (K, N) weights takes:
+
+    - 'skinny' while R <= SKINNY_MEAN_ROWS[dtype] * E (decode, a row or
+      two an expert: each expert's weight slab streamed once for every 4
+      of its rows), any shape;
+    - 'tensor_core': bf16 past it with K % 8 == 0, N % 8 == 0 and x and
+      w 16-byte aligned (the kernel's 16-byte copies; a bf16 wgmma with
+      float32 sums computes the plain version's function but for the
+      order of the sums): a prompt's prefill;
+    - 'tiled': the rest past it, float32 (TF32 would round it) and
+      unaligned or odd bf16 shapes (64 x 64 CUDA-core tiles).
+
+    Shapes, dtype and alignment only: never the counts."""
+    if R <= SKINNY_MEAN_ROWS.get(dtype, 8) * E:
+        return 'skinny'
+    if dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 \
+            and ptrs_aligned:
+        return 'tensor_core'
+    return 'tiled'
+
+
+def _aligned(x, w):
+    return x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
 
 
 def _check(x, w, offsets):
@@ -101,16 +125,26 @@ def _checked(x, w, offsets):
 
 def _run(p, x, w, offsets, R, K, N, E):
     code = _build.dtype_code(x, 'moe_grouped_matmul')
+    if p == 'tensor_core' and not (x.dtype == torch.bfloat16 and K % 8 == 0
+                                   and N % 8 == 0 and _aligned(x, w)):
+        raise ValueError(f'moe_grouped_matmul: the tensor-core path takes '
+                         f'bf16 with K and N multiples of 8 and 16-byte-'
+                         f'aligned x and w, got {x.dtype}, K={K}, N={N}')
     y = torch.empty(R, N, dtype=x.dtype, device=x.device)
     if R == 0 or N == 0:
         return y
-    vec = 16 // x.element_size()
-    vec_ok = N % vec == 0 and w.data_ptr() % 16 == 0
     lib = _build.load()
-    err = lib.pt_moe_grouped_matmul(
-        x.device.index, x.data_ptr(), w.data_ptr(), offsets.data_ptr(),
-        y.data_ptr(), R, K, N, E, int(p == 'skinny'), int(vec_ok), code,
-        _build.stream_ptr(x))
+    if p == 'tensor_core':
+        err = lib.pt_moe_grouped_matmul_tc(
+            x.device.index, x.data_ptr(), w.data_ptr(), offsets.data_ptr(),
+            y.data_ptr(), R, K, N, E, code, _build.stream_ptr(x))
+    else:
+        vec = 16 // x.element_size()
+        vec_ok = N % vec == 0 and w.data_ptr() % 16 == 0
+        err = lib.pt_moe_grouped_matmul(
+            x.device.index, x.data_ptr(), w.data_ptr(), offsets.data_ptr(),
+            y.data_ptr(), R, K, N, E, int(p == 'skinny'), int(vec_ok), code,
+            _build.stream_ptr(x))
     _build.check(err, f'moe_grouped_matmul ({p})')
     _build.LAUNCHES['moe_grouped_matmul'] += 1
     PATH_LAUNCHES[p] += 1
@@ -118,8 +152,9 @@ def _run(p, x, w, offsets, R, K, N, E):
 
 
 def launch_path(p, x, w, offsets):
-    """The product on path `p` ('skinny' or 'tiled') whatever `path()`
-    would pick, for testing and timing the two paths."""
+    """The product on path `p` ('skinny', 'tensor_core' or 'tiled')
+    whatever `path()` would pick, for testing and timing the paths;
+    'tensor_core' raises on inputs it does not take."""
     if p not in PATH_LAUNCHES:
         raise ValueError(f'no moe_grouped_matmul path {p!r}: one of '
                          f'{list(PATH_LAUNCHES)}')
@@ -132,4 +167,5 @@ def moe_grouped_matmul(x, w, offsets):
     bf16 / float32, or more than MAX_EXPERTS experts. R = 0 returns an
     empty (0, N) tensor without a launch."""
     R, K, N, E = _checked(x, w, offsets)
-    return _run(path(R, E), x, w, offsets, R, K, N, E)
+    return _run(path(R, E, K, N, x.dtype, _aligned(x, w)), x, w, offsets,
+                R, K, N, E)

@@ -1728,7 +1728,10 @@ def test_moe_grouped_matmul_kernel(card, T, E, k, K, N, dtype):
     before = dict(k_moe.PATH_LAUNCHES)
     got = k_moe.moe_grouped_matmul(x, w, off)
     took = [p for p, n in k_moe.PATH_LAUNCHES.items() if n != before[p]]
-    assert took == [k_moe.path(x.shape[0], E)]
+    assert took == [k_moe.path(x.shape[0], E, K, N, dtype, True)]
+    if T == 512:    # the prefills: bf16 on the tensor cores
+        assert took == ['tensor_core' if dtype == torch.bfloat16
+                        else 'tiled']
     want = k_moe.moe_grouped_matmul_plain(x, w, off)
     rtol, atol = X1_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
@@ -1736,7 +1739,7 @@ def test_moe_grouped_matmul_kernel(card, T, E, k, K, N, dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize('p', ['skinny', 'tiled'])
+@pytest.mark.parametrize('p', ['skinny', 'tiled', 'tensor_core'])
 @pytest.mark.parametrize('T,E,k,K,N,empty', [
     (5, 6, 2, 37, 100, (1, 4)),         # no 16-byte rows, a column tail
     (40, 6, 3, 600, 72, (0,)),          # K past a staged chunk
@@ -1745,6 +1748,10 @@ def test_moe_grouped_matmul_paths_and_empty_experts(card, p, T, E, k, K, N,
                                                     empty, dtype):
     rng = np.random.default_rng(K + N)
     x, w, off = _x1_inputs(card, rng, T, E, k, K, N, dtype, empty)
+    if p == 'tensor_core' and (dtype != torch.bfloat16 or K % 8 or N % 8):
+        with pytest.raises(ValueError, match='tensor-core path takes'):
+            k_moe.launch_path(p, x, w, off)
+        return
     got = k_moe.launch_path(p, x, w, off)
     want = k_moe.moe_grouped_matmul_plain(x, w, off)
     rtol, atol = X1_TOL[dtype]
@@ -1752,6 +1759,81 @@ def test_moe_grouped_matmul_paths_and_empty_experts(card, p, T, E, k, K, N,
                                atol=atol * want.abs().max().item())
     # bitwise repeatable: no atomics
     assert torch.equal(got, k_moe.launch_path(p, x, w, off))
+
+
+# (rows per expert, K, N) for the tensor-core route's 128-row tiles (64
+# rows a warpgroup): an expert with 1 row, one whose rows span two tiles
+# (150) or three (300), one of exactly one warpgroup's 64 or one tile's
+# 128 and one row past them (65, 129), empty experts, R not a multiple
+# of 64; K not a multiple of the 64-wide step; N a multiple of 16 but
+# not of the 256-column strip (400, 144, 1408), and of 8 only (72)
+X1_TC_TILES = {
+    'ragged': ((1, 0, 150, 64, 0, 37), 200, 400),
+    'n_of_8': ((3, 70, 0, 129), 64, 72),
+    'one_warpgroup_and_one_row': ((64, 1, 0, 65), 1024, 144),
+    'one_expert': ((300,), 136, 256),
+    'tile_edges': ((129, 0, 128, 1), 520, 1408),
+}
+
+
+@pytest.mark.parametrize('case', list(X1_TC_TILES))
+def test_moe_grouped_matmul_tensor_core_tiles(card, case):
+    """The tensor-core route at tile edges, held to X1_TOL against the
+    plain version, bitwise repeatable, equal to the CUDA-core tiles
+    within the same tolerance, and one CUDA kernel a call."""
+    counts, K, N = X1_TC_TILES[case]
+    E = len(counts)
+    rng = np.random.default_rng(sum(counts) + K + N)
+    off = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                       dtype=torch.int32, device=card)
+    R = int(off[-1])
+    x = _randn(rng, (R, K), card, torch.bfloat16)
+    w = _randn(rng, (E, K, N), card, torch.bfloat16, 0.02)
+    got = k_moe.launch_path('tensor_core', x, w, off)
+    want = k_moe.moe_grouped_matmul_plain(x, w, off)
+    rtol, atol = X1_TOL[torch.bfloat16]
+    scale = atol * want.abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=scale)
+    torch.testing.assert_close(
+        got.float(), k_moe.launch_path('tiled', x, w, off).float(),
+        rtol=rtol, atol=scale)
+    assert torch.equal(got, k_moe.launch_path('tensor_core', x, w, off))
+    assert _build.kernels_per_call(
+        lambda: k_moe.launch_path('tensor_core', x, w, off), card) == 1
+
+
+def test_moe_grouped_matmul_tensor_core_in_a_cuda_graph(card):
+    """A bf16 prefill product (512 tokens, top 6 of 64 experts, 2048 ->
+    1408) on the tensor-core route captured in a CUDA graph and replayed
+    after new rows and a new routing are copied into its inputs equals
+    the eager call: the launch reads its offsets on the device."""
+    T, E, k, K, N = 512, 64, 6, 2048, 1408
+    rng = np.random.default_rng(31)
+    x, w, off = _x1_inputs(card, rng, T, E, k, K, N, torch.bfloat16)
+    assert k_moe.path(x.shape[0], E, K, N, torch.bfloat16, True) == \
+        'tensor_core'
+    k_moe.moe_grouped_matmul(x, w, off)                  # warm
+    torch.cuda.synchronize()
+    before = k_moe.PATH_LAUNCHES['tensor_core']
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k_moe.moe_grouped_matmul(x, w, off)
+    assert k_moe.PATH_LAUNCHES['tensor_core'] == before + 1
+    seen = []
+    for seed in (4, 5):
+        r = np.random.default_rng(seed)
+        off.copy_(torch.from_numpy(_routing(r, T, E, k)))
+        x.copy_(_randn(r, x.shape, card, torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, k_moe.moe_grouped_matmul(x, w, off))
+        want = k_moe.moe_grouped_matmul_plain(x, w, off)
+        rtol, atol = X1_TOL[torch.bfloat16]
+        torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                                   atol=atol * want.abs().max().item())
+        seen.append(off.clone())
+    assert not torch.equal(seen[0], seen[1])         # the routing moved
 
 
 def test_moe_grouped_matmul_no_rows_and_refusals(card):

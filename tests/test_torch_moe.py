@@ -172,10 +172,83 @@ def test_grouped_matmul_plain_and_rules():
         ops.moe_grouped_matmul(x, w.requires_grad_(), off)
     with pytest.raises(ValueError, match='CUDA device'):
         x1.moe_grouped_matmul(x, w.detach(), off)
-    # the skinny path while R <= 8 E: every decode shape of the slice
-    assert [x1.path(R, E) for R, E in ((6, 64), (48, 64), (3072, 64),
-                                       (16, 8), (1024, 8))] == [
+    # the skinny path while R <= 8 E: every decode shape of the slice;
+    # past it float32 takes the CUDA-core tiles
+    assert [x1.path(R, E, K, N, torch.float32, True)
+            for R, E, K, N in ((6, 64, 2048, 1408), (48, 64, 1408, 2048),
+                               (3072, 64, 2048, 1408), (16, 8, 4096, 14336),
+                               (1024, 8, 14336, 4096))] == [
         'skinny', 'skinny', 'tiled', 'skinny', 'tiled']
+
+
+# (R, E, K, N, dtype, 16-byte-aligned pointers) -> the route
+X1_ROUTES = {
+    # bf16 prefills at full width: 512 tokens at b1 and b8, top 6 over
+    # 64 experts (gate / up, then down), top 2 over Mixtral's 8
+    'moe_b1_gate_up': ((3072, 64, 2048, 1408, 'bfloat16', True),
+                       'tensor_core'),
+    'moe_b1_down': ((3072, 64, 1408, 2048, 'bfloat16', True), 'tensor_core'),
+    'moe_b8_gate_up': ((24576, 64, 2048, 1408, 'bfloat16', True),
+                       'tensor_core'),
+    'mixtral_b1_gate_up': ((1024, 8, 4096, 14336, 'bfloat16', True),
+                           'tensor_core'),
+    'mixtral_b8_down': ((8192, 8, 14336, 4096, 'bfloat16', True),
+                        'tensor_core'),
+    # N a multiple of 8 but not of 16 or of the 256-column strip
+    'n_of_8': ((700, 6, 64, 72, 'bfloat16', True), 'tensor_core'),
+    # past the skinny bound but not for the tensor cores
+    'float32_prefill': ((3072, 64, 2048, 1408, 'float32', True), 'tiled'),
+    'float32_mixtral': ((1024, 8, 4096, 14336, 'float32', True), 'tiled'),
+    'k_not_of_8': ((700, 6, 37, 64, 'bfloat16', True), 'tiled'),
+    'n_not_of_8': ((700, 6, 64, 100, 'bfloat16', True), 'tiled'),
+    'unaligned': ((3072, 64, 2048, 1408, 'bfloat16', False), 'tiled'),
+    'odd_bf16': ((5 * 100, 6, 37, 100, 'bfloat16', True), 'tiled'),
+    # decode: within the bound (bf16 E, float32 8 E), aligned or not
+    'decode_b1': ((6, 64, 2048, 1408, 'bfloat16', True), 'skinny'),
+    'decode_b8': ((48, 64, 1408, 2048, 'bfloat16', True), 'skinny'),
+    'mixtral_decode_b1': ((2, 8, 4096, 14336, 'bfloat16', False), 'skinny'),
+    # Mixtral's b8 decode, 2 rows an expert: the tensor cores beat the
+    # skinny path there
+    'mixtral_decode_b8': ((16, 8, 14336, 4096, 'bfloat16', True),
+                          'tensor_core'),
+    'at_the_bound': ((x1.SKINNY_MEAN_ROWS[torch.bfloat16] * 64, 64, 2048,
+                      1408, 'bfloat16', True), 'skinny'),
+    'past_the_bound': ((x1.SKINNY_MEAN_ROWS[torch.bfloat16] * 64 + 1, 64,
+                        2048, 1408, 'bfloat16', True), 'tensor_core'),
+    'float32_decode': ((48, 64, 2048, 1408, 'float32', False), 'skinny'),
+    'float32_mixtral_decode_b8': ((16, 8, 14336, 4096, 'float32', True),
+                                  'skinny'),
+}
+
+
+@pytest.mark.parametrize('case', list(X1_ROUTES))
+def test_grouped_matmul_route(case):
+    """`path()`'s three routes by shape, dtype and alignment alone."""
+    (R, E, K, N, dtype, aligned), want = X1_ROUTES[case]
+    dt = getattr(torch, dtype)
+    # the table's premise: only rows within the skinny bound are skinny
+    assert (R <= x1.SKINNY_MEAN_ROWS[dt] * E) == (want == 'skinny')
+    assert x1.path(R, E, K, N, dt, aligned) == want
+
+
+def test_grouped_matmul_cpu_takes_the_plain_version():
+    """A bf16 product of prefill shape on CPU tensors: the plain version
+    (each expert's rows times its weight in float32, rounded once), no
+    kernel launch on any route."""
+    rng = _rng(5)
+    E, K, N = 2, 16, 8
+    off = torch.tensor([0, 7, 20], dtype=torch.int32)
+    x = torch.from_numpy(rng.normal(size=(20, K)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(E, K, N)).astype(np.float32))
+    xb, wb = x.bfloat16(), w.bfloat16()
+    assert x1.path(20, E, K, N, torch.bfloat16, True) == 'tensor_core'
+    before = dict(x1.PATH_LAUNCHES), ops.LAUNCHES['moe_grouped_matmul']
+    y = ops.moe_grouped_matmul(xb, wb, off)
+    assert (dict(x1.PATH_LAUNCHES), ops.LAUNCHES['moe_grouped_matmul']) \
+        == before
+    want = torch.cat([xb[:7].float() @ wb[0].float(),
+                      xb[7:].float() @ wb[1].float()]).bfloat16()
+    assert y.dtype == torch.bfloat16 and torch.equal(y, want)
 
 
 # ---------------------------------------------------------------------------
