@@ -39,11 +39,12 @@ Phases, in order (any failure exits non-zero and prints no result):
               least time the card needs for the bytes or the operations;
   4. serving  a ServingEngine over a Llama-7B-width model (all 32
               layers, bf16 weights drawn from a seeded generator)
-              answers 8 requests, admitted while other rows decode; the
-              kernels' launch counts over that run must match the
-              engine's model calls, and no page may leak; then one
-              decode window traced with torch.profiler (device time by
-              kernel, and the share of the window the device was busy);
+              answers 8 requests, admitted while other rows decode, its
+              decode windows replayed as CUDA graphs; the kernels'
+              launch counts over that run must match the engine's model
+              calls, and no page may leak; then one decode window traced
+              with torch.profiler (device time by kernel, and the share
+              of the window the device was busy);
   5. logits   one served request's decode-step logits through the
               kernels against the plain versions on the same tokens:
               bounded in float32 (the served weights cast up); in bf16
@@ -58,7 +59,8 @@ Phases, in order (any failure exits non-zero and prints no result):
   6. decode   the JAX bench's decode section at Llama-7B width (all 32
               layers, bf16): greedy single-token forwards over 2048-
               position contiguous caches at batch 1 and 8, with an int8
-              KV cache, and with int8 and int4 weights (tokens/s, ms per
+              KV cache, and with int8 and int4 weights, each a replay of
+              generate's captured decode step (tokens/s, ms per
               forward, exact launch counts of K1, K7, K10, K11; one
               forward traced at b8 bf16 and at b1 int8 weights), a
               2048-token prefill (generate with max_new_tokens=1, one
@@ -68,8 +70,10 @@ Phases, in order (any failure exits non-zero and prints no result):
               versions'), then
               DecodeEngine end to end on a 13-token prompt, then the
               kernels against the plain versions in float32 (7B width,
-              2 layers): logits of 16 decode steps in five modes, and
-              DecodeEngine token-equal to generate;
+              2 layers): logits of 16 decode steps in five modes (the
+              steps run directly, their eager reference, so that every
+              forward is seen; the captured steps' tokens equal to
+              theirs), and DecodeEngine token-equal to generate;
   7. fused    Paddle's fused-inference ops at Llama-7B widths:
               fused_multi_transformer (32 layers, RMSNorm, bf16)
               prefilling 8 x 512 tokens, then 64 decode steps over
@@ -184,6 +188,20 @@ Phases, in order (any failure exits non-zero and prints no result):
               tensor cores and timed on the CUDA-core tiles too), then
               bf16 on the skinny path and the tensor cores at R = 0.5E
               .. 16E rows (the crossover that sets the skinny bound).
+ 15. graphs   the compiled decode window and decode step: (a) phase 4's
+              engine at Llama-7B width over bf16 and int8 pools, warmed
+              (capture seconds and bytes reserved per geometry), 4 rows
+              (2 sampled) decoding: every window variant (greedy,
+              sampled, with a speculative engine's carried token)
+              replayed against a direct _window call on cloned state,
+              tokens, last_logits and pools bit-equal, ms per window of
+              each; (b) generate b1 / b8 at that width and (c)
+              MoEConfig() b8, greedy and sampled: the replayed step's
+              tokens equal to the direct steps', ms per decode forward
+              of each; (d) in a fresh process (`--graphs-profile`,
+              whose first profiler sessions they are), the device-busy
+              share of one direct and one replayed window, generate b8
+              step and MoE b8 step.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, a JSON object with one record per kernel, and
@@ -1715,9 +1733,11 @@ def expect_launches(got, L, forwards, decode_forwards, quant=None):
         raise AssertionError(f'launch counts {got} != expected {want}')
 
 
-def profile_forward(torch, fn, label, card, phase='decode'):
-    """Trace one decode (or prefill) forward: device time by kernel and
-    the share of the forward's wall time the device was busy."""
+def profile_forward(torch, fn, label, card, phase='decode',
+                    what='one forward'):
+    """Trace one decode (or prefill) forward (or `what` fn runs): device
+    time by kernel and the share of its wall time the device was busy.
+    Returns the traced kernels' (device us, count, name) rows."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1734,10 +1754,10 @@ def profile_forward(torch, fn, label, card, phase='decode'):
     if not rows:
         print(f'{phase} profile {label}: the profiler recorded no device '
               f'time; device-busy share not measured')
-        return
+        return rows
     busy = sum(r[0] for r in rows) / 1e3
     n = sum(r[1] for r in rows)
-    print(f'{phase} profile {label}: one forward: wall {wall * 1e3:.2f} ms, '
+    print(f'{phase} profile {label}: {what}: wall {wall * 1e3:.2f} ms, '
           f'device busy {busy:.3f} ms ({busy / (wall * 1e3):.3f}), {n} '
           f'kernels [{card}]')
     for t_us, c, key in rows[:12]:
@@ -1753,6 +1773,79 @@ def profile_forward(torch, fn, label, card, phase='decode'):
             print(f'{phase} profile {label}: {what} {ms:.3f} ms in '
                   f'{sum(r[1] for r in hits)} launches, {ms / busy:.3f} of '
                   f'device time')
+    return rows
+
+
+# the names the profiler records for the launches each counter counts,
+# one traced kernel per counted launch (K7, K8 and K8q share the decode
+# kernel's template)
+TRACE_TAGS = {
+    'rms_norm': ('rms_norm_fwd',),
+    'decode_attention': ('pt_decode::',),
+    'paged_decode_attention': ('pt_decode::',),
+    'paged_decode_attention_int8': ('pt_decode::',),
+    'moe_grouped_matmul': ('moe_skinny_kernel', 'moe_tiled_kernel',
+                           'moe_tc_kernel'),
+    **dict.fromkeys(('quant_matmul', 'quant_matmul_int4',
+                     'quant_matmul_fp8'),
+                    ('qmm_skinny_kernel', 'qmm_tiled_kernel',
+                     'qmm_tc_kernel')),
+}
+
+
+def check_replay_trace(rows, graph, n, label):
+    """The hand-written kernels that a traced run of n replays of `graph`
+    launched, counted by name in the profiler's `rows`, against the
+    launches its capture counted times n (what the runner adds to the
+    counters on each replay): equal for every kernel family, none
+    launched that the capture did not count."""
+    want = dict.fromkeys(set(TRACE_TAGS.values()), 0)
+    for name, inc in graph.increments[0].items():
+        if name not in TRACE_TAGS:
+            raise AssertionError(f'{label}: no traced name for {name}')
+        want[TRACE_TAGS[name]] += n * inc
+    got = {tags: sum(c for _, c, key in rows
+                     if any(t in key for t in tags)) for tags in want}
+    shown = {tags[0]: (got[tags], want[tags]) for tags in want
+             if got[tags] or want[tags]}
+    print(f'graphs profile {label}: traced launches against the capture\'s '
+          f'counts x {n} (traced, counted): {shown}; equal '
+          f'{got == want}', flush=True)
+    if not rows or got != want:
+        raise AssertionError(f'{label}: the traced replays launched '
+                             f'{got}, the counters add {want}')
+
+
+def decode_graph(torch, model, caches, batch, base, steps):
+    """The JAX bench's scanned decode loop as the port runs generate's:
+    generate's decode step (`_decode_step`, greedy, at the device
+    position base + step over `caches`) captured once as a CUDA graph;
+    `rep()` resets the step and replays it `steps` times. Returns (the
+    graph, rep, its buffers)."""
+    from paddle_tpu_torch.inference.graphs import GraphRunner
+    from paddle_tpu_torch.models.generation import _decode_step
+
+    dev = model.device
+    bufs = dict(tok=torch.zeros(batch, dtype=torch.int64, device=dev),
+                out=torch.zeros(batch, steps + 1, dtype=torch.int64,
+                                device=dev),
+                finished=torch.zeros(batch, dtype=torch.bool, device=dev),
+                step=torch.zeros(1, dtype=torch.int64, device=dev))
+
+    def body():
+        _decode_step(model, caches, bufs['tok'], bufs['out'],
+                     bufs['finished'], bufs['step'], S=base)
+
+    with torch.no_grad():
+        graph = GraphRunner(dev).capture(
+            'bench_decode', body, bufs,
+            [t for c in caches for t in c])
+
+    def rep():
+        bufs['step'].zero_()
+        graph.run(steps)
+
+    return graph, rep, bufs
 
 
 def bench_decode(torch, model, batch, label, card, quant=None,
@@ -1761,10 +1854,12 @@ def bench_decode(torch, model, batch, label, card, quant=None,
     """The JAX bench's decode measurement (bench.py:2739-2780): zero
     caches of `cache_len` positions, `steps` greedy single-token
     forwards per rep from cache index cache_len - steps - 2, one warm
-    rep, then `reps` timed reps. With kv_int8 the caches are int8 with
-    unit scales, as the JAX bench sets them (no prefill calibrates
-    them). Checks the exact launch counts of all reps; returns
-    (tokens/s, ms per forward, counts)."""
+    rep, then `reps` timed reps, each forward a replay of generate's
+    captured decode step (`decode_graph`, as the JAX bench jits its
+    scanned loop). With kv_int8 the caches are int8 with unit scales, as
+    the JAX bench sets them (no prefill calibrates them). Checks the
+    exact launch counts of all reps; returns (tokens/s, ms per forward,
+    counts)."""
     L = model.config.num_hidden_layers
     caches = model.init_cache(batch, cache_len, quantized=kv_int8)
     if kv_int8:
@@ -1772,22 +1867,16 @@ def bench_decode(torch, model, batch, label, card, quant=None,
             c.kscale.fill_(1.0)
             c.vscale.fill_(1.0)
     base = cache_len - steps - 2
-    tok = torch.zeros(batch, 1, dtype=torch.int64, device=model.device)
-
-    def rep(tok):
-        for i in range(steps):
-            logits, _ = model(tok, caches=caches, cache_index=base + i)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        return tok
+    graph, rep, bufs = decode_graph(torch, model, caches, batch, base, steps)
+    tok = bufs['tok']
 
     def run():
-        nonlocal tok
         with torch.no_grad():
-            tok = rep(tok)                         # warm
+            rep()                              # warm
             torch.cuda.synchronize()
             t = time.perf_counter()
             for _ in range(reps):
-                tok = rep(tok)
+                rep()
             torch.cuda.synchronize()
             return time.perf_counter() - t
 
@@ -1801,15 +1890,17 @@ def bench_decode(torch, model, batch, label, card, quant=None,
     ms = dt / (steps * reps) * 1e3
     print(f'decode {label}: {tps:.2f} tokens/s, {ms:.3f} ms per forward '
           f'(batch {batch}, {steps} steps x {reps} timed reps over a '
-          f'{cache_len}-position cache), peak memory '
+          f'{cache_len}-position cache, each a replay of the captured '
+          f'step, captured in {graph.capture_s:.3f} s, '
+          f'{graph.reserved_bytes} bytes reserved), peak memory '
           f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
           f'{ {k: v for k, v in counts.items() if v} } over {n_fwd} '
           f'forwards [{card}]', flush=True)
     if profile:
+        bufs['step'].zero_()
         with torch.no_grad():
-            profile_forward(torch, lambda: model(
-                tok, caches=caches, cache_index=cache_len - 2), label, card)
-    del caches
+            profile_forward(torch, lambda: graph.run(1), label, card)
+    del caches, graph
     return tps, ms, counts
 
 
@@ -1894,14 +1985,31 @@ def capture_logits(torch, model, fn):
     return out, torch.stack(rows)
 
 
+@contextlib.contextmanager
+def direct_steps():
+    """generate's decode step run directly, the eager reference, in place
+    of its captured graph (a runner off the card calls the body): Python
+    then runs every step, so forward hooks see every forward and the
+    plain versions, which read the device on the host, can run."""
+    from paddle_tpu_torch.inference.graphs import GraphRunner
+    from paddle_tpu_torch.models import generation
+
+    with mock.patch.object(generation, '_decode_graphs',
+                           lambda owner, model: generation.DecodeGraphs(
+                               GraphRunner('cpu'))):
+        yield
+
+
 def agreement_phase(torch, np, card, steps=16, f32_tol=1e-3, cfg=None,
                     width='Llama-7B', weights=True):
     """Kernels against plain versions on a float32 model at Llama-7B
     width (or `cfg`'s) with 2 layers: the logits of every forward of a
-    generate (prefill, then `steps` decode forwards) in five modes (three
-    without the quantized `weights`) must agree within `f32_tol`, with
-    equal tokens; and DecodeEngine (padded to its bucket) must be
-    token-equal to model.generate (unpadded). Returns the model."""
+    generate (prefill, then `steps` decode forwards, run directly:
+    `direct_steps`) in five modes (three without the quantized
+    `weights`) must agree within `f32_tol`, with equal tokens, and the
+    captured steps' tokens must equal the direct ones; and DecodeEngine
+    (padded to its bucket) must be token-equal to model.generate
+    (unpadded). Returns the model."""
     from paddle_tpu_torch.inference import DecodeEngine
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 
@@ -1933,14 +2041,20 @@ def agreement_phase(torch, np, card, steps=16, f32_tol=1e-3, cfg=None,
         def gen():
             return m.generate(max_new_tokens=n, **kw)
 
-        (toks, lk), counts = count_launches(
-            torch, lambda: capture_logits(torch, m, gen))
+        with direct_steps():
+            (toks, lk), counts = count_launches(
+                torch, lambda: capture_logits(torch, m, gen))
         expect_launches(counts, 2, n, steps, quant)
-        with plain_kernels():
+        with plain_kernels(), direct_steps():
             (ptoks, lp), pcounts = count_launches(
                 torch, lambda: capture_logits(torch, m, gen))
         if any(pcounts.values()):
             raise AssertionError(f'the plain run launched {pcounts}')
+        gtoks, gcounts = count_launches(torch, gen)
+        expect_launches(gcounts, 2, n, steps, quant)
+        if not torch.equal(gtoks, toks):
+            raise AssertionError(f'{label}: the captured steps\' tokens '
+                                 f'differ from the direct steps\'')
         err = (lk - lp).abs().max().item()
         print(f'agreement float32, {label}: {width} width, 2 layers, '
               f'{steps} decode steps: max |kernels - plain| logit {err:.6g}'
@@ -1957,7 +2071,8 @@ def agreement_phase(torch, np, card, steps=16, f32_tol=1e-3, cfg=None,
             from paddle_tpu_torch.ops.hopper import decode_attention as hd
 
             with mock.patch.object(hd, 'decode_attention',
-                                   hd.decode_attention_plain):
+                                   hd.decode_attention_plain), \
+                    direct_steps():
                 _, la = capture_logits(torch, m, gen)
             err = (lk - la).abs().max().item()
             print(f'agreement float32, {label}, K7 alone against its plain '
@@ -2616,7 +2731,7 @@ def swa_decode(torch, np, card, P=4608, N=32):
         torch, lambda: model.generate(ids, max_new_tokens=16))
     expect_launches(counts, 2, 16, 15)
     add_counts(total, counts)
-    with plain_kernels():
+    with plain_kernels(), direct_steps():
         ptoks = model.generate(ids, max_new_tokens=16)
     print(f'swa decode float32: Mistral-7B widths, 2 layers, window 512, '
           f'640-token prompt, 16 greedy tokens: kernels and plain versions '
@@ -2648,12 +2763,19 @@ def swa_decode(torch, np, card, P=4608, N=32):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
-    timed(2)                                     # warm
+    timed(N)                          # warm: captures the step
     (_, t1), _ = count_launches(torch, lambda: timed(1))
-    with mock.patch.object(ops, 'decode_attention', recording):
-        (out, tn), counts = count_launches(torch, lambda: timed(N))
+    (out, tn), counts = count_launches(torch, lambda: timed(N))
     expect_launches(counts, L, N, N - 1)
     add_counts(total, counts)
+    # the window starts K7 receives, recorded where Python runs every
+    # step: the direct steps, the captured step's eager reference
+    with mock.patch.object(ops, 'decode_attention', recording), \
+            direct_steps():
+        direct = model.generate(ids, max_new_tokens=N)
+    if not torch.equal(direct, out):
+        raise AssertionError('swa decode: the captured steps\' tokens '
+                             'differ from the direct steps\'')
     low = min(int(s.min()) for s in starts)
     step_ms = (tn - t1) / (N - 1) * 1e3
     print(f'swa decode bf16: Mistral-7B widths, {L} layers, window '
@@ -3443,7 +3565,7 @@ def spec_generate_b1(torch, np, model, drafts, card, total):
     N, k = 64, SPEC_K
     prompt = torch.from_numpy(np.random.default_rng(13).integers(
         3, V, (1, 512))).to(model.device)
-    model.generate(prompt, max_new_tokens=4)                 # warm
+    model.generate(prompt, max_new_tokens=N)   # warm: captures the step
     ref, t_ref = timed(torch, lambda: model.generate(prompt,
                                                      max_new_tokens=N))
     ref = ref[0, 512:].tolist()
@@ -3493,6 +3615,7 @@ def spec_generate_b8(torch, np, model, draft, card, total):
     N, k = 32, SPEC_K
     ids = torch.from_numpy(np.random.default_rng(14).integers(
         3, V, (8, 256))).to(model.device)
+    model.generate(ids, max_new_tokens=N)      # warm: captures the step
     ref, t_ref = timed(torch, lambda: model.generate(ids, max_new_tokens=N))
     eng = DecodeEngine(model, max_new_tokens=N)
     eng.generate_speculative(draft, ids[:, :64], max_new_tokens=4,
@@ -3969,7 +4092,7 @@ def moe_generate(torch, np, model, B, label, card, total, kv8=False):
     ids = torch.from_numpy(np.random.default_rng(B + 40).integers(
         3, cfg.vocab_size, (B, P))).to(model.device)
     kw = dict(kv_cache_int8=kv8)
-    model.generate(ids, max_new_tokens=2, **kw)            # warm
+    model.generate(ids, max_new_tokens=N, **kw)   # warm: captures the step
 
     def prefill():
         ts = []
@@ -4155,7 +4278,7 @@ def moe_full_phase(torch, np, card, total):
     eng = DecodeEngine(model, max_new_tokens=MOE_NEW)
     ids = torch.from_numpy(np.random.default_rng(48).integers(
         3, cfg.vocab_size, (8, MOE_PROMPT))).to(model.device)
-    eng.generate(ids, max_new_tokens=2)
+    eng.generate(ids)                             # warm: captures the step
     (out, dt), counts = count_launches(torch, lambda: timed(
         torch, lambda: eng.generate(ids)))
     moe_launches('moe (a) DecodeEngine b8', counts, L, MOE_NEW, MOE_NEW - 1)
@@ -4225,8 +4348,9 @@ def moe_mixtral_phase(torch, np, card, total):
 
 def moe_agreement(torch, np, card, total, steps=16, f32_tol=1e-3):
     """(c) float32 at (a)'s widths, 2 layers: the logits of every forward
-    of generate (b1, and a left-padded b3) through the kernels against
-    the plain versions within f32_tol, equal streams; the model as its
+    of generate (b1, and a left-padded b3; its steps run directly) through
+    the kernels against the plain versions within f32_tol, equal
+    streams, the captured steps' equal to the direct ones; the model as its
     own draft in generate_speculative and
     DecodeEngine.generate_speculative accepting every proposal, streams
     equal to generate's."""
@@ -4253,15 +4377,23 @@ def moe_agreement(torch, np, card, total, steps=16, f32_tol=1e-3):
         def gen():
             return model.generate(max_new_tokens=n, **kw)
 
-        (toks, lk), counts = count_launches(
-            torch, lambda: capture_logits(torch, model, gen))
+        with direct_steps():
+            (toks, lk), counts = count_launches(
+                torch, lambda: capture_logits(torch, model, gen))
         moe_launches(f'moe (c) {label}', counts, 2, n, steps)
         add_counts(total, counts)
-        with plain_kernels():
+        with plain_kernels(), direct_steps():
             (ptoks, lp), pcounts = count_launches(
                 torch, lambda: capture_logits(torch, model, gen))
         if any(pcounts.values()):
             raise AssertionError(f'the plain run launched {pcounts}')
+        gtoks, gcounts = count_launches(torch, gen)
+        moe_launches(f'moe (c) {label}, captured steps', gcounts, 2, n,
+                     steps)
+        add_counts(total, gcounts)
+        if not torch.equal(gtoks, toks):
+            raise AssertionError(f'moe (c) {label}: the captured steps\' '
+                                 f'tokens differ from the direct steps\'')
         err = (lk - lp).abs().max().item()
         print(f'moe (c) float32, {label}: MoEConfig() widths, 2 layers, '
               f'{steps} decode steps: max |kernels - plain| logit '
@@ -4309,6 +4441,251 @@ def moe_phase(torch, np, card):
     print(f'moe: phase took {time.perf_counter() - t_phase:.1f} s',
           flush=True)
     return {'moe': total}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the compiled decode window and decode step (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+# generate's geometries in phase 15: prompt length and new tokens
+GRAPH_PROMPT, GRAPH_NEW = 256, 32
+
+
+def clone_pools(pages):
+    return [type(pc)(*(f.clone() for f in pc)) for pc in pages]
+
+
+def window_variant(torch, np, engine, label, sampled, forced, card,
+                   reps=3):
+    """One captured window of `engine` (its live slots' state) against a
+    direct `_window` call on cloned pools and logits: tokens, last_logits
+    and every pool byte equal; then the ms per window of each, `reps`
+    more runs over the same inputs (each rewrites the same rows)."""
+    from paddle_tpu_torch.inference.serving import _window
+
+    live = np.asarray([r is not None and p is None for r, p in
+                       zip(engine._slot_req, engine._pfill)])
+    graph = engine._window_graph(sampled, forced)
+    inputs = engine._window_inputs(live, sampled, forced)
+    dev = engine.device
+    t = {k: (v.clone() if isinstance(v, torch.Tensor)
+             else torch.as_tensor(v, device=dev)) for k, v in inputs.items()}
+    pages = clone_pools(engine._pages)
+    sampling = (tuple(t[k] for k in ('temp', 'topk', 'topp', 'seed', 'plen'))
+                if sampled else None)
+    fkw = (dict(forced_tok=t['forced_tok'], forced=t['forced']) if forced
+           else {})
+
+    def direct():
+        with torch.no_grad():
+            return _window(engine.model, pages, t['last_logits'], t['btab'],
+                           t['ctx'], t['live'], t['budget'],
+                           window=engine.decode_window,
+                           eos_token_id=engine.eos_token_id,
+                           sampling=sampling, **fkw)[:2]
+
+    def replay():
+        graph.load(**inputs)
+        return graph.run()
+
+    toks_d, last_d = direct()
+    toks_g, last_g = replay()
+    same = (torch.equal(toks_d, toks_g) and torch.equal(last_d, last_g)
+            and all(torch.equal(a, b) for pa, pb in zip(pages, engine._pages)
+                    for a, b in zip(pa, pb)))
+    times = {}
+    for name, fn in (('direct', direct), ('replay', replay)):
+        _, dt = timed(torch, lambda: [fn() for _ in range(reps)])
+        times[name] = dt / reps * 1e3
+    print(f'graphs {label} window ({"sampled" if sampled else "greedy"}'
+          f'{", carried token" if forced else ""}): replay equal to the '
+          f'direct body on cloned state (tokens, last_logits, pools) '
+          f'{same}; {times["direct"]:.2f} ms per window direct, '
+          f'{times["replay"]:.2f} ms replayed ({engine.decode_window} '
+          f'forwards x {engine.max_slots} slots); captured in '
+          f'{graph.capture_s:.3f} s, {graph.reserved_bytes} bytes reserved '
+          f'[{card}]', flush=True)
+    if not same:
+        raise AssertionError(f'graphs {label}: the replayed window differs '
+                             f'from the direct body')
+    del pages
+
+
+def window_checks(torch, np, model, card, kv):
+    """Phase 4's engine settings at Llama-7B width over `kv` pools:
+    warmup (report, capture time and bytes per geometry), 4 requests (2
+    sampled) admitted and decoding, then every window variant against the
+    direct body (the carried-token one as a speculative engine's chunk
+    step runs it)."""
+    from paddle_tpu_torch.inference import ServingEngine
+
+    label = 'int8 pools' if kv else 'bf16 pools'
+    engine = ServingEngine(model, kv_cache_dtype=kv, **SERVE_KW)
+    report = engine.warmup()
+    g = engine.stats()['graphs']
+    print(f'graphs {label}: warmup {report}; per geometry capture '
+          f'{g["capture_s"]} s, reserved {g["reserved_bytes"]} bytes '
+          f'[{card}]', flush=True)
+    rng = np.random.default_rng(31)
+    for i, n in enumerate((96, 200, 333, 480)):
+        engine.submit(rng.integers(3, model.config.vocab_size, n),
+                      **(dict(temperature=0.8, top_p=0.95) if i % 2 else {}))
+    engine.step()                    # admissions and the first window
+    # the pages the next window writes, as a step tops them up first
+    engine._ensure_window_pages()
+    for sampled in (False, True):
+        window_variant(torch, np, engine, label, sampled, False, card)
+    for slot, req in enumerate(engine._slot_req):
+        if slot % 2 == 0:
+            req.spec_next = int(rng.integers(3, model.config.vocab_size))
+    window_variant(torch, np, engine, label, False, True, card)
+    for req in engine._slot_req:
+        req.spec_next = None
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def generate_checks(torch, np, model, B, label, card, P=GRAPH_PROMPT,
+                    N=GRAPH_NEW):
+    """generate at batch B through the captured steps against the direct
+    steps, greedy and sampled (the same seed): equal tokens, the ms per
+    decode forward of each ((the N-token call - a 1-token call) / (N -
+    1)), the capture time and the bytes reserved."""
+    from paddle_tpu_torch.models.generation import _decode_graphs
+
+    ids = torch.from_numpy(np.random.default_rng(B + 60).integers(
+        3, model.config.vocab_size, (B, P))).to(model.device)
+    _, t1 = timed(torch, lambda: model.generate(ids, max_new_tokens=1))
+    for mode, kw in (('greedy', {}),
+                     ('sampled', dict(temperature=0.8, top_k=50))):
+        runner = _decode_graphs(model, model).runner
+        n0 = runner.captures
+        model.generate(ids, max_new_tokens=N, rng_key=7, **kw)   # capture
+        graph = list(runner.entries.values())[-1]
+        got, t_g = timed(torch, lambda: model.generate(
+            ids, max_new_tokens=N, rng_key=7, **kw))
+        with direct_steps():
+            model.generate(ids, max_new_tokens=N, rng_key=7, **kw)  # warm
+            want, t_d = timed(torch, lambda: model.generate(
+                ids, max_new_tokens=N, rng_key=7, **kw))
+        same = bool(torch.equal(got, want))
+        print(f'graphs {label} b{B} {mode}: generate ({P}-token prompts, '
+              f'{N} new tokens) through the captured step equal to the '
+              f'direct steps {same}; {(t_d - t1) / (N - 1) * 1e3:.2f} ms '
+              f'per decode forward direct, {(t_g - t1) / (N - 1) * 1e3:.2f} '
+              f'ms replayed (prefill {t1 * 1e3:.1f} ms); '
+              f'{runner.captures - n0} capture in {graph.capture_s:.3f} s, '
+              f'{graph.reserved_bytes} bytes reserved [{card}]', flush=True)
+        if not same:
+            raise AssertionError(f'graphs {label} b{B} {mode}: captured '
+                                 f'and direct steps disagree')
+
+
+def graphs_profile(torch, np, card):
+    """The device-busy share of a direct and a replayed decode window
+    (phase 4's engine at Llama-7B width), generate's b8 decode step at
+    that width, and MoEConfig()'s b8 step, each one traced: run in a
+    fresh process (`--graphs-profile`), whose first profiler sessions
+    these are."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.serving import _window
+    from paddle_tpu_torch.models.generation import _decode_graphs
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
+
+    model = LlamaForCausalLM(dataclasses.replace(llama_7b(),
+                                                 dtype='bfloat16'), seed=0)
+    engine = ServingEngine(model, **SERVE_KW)
+    rng = np.random.default_rng(31)
+    for n in (96, 200, 333, 480):
+        engine.submit(rng.integers(3, model.config.vocab_size, n))
+    engine.step()
+    engine._ensure_window_pages()
+    live = np.asarray([r is not None for r in engine._slot_req])
+    graph = engine._window_graph(False)
+    inputs = engine._window_inputs(live, False)
+    t = {k: (v.clone() if isinstance(v, torch.Tensor)
+             else torch.as_tensor(v, device=engine.device))
+         for k, v in inputs.items()}
+    with torch.no_grad():
+        profile_forward(torch, lambda: _window(
+            model, engine._pages, t['last_logits'], t['btab'], t['ctx'],
+            t['live'], t['budget'], window=engine.decode_window,
+            eos_token_id=None), 'window direct', card, phase='graphs',
+            what='one window')
+    graph.load(**inputs)
+    rows = profile_forward(torch, graph.run, 'window replayed', card,
+                           phase='graphs', what='one window')
+    check_replay_trace(rows, graph, 1, 'window replayed')
+    del engine, graph
+
+    def step_profiles(m, label, P, n=8):
+        ids = torch.from_numpy(np.random.default_rng(68).integers(
+            3, m.config.vocab_size, (8, P))).to(m.device)
+        m.generate(ids, max_new_tokens=GRAPH_NEW)
+        g = list(_decode_graphs(m, m).runner.entries.values())[-1]
+        g.static['step'].zero_()
+        with torch.no_grad():
+            profile_forward(torch, lambda: [g.body() for _ in range(n)],
+                            f'{label} step direct', card, phase='graphs',
+                            what=f'{n} decode steps')
+        g.static['step'].zero_()
+        rows = profile_forward(torch, lambda: g.run(n),
+                               f'{label} step replayed', card,
+                               phase='graphs', what=f'{n} decode steps')
+        check_replay_trace(rows, g, n, f'{label} step replayed')
+
+    step_profiles(model, 'generate b8', GRAPH_PROMPT)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_profiles(MoEForCausalLM(MoEConfig(), seed=0, dtype='bfloat16'),
+                  'moe b8', MOE_PROMPT)
+
+
+def graphs_phase(torch, np, card):
+    """Phase 15: the decode window and the decode step replayed as CUDA
+    graphs against their direct bodies at Llama-7B width (phase 4's
+    engine over bf16 and int8 pools; generate b1 and b8) and at
+    MoEConfig() (generate b8), then the busy shares from a fresh
+    process. Returns the launch counts of its runs."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+    from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
+
+    t_phase = time.perf_counter()
+    model = LlamaForCausalLM(dataclasses.replace(llama_7b(),
+                                                 dtype='bfloat16'), seed=0)
+
+    def checks():
+        for kv in (None, 'int8'):
+            window_checks(torch, np, model, card, kv)
+        for B in (1, 8):
+            generate_checks(torch, np, model, B, 'Llama-7B', card)
+
+    _, counts = count_launches(torch, checks)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = MoEForCausalLM(MoEConfig(), seed=0, dtype='bfloat16')
+    _, moe_counts = count_launches(torch, lambda: generate_checks(
+        torch, np, moe, 8, 'MoEConfig()', card, P=MOE_PROMPT, N=MOE_NEW))
+    add_counts(counts, moe_counts)
+    del moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    prof = subprocess.run([sys.executable, __file__, '--graphs-profile',
+                           card], capture_output=True, text=True,
+                          timeout=600)
+    print(prof.stdout, end='', flush=True)
+    if prof.returncode:
+        print(prof.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f'graphs: the profile process failed '
+                             f'({prof.returncode})')
+    print(f'graphs: profile process {time.perf_counter() - t:.1f} s; phase '
+          f'took {time.perf_counter() - t_phase:.1f} s', flush=True)
+    return {'graphs': counts}
 
 
 def main():
@@ -4592,6 +4969,11 @@ def main():
 
         # 13. speculative decoding: generate, DecodeEngine, ServingEngine
         spec_launches = spec_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 15. the compiled decode window and step against their bodies
+        graph_launches = graphs_phase(torch, np, card)
 
         records = []
         for name, src, rep in (
@@ -4634,7 +5016,7 @@ def main():
                        'fused': fused_launches.get(name, 0),
                        'train': train_launches[name]}
             for paths in (swa_launches, qwen2_launches, prefix_launches,
-                          spec_launches, moe_launches_):
+                          spec_launches, moe_launches_, graph_launches):
                 by_path.update((path, counts.get(name, 0))
                                for path, counts in paths.items())
             records.append({
@@ -4691,5 +5073,20 @@ def main():
         'count': torch.cuda.device_count()}}), flush=True)
 
 
+def profile_main(card):
+    """`chip_smoke.py --graphs-profile CARD`: phase 15's traces in a
+    process of their own (the parent has built the kernels)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is false')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graphs_profile(torch, np, card)
+
+
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--graphs-profile']:
+        profile_main(sys.argv[2])
+    else:
+        main()

@@ -252,7 +252,8 @@ def block_multihead_attention(
     [quant_min_bound, quant_max_bound]). Returns (out, qkv, key_cache,
     value_cache). Mixed prefill + decode in one call, dynamic cache
     quantization and the reference CUDA pipeline's knobs raise, as in
-    the JAX package."""
+    the JAX package. Both phases run eagerly (a captured decode phase is
+    ROADMAP A9b)."""
     for name, v_ in (('qkv_out_scale', qkv_out_scale),
                      ('out_shift', out_shift), ('out_smooth', out_smooth),
                      ('pre_key_cache', pre_key_cache),
@@ -553,7 +554,8 @@ def fused_multi_transformer_decode_step(
     """One `time_step` decode step of `fused_multi_transformer`, with no
     gradient: every layer's (2, B, H, max_seq, D) cache is updated in
     place (PyTorch's counterpart of the JAX step's donated caches).
-    Returns (x_out, cache_kvs)."""
+    Returns (x_out, cache_kvs). Runs eagerly: capturing it as a CUDA
+    graph is ROADMAP A9b."""
     return fused_multi_transformer(
         x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights,
         linear_biases, ffn_ln_scales, ffn_ln_biases, ffn1_weights,

@@ -10,6 +10,7 @@ excluded by a per-row window start, `kv_start`).
 from __future__ import annotations
 
 import inspect
+import time
 
 import numpy as np
 import torch
@@ -45,10 +46,13 @@ class DecodeEngine:
     decoded by `model.generate` with the left-padded attention mask: pad
     rows get position 0 and lie before each row's window start
     `Sb - S`, so they are never attended, at prefill or after, and the
-    tokens equal an unpadded `model.generate`'s. The JAX engine's
-    compile cache, trace counters, AOT export and persistent cache
-    manage `jax.jit` and have no counterpart here (the port runs
-    eagerly).
+    tokens equal an unpadded `model.generate`'s. The decode step of
+    each geometry (batch, bucket, max_new_tokens) is a CUDA graph that
+    the engine captures at first use and replays, over caches it keeps:
+    `warmup` captures the declared geometries before the first call and
+    keeps them until `release()`; of the others it keeps the last. The JAX
+    engine's compile cache, trace counters, StableHLO export and
+    persistent cache manage `jax.jit` and have no counterpart here.
 
     `generate_speculative` is greedy speculative decoding with a draft
     model (see `models.generation.generate_speculative`): its prompts
@@ -94,11 +98,64 @@ class DecodeEngine:
                              'max_new_tokens': self.max_new_tokens,
                              'buckets': self.buckets}}
 
+    @torch.no_grad()
+    def warmup(self, artifact=None, geometries=None):
+        """Capture the decode step of every declared `decode` geometry
+        (batch, prompt_len, max_new_tokens; `graphs.for_decode_engine`
+        enumerates them) by one generate call over zero ids each, before
+        the first request; these calls are not counted in `stats()`.
+        The engine keeps the warmed geometries' graphs and caches until
+        `release()`, and besides them those of the last other geometry
+        it decoded. Returns the JAX package's report (`traces`: the
+        graphs captured now). `artifact=` raises NotImplementedError (a
+        CUDA graph cannot be persisted), and so does the `decode_spec`
+        kind (speculative decoding runs eagerly, ROADMAP A9b)."""
+        from ..models.generation import _decode_graphs
+        from .graphs import geometry_parts, warmup_report
+
+        if artifact is not None:
+            raise NotImplementedError(
+                'warmup(artifact=): a CUDA graph cannot be persisted; '
+                'pass geometries= to capture them in this process')
+        if geometries is None:
+            raise ValueError('warmup needs geometries=... (see '
+                             'inference.graphs.for_decode_engine)')
+        geometries = list(geometries)
+        store = _decode_graphs(self, self.model)
+        n0 = store.runner.captures
+        counts = dict(self._forwards)
+        t0 = time.perf_counter()
+        with store.pinning():
+            for g in geometries:
+                kind, p = geometry_parts(g)
+                if kind == 'decode_spec':
+                    raise NotImplementedError(
+                        'speculative decoding runs eagerly (ROADMAP A9b): '
+                        'no decode_spec geometry to capture')
+                if kind != 'decode':
+                    raise ValueError(f'DecodeEngine geometries are of kind '
+                                     f'decode, got {kind!r}')
+                ids = torch.zeros((int(p['batch']), int(p['prompt_len'])),
+                                  dtype=torch.int64, device=self.model.device)
+                self.generate(ids, max_new_tokens=int(p['max_new_tokens']))
+        self._forwards = counts
+        return warmup_report(len(geometries), time.perf_counter() - t0,
+                             store.runner.captures - n0)
+
+    def release(self):
+        """Free the captured decode steps and the caches this engine
+        keeps."""
+        from ..models.generation import release_decode_graphs
+
+        release_decode_graphs(self)
+
     def generate(self, input_ids, max_new_tokens=None, rng_key=None):
         """Decode `max_new_tokens` (the engine's by default) after each
         prompt row. Returns (B, S + max_new_tokens) ids: the ORIGINAL
         prompt, not the padded one, then the new tokens. `rng_key` is a
         torch.Generator or an int seed (None: seed 0)."""
+        from ..models.generation import _generate
+
         model = self.model
         ids = torch.as_tensor(input_ids, device=model.device)
         B, S = ids.shape
@@ -117,10 +174,9 @@ class DecodeEngine:
             padded = torch.cat([ids.new_zeros(B, pad), ids], dim=1)
             mask = (torch.arange(Sb, device=ids.device) >= pad).to(
                 torch.int32).expand(B, Sb)
-        out = model.generate(
-            padded, max_new_tokens=mnt, temperature=self.temperature,
-            top_k=self.top_k, top_p=self.top_p, rng_key=rng_key,
-            eos_token_id=self.eos_token_id, attention_mask=mask)
+        out = _generate(model, self, padded, mnt, self.temperature,
+                        self.top_k, self.top_p, rng_key, self.eos_token_id,
+                        1, mask, False)
         self._forwards['prefill'] += 1
         self._forwards['decode'] += max(mnt - 1, 0)
         return torch.cat([ids, out[:, Sb:]], dim=1)

@@ -78,14 +78,27 @@
      chunk step's plain window committed catch the draft's pages up
      before the next speculative window.
 
+  9. The compiled decode window: `_window` is captured as a CUDA graph
+     once per geometry (greedy or sampled, with or without the carried
+     token of a speculative engine; the slots, window, table width,
+     eos and pool dtype are the engine's) and replayed over the pools it
+     captured (`inference/graphs.py`); each window uploads its per-slot
+     state into the graph's buffers and copies the carried logits out
+     into the engine's own buffer. A first use mid-serving, or
+     `warmup()` before the first request, captures over an all-frozen
+     dummy batch on the scratch page, so it touches no live page. The
+     speculative window, the admission prefills, the chunk forwards
+     and the draft's catch-up run eagerly (ROADMAP A9b).
+
 Per request, `result(rid)` is what the JAX engine returns: the prompt,
 then `max_new_tokens` tokens, padded with eos after an early stop.
 Deadlines, load shedding, snapshot/restore, tensor parallelism,
-telemetry, the fault seams and AOT are not ported yet: their arguments
-and methods raise NotImplementedError.
+telemetry, the fault seams and persisted AOT artifacts are not ported
+yet: their arguments and methods raise NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import heapq
 import inspect
@@ -98,6 +111,7 @@ import torch
 from ..models.generation import (QuantPagedKVCache, RowQuantKVCache,
                                  filter_logits_batched)
 from .engine import DEFAULT_BUCKETS, bucket_length
+from .graphs import Geometry, GraphRunner, geometry_parts, warmup_report
 
 
 class OutOfBlocks(RuntimeError):
@@ -686,6 +700,31 @@ def _window(model, pages, last_logits, btab, ctx, live, budget, *, window,
     return torch.stack(toks, 1), last_logits, pages
 
 
+def _pool_tensors(pages):
+    """Every tensor of the page pools (each layer's fields)."""
+    return [f for pc in pages for f in pc]
+
+
+def _window_body(model, pages, static, *, window, eos_token_id):
+    """`_window` over a captured window's static buffers: the sampling
+    vectors when the geometry samples, the carried token when it has
+    one. Returns (tokens (SLOTS, window), last_logits)."""
+    sampling = None
+    if 'temp' in static:
+        sampling = tuple(static[k] for k in ('temp', 'topk', 'topp', 'seed',
+                                             'plen'))
+    forced = {}
+    if 'forced' in static:
+        forced = dict(forced_tok=static['forced_tok'],
+                      forced=static['forced'])
+    toks, last, _ = _window(model, pages, static['last_logits'],
+                            static['btab'], static['ctx'], static['live'],
+                            static['budget'], window=window,
+                            eos_token_id=eos_token_id, sampling=sampling,
+                            **forced)
+    return toks, last
+
+
 def _spec_accept(drafts, pd, tlg, sampling, gen0):
     """The per-row commit rule of a speculative window over its verify
     logits tlg (K, k + 1, V) float32 and proposals drafts (K, k): greedy
@@ -753,7 +792,8 @@ def _spec_window(target, draft, pages, dpages, last_logits, forced_tok,
     Returns (candidates (K, k + 1), commit counts (K,), next tokens
     (K,), last_logits, pages, dpages): a row's committed tokens are its
     first commit-count candidates; its next token is the one the host
-    carries on the request."""
+    carries on the request. It runs eagerly (its gathered verify cache
+    per context bucket: capturing it is ROADMAP A9b)."""
     K = last_logits.shape[0]
     gen0 = None
     if sampling is None:
@@ -925,9 +965,13 @@ class ServingEngine:
         # both. The draft's logits are never kept.
         self._dpages = (None if draft is None else draft.init_paged_cache(
             num_blocks, self.block_size, dtype=self.kv_cache_dtype))
+        # the carried next-token logits: engine-owned, written in place
+        # (prefill and chunk rows, the window's output copied in)
         self._last_logits = torch.zeros(
             (self.max_slots, model.config.vocab_size),
             dtype=model.cache_dtype(), device=self.device)
+        # the captured decode windows, one per geometry
+        self._graphs = GraphRunner(self.device, modules=[model])
         # one page across every layer and every pool field (an int8
         # pool's scale rows included), the draft's pools' too
         self.allocator.bytes_per_page = sum(
@@ -1028,6 +1072,7 @@ class ServingEngine:
                      'verify_forwards': self.verify_forwards,
                      'draft_forwards': dict(self.draft_forwards)},
             'blocks': self.allocator.stats(),
+            'graphs': self._graphs.stats(),
         }
 
     # -- public API --------------------------------------------------------
@@ -1116,9 +1161,109 @@ class ServingEngine:
 
     restore = snapshot
 
-    def warmup(self, *args, **kwargs):
-        raise NotImplementedError('AOT warm-up is not ported yet (the port '
-                                  'runs eagerly)')
+    def geometries(self):
+        """The window geometries this engine's config implies: one
+        `serve_window` (the JAX package's kind), captured in every
+        sampling and carry variant by `warmup`."""
+        return [Geometry('serve_window', window=self.decode_window)]
+
+    @torch.no_grad()
+    def warmup(self, artifact=None, geometries=None):
+        """Capture every decode-window geometry (default: `geometries()`)
+        before the first request: greedy and sampled, and on a
+        speculative engine with the carried token. Returns the JAX
+        package's report (`traces`: the graphs captured now). Raises
+        RuntimeError while requests are in flight, as the JAX engine
+        does, and NotImplementedError for `artifact=` (a CUDA graph
+        cannot be persisted) and for the kinds the port runs eagerly.
+        A geometry not warmed is captured at its first window."""
+        if artifact is not None:
+            raise NotImplementedError(
+                'warmup(artifact=): a CUDA graph cannot be persisted; '
+                'warmup() captures the geometries in this process')
+        if self.in_flight():
+            raise RuntimeError(
+                f'cannot warm a ServingEngine with {self.in_flight()} '
+                f'request(s) in flight: drain the batch (run()) before '
+                f'warmup')
+        geometries = list(self.geometries() if geometries is None
+                          else geometries)
+        t0 = time.perf_counter()
+        n0 = self._graphs.captures
+        for g in geometries:
+            kind, params = geometry_parts(g)
+            if kind != 'serve_window':
+                raise NotImplementedError(
+                    f'geometry kind {kind!r}: the port captures the decode '
+                    f'window (serve_window); prefills, chunk steps and '
+                    f'speculative windows run eagerly (ROADMAP A9b)')
+            if int(params.get('window', self.decode_window)) \
+                    != self.decode_window:
+                raise ValueError(
+                    f'geometry {params} was enumerated for another '
+                    f'decode_window; the engine has {self.decode_window}')
+            for sampled in (False, True):
+                self._window_graph(sampled)
+        return warmup_report(len(geometries), time.perf_counter() - t0,
+                             self._graphs.captures - n0)
+
+    def _window_inputs(self, live, sampled, forced=None):
+        """A window's inputs from the host state: the carried logits,
+        the slots' tables and committed lengths (rows not `live` frozen
+        on the scratch page at 0), budgets, and the sampling vectors
+        when it samples; on a speculative engine (or `forced`) the
+        carried tokens, which the window commits first."""
+        inputs = dict(last_logits=self._last_logits,
+                      btab=np.where(live[:, None], self._btab, 0),
+                      ctx=np.where(live, self._ctx, 0), live=live,
+                      budget=self._budget)
+        if sampled:
+            inputs.update(temp=self._temp, topk=self._topk, topp=self._topp,
+                          seed=self._seed, plen=self._plen)
+        if forced is None:
+            forced = self.draft is not None
+        if forced:
+            inputs.update(zip(('forced_tok', 'forced'),
+                              self._forced_state()))
+        return inputs
+
+    def _window_graph(self, sampled, forced=None):
+        """The captured decode window of `sampled` (else greedy), with
+        the carried token when `forced` (default: on a speculative
+        engine, whose chunk steps run this window), captured now when it
+        is not yet, over an all-frozen dummy batch: every row not live
+        with its table on the scratch page, so the eager run before the
+        capture writes page 0 alone."""
+        forced = self.draft is not None if forced is None else bool(forced)
+        key = ('serve_window', bool(sampled), forced)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph
+        S, dev = self.max_slots, self.device
+
+        def z(*shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        static = dict(last_logits=torch.zeros_like(self._last_logits),
+                      btab=z(S, self.max_blocks_per_seq, dtype=torch.int32),
+                      ctx=z(S, dtype=torch.int32),
+                      live=z(S, dtype=torch.bool),
+                      budget=z(S, dtype=torch.int32))
+        if sampled:
+            static.update(temp=z(S, dtype=torch.float32),
+                          topk=z(S, dtype=torch.int64),
+                          topp=torch.ones(S, device=dev),
+                          seed=z(S, dtype=torch.int64),
+                          plen=z(S, dtype=torch.int64))
+        if forced:
+            static.update(forced_tok=z(S, dtype=torch.int64),
+                          forced=z(S, dtype=torch.bool))
+        pages = list(self._pages)
+        body = functools.partial(
+            _window_body, self.model, pages, static,
+            window=self.decode_window, eos_token_id=self.eos_token_id)
+        return self._graphs.capture(key, body, static,
+                                    _pool_tensors(pages))
 
     @torch.no_grad()
     def step(self):
@@ -1166,32 +1311,26 @@ class ServingEngine:
         if chunk_rows:
             self._chunk_group(chunk_rows)
         W = self.decode_window
-        dev = self.device
+        # slots mid prefill ride the window frozen on the scratch page
         live = np.asarray([r is not None and p is None
                            for r, p in zip(self._slot_req, self._pfill)])
-        # slots mid prefill ride the window frozen on the scratch page
-        btab = np.where(live[:, None], self._btab, 0)
-        ctx = np.where(live, self._ctx, 0)
-        sampling = None
-        if (self._temp[live] > 0).any():
-            sampling = tuple(torch.as_tensor(a, device=dev) for a in (
-                self._temp, self._topk, self._topp, self._seed, self._plen))
-        args = (torch.as_tensor(btab, device=dev),
-                torch.as_tensor(ctx, device=dev),
-                torch.as_tensor(live, device=dev),
-                torch.as_tensor(self._budget, device=dev))
+        sampled = bool((self._temp[live] > 0).any())
         if self.draft is not None and not chunk_rows:
-            return self._spec_step(live, int(ctx.max()), args, sampling)
-        forced = {}
-        if self.draft is not None:
-            # decoding rows carry the verify's next token: this plain
-            # window (a chunk step's) commits it first
-            forced = dict(zip(('forced_tok', 'forced'),
-                              self._forced_state()))
-        toks, self._last_logits, self._pages = _window(
-            self.model, self._pages, self._last_logits, *args,
-            window=W, eos_token_id=self.eos_token_id, sampling=sampling,
-            **forced)
+            inputs = {k: torch.as_tensor(v, device=self.device) for k, v in
+                      self._window_inputs(live, sampled, False).items()}
+            sampling = (tuple(inputs[k] for k in ('temp', 'topk', 'topp',
+                                                  'seed', 'plen'))
+                        if sampled else None)
+            args = tuple(inputs[k] for k in ('btab', 'ctx', 'live', 'budget'))
+            return self._spec_step(live, int(np.where(live, self._ctx,
+                                                      0).max()), args,
+                                   sampling)
+        graph = self._window_graph(sampled)
+        graph.check_state(_pool_tensors(self._pages))
+        graph.load(**self._window_inputs(live, sampled))
+        toks, last = graph.run()
+        # the graph's outputs are overwritten by its next replay
+        self._last_logits.copy_(last)
         self.decode_forwards += W
         tokens = toks.cpu().numpy()        # the one host read per window
         finished = []
@@ -1221,13 +1360,15 @@ class ServingEngine:
         catchup = self._draft_catchup_rows()
         if catchup:
             self._draft_advance(catchup)
-        ftok, forced = self._forced_state()
-        cand, nc, nxt, self._last_logits, self._pages, self._dpages = \
+        ftok, forced = (torch.as_tensor(a, device=self.device)
+                        for a in self._forced_state())
+        cand, nc, nxt, last, self._pages, self._dpages = \
             _spec_window(self.model, self.draft, self._pages, self._dpages,
                          self._last_logits, ftok, forced, *args, k=k,
                          ctx_bucket=bucket_length(max_ctx + k + 1,
                                                   self.buckets),
                          eos_token_id=self.eos_token_id, sampling=sampling)
+        self._last_logits.copy_(last)
         self.verify_forwards += 1
         self.draft_forwards['decode'] += k + 1
         self.spec_counts['windows'] += 1
@@ -1486,15 +1627,14 @@ class ServingEngine:
             self._dctx[slot] = p + take
 
     def _forced_state(self):
-        """(forced_tok, forced) (SLOTS,) device tensors: the slots whose
+        """(forced_tok, forced) (SLOTS,) host arrays: the slots whose
         request carries a speculative window's next token, and it."""
         forced = np.zeros((self.max_slots,), bool)
         ftok = np.zeros((self.max_slots,), np.int64)
         for s, r in enumerate(self._slot_req):
             if r is not None and r.spec_next is not None:
                 forced[s], ftok[s] = True, r.spec_next
-        return (torch.as_tensor(ftok, device=self.device),
-                torch.as_tensor(forced, device=self.device))
+        return ftok, forced
 
     def _register_prefix_pages(self, slot, req, lo, hi):
         """Index every full prompt page whose KV the forward over

@@ -7,19 +7,35 @@ calibrated scales) into the given tensors and returns the same tensors,
 so a Llama-7B-width cache is never copied.
 
 `GenerationMixin.generate` is the JAX package's greedy / sampled decode
-written as a Python loop under `torch.no_grad()`: prefill once over a
-preallocated contiguous cache, then one single-token forward per new
-token (the decode-attention kernel K7 on the card). Its random stream
-comes from a `torch.Generator`: the same seed gives the same tokens
-within the port, never the JAX package's threefry stream.
+under `torch.no_grad()`: prefill once over a contiguous cache, then one
+single-token forward per new token (the decode-attention kernel K7 on
+the card). The per-token step (`_decode_step`) runs at a device
+position, with the output column, the finished mask and the step count
+advanced on the device: it is captured once per geometry as a CUDA graph
+and replayed (`inference/graphs.py`), and the host reads the tokens
+once, at the end. The geometry's caches belong to its captured step, so
+the prefill writes them in place, and they outlive the call: a model
+keeps those of the last geometry it decoded, a DecodeEngine those of
+the geometries it warmed and of the last one it decoded besides
+(`DecodeGraphs`), until `release_graphs()` / `release()`. Its random
+stream comes from a
+`torch.Generator`: the same seed gives the same tokens within the port,
+never the JAX package's threefry stream.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import inspect
 import typing
+import weakref
 
 import numpy as np
 import torch
+
+# generate's captured decode steps, one `DecodeGraphs` per owner: a
+# model (its own generate calls) or a DecodeEngine
+_DECODE_GRAPHS = weakref.WeakKeyDictionary()
 
 
 def filter_logits(logits, top_k=0, top_p=1.0):
@@ -176,7 +192,17 @@ def sample_tokens(logits, temperature, top_k, top_p, generator):
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(
         filter_logits(logits.float() / temperature, top_k, top_p), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return _draw(probs, generator)
+
+
+def _draw(probs, generator):
+    """One draw per row of (B, V) probabilities: argmax(probs / q) over
+    q ~ Exponential(1), the draw `torch.multinomial(probs, 1)` makes
+    (its one-sample path), the same generator state consumed, without
+    its host-side checks of the distribution (a captured step cannot
+    read the device)."""
+    q = torch.empty_like(probs).exponential_(1, generator=generator)
+    return (probs / q).argmax(-1)
 
 
 class GenerationMixin:
@@ -275,45 +301,33 @@ class GenerationMixin:
         length: positions count each row's real tokens and pad rows are
         never attended. kv_cache_int8=True decodes over an int8 cache
         (`QuantKVCache`) whose scales calibrate on the prompt, so the
-        prompt needs two tokens or more."""
-        ids = torch.as_tensor(input_ids, device=self.device)
-        if attention_mask is not None:
-            attention_mask = torch.as_tensor(attention_mask,
-                                             device=self.device)
-            # an all-ones mask (equal-length batches) is no mask
-            if bool(attention_mask.all()):
-                attention_mask = None
-        if attention_mask is not None:
-            if 'kvalid' not in inspect.signature(self.forward).parameters:
-                raise NotImplementedError(
-                    f'{type(self).__name__} does not support attention_mask '
-                    f'generation (cached forward lacks positions/kvalid)')
-        if num_beams > 1:
-            raise NotImplementedError(
-                'beam search (num_beams > 1) is not ported yet (ROADMAP B1)')
-        was_training = self.training
-        self.eval()
-        try:
-            with torch.no_grad():
-                return self._generate_sample(
-                    ids, max_new_tokens, temperature, top_k, top_p, rng_key,
-                    eos_token_id, attention_mask, kv_cache_int8)
-        finally:
-            self.train(was_training)
+        prompt needs two tokens or more. The model keeps the captured
+        decode step and the caches of the last geometry it decoded
+        (`DecodeGraphs`) until another geometry or `release_graphs`."""
+        return _generate(self, self, input_ids, max_new_tokens, temperature,
+                         top_k, top_p, rng_key, eos_token_id, num_beams,
+                         attention_mask, kv_cache_int8)
+
+    def release_graphs(self):
+        """Free the captured decode steps and the caches that this
+        model's generate keeps (its `DecodeGraphs`)."""
+        release_decode_graphs(self)
 
     def _generate_sample(self, input_ids, max_new_tokens, temperature, top_k,
                          top_p, rng_key, eos_token_id, attention_mask,
-                         kv_cache_int8):
+                         kv_cache_int8, graphs):
         B, S = input_ids.shape
         if kv_cache_int8 and S < 2:
             raise ValueError(
                 'kv_cache_int8 needs a multi-token prompt: the per-head '
                 'scales calibrate on the prefill rows')
+        if 'kv_write_pos' not in inspect.signature(self.forward).parameters:
+            raise NotImplementedError(
+                f'{type(self).__name__} lacks kv_write_pos in its cached '
+                f'forward: the decode step writes at a device position')
         dev = input_ids.device
-        caches = self.init_cache(B, S + max_new_tokens,
-                                 quantized=kv_cache_int8)
         gen = _generator(rng_key, dev)
-        extra = {}
+        extra, mask = {}, 'none'
         if attention_mask is not None:
             am = attention_mask.to(torch.int32)
             # pad rows clip to position 0; they are masked out anyway
@@ -323,6 +337,7 @@ class GenerationMixin:
                 [am, torch.ones(B, max_new_tokens, dtype=torch.int32,
                                 device=dev)], dim=1)
             extra = dict(positions=prompt_pos, kvalid=kvalid)
+            mask = 'masked'
             # a left-padded mask is the window [S - real_len, now]: with
             # kv_start the decode steps keep the decode-attention kernel.
             # A right-padded or holed mask keeps the masked path.
@@ -333,36 +348,250 @@ class GenerationMixin:
             if (left_contig and 'kv_start'
                     in inspect.signature(self.forward).parameters):
                 extra['kv_start'] = (S - real_len).to(torch.int32)
+                mask = 'kv_start'
+        sampling = dict(temperature=float(temperature), top_k=int(top_k),
+                        top_p=float(top_p), eos_token_id=eos_token_id)
+        if max_new_tokens <= 1:
+            # no decode step: a throwaway cache for the prefill alone
+            bufs = _decode_buffers(self, B, S, max_new_tokens,
+                                   kv_cache_int8)
+            _decode_start(self, bufs, input_ids, extra, gen, **sampling)
+            return torch.cat([input_ids,
+                              bufs['out'].to(input_ids.dtype)], dim=1)
+        graph = graphs.graph(self, B, S, max_new_tokens, kv_cache_int8,
+                             mask, sampling)
+        bufs = graph.static
+        for t in _cache_tensors(bufs['caches']):
+            t.zero_()          # the geometry's caches, as a fresh call's
+        _decode_start(self, bufs, input_ids, extra, gen, **sampling)
+        if graph.generator is not None:
+            graph.generator.set_state(gen.get_state())
+        graph.run(max_new_tokens - 1)
+        if graph.generator is not None:
+            gen.set_state(graph.generator.get_state())
+        return torch.cat([input_ids, bufs['out'].to(input_ids.dtype)], dim=1)
 
-        logits, caches = self(input_ids, caches=caches, cache_index=0,
-                              **extra)
-        last = logits[:, -1, :]
-        out = torch.empty(B, max_new_tokens, dtype=input_ids.dtype,
-                          device=dev)
-        finished = torch.zeros(B, dtype=torch.bool, device=dev)
-        for i in range(max_new_tokens):
-            tok = sample_tokens(last, temperature, top_k, top_p,
-                                gen).to(input_ids.dtype)
-            if eos_token_id is not None:
-                # finished rows emit eos from then on
-                tok = torch.where(finished, torch.full_like(
-                    tok, eos_token_id), tok)
-                finished = finished | (tok == eos_token_id)
-            out[:, i] = tok
-            if i == max_new_tokens - 1:
-                break                      # the last token needs no forward
-            step_extra = {}
-            if attention_mask is not None:
-                # rope position = real tokens so far; the cache index
-                # stays uniform
-                step_extra = dict(positions=(real_len + i)[:, None],
-                                  kvalid=kvalid)
-                if 'kv_start' in extra:
-                    step_extra['kv_start'] = extra['kv_start']
-            logits, caches = self(tok[:, None], caches=caches,
-                                  cache_index=S + i, **step_extra)
-            last = logits[:, -1, :]
-        return torch.cat([input_ids, out], dim=1)
+
+def _generate(model, owner, input_ids, max_new_tokens, temperature, top_k,
+              top_p, rng_key, eos_token_id, num_beams, attention_mask,
+              kv_cache_int8):
+    """`GenerationMixin.generate` of `model`, its decode steps captured
+    in the `DecodeGraphs` of `owner` (the model itself, or the
+    DecodeEngine that calls it)."""
+    ids = torch.as_tensor(input_ids, device=model.device)
+    if attention_mask is not None:
+        attention_mask = torch.as_tensor(attention_mask, device=model.device)
+        # an all-ones mask (equal-length batches) is no mask
+        if bool(attention_mask.all()):
+            attention_mask = None
+    if attention_mask is not None:
+        if 'kvalid' not in inspect.signature(model.forward).parameters:
+            raise NotImplementedError(
+                f'{type(model).__name__} does not support attention_mask '
+                f'generation (cached forward lacks positions/kvalid)')
+    if num_beams > 1:
+        raise NotImplementedError(
+            'beam search (num_beams > 1) is not ported yet (ROADMAP B1)')
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return model._generate_sample(
+                ids, max_new_tokens, temperature, top_k, top_p, rng_key,
+                eos_token_id, attention_mask, kv_cache_int8,
+                _decode_graphs(owner, model))
+    finally:
+        model.train(was_training)
+
+
+def _cache_tensors(caches):
+    return [t for c in caches for t in c]
+
+
+def _decode_buffers(model, B, S, max_new_tokens, kv_cache_int8):
+    """The buffers of one generate geometry: contiguous caches of S +
+    max_new_tokens positions, the last chosen tokens `tok` (B,), the
+    output `out` (B, max_new_tokens), the `finished` mask, the `step`
+    count (1,) (the column of `tok` in `out`) and, for calls with an
+    attention mask, each row's real length, its attendable rows `kvalid`
+    and (left-padded) its window start `kv_start`. All zeros: a step may
+    run on them as they are."""
+    dev = model.device
+
+    def z(*shape, dtype=torch.int64):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return dict(caches=model.init_cache(B, S + max_new_tokens,
+                                        quantized=kv_cache_int8),
+                tok=z(B), out=z(B, max_new_tokens),
+                finished=z(B, dtype=torch.bool), step=z(1),
+                real_len=z(B, dtype=torch.int32),
+                kvalid=z(B, S + max_new_tokens, dtype=torch.int32),
+                kv_start=z(B, dtype=torch.int32))
+
+
+def _decode_start(model, bufs, input_ids, extra, generator, temperature,
+                  top_k, top_p, eos_token_id):
+    """The eager start of a generate call over a geometry's buffers:
+    prefill the prompt into its caches, choose the first token into
+    `tok` and column 0 of `out`, and reset `finished`, `step` and the
+    mask rows."""
+    logits, _ = model(input_ids, caches=bufs['caches'], cache_index=0,
+                      **extra)
+    if bufs['out'].shape[1] == 0:
+        return
+    tok = sample_tokens(logits[:, -1, :], temperature, top_k, top_p,
+                        generator).to(torch.int64)
+    bufs['tok'].copy_(tok)
+    bufs['out'][:, 0] = tok
+    bufs['finished'].copy_(tok == eos_token_id if eos_token_id is not None
+                           else torch.zeros_like(bufs['finished']))
+    bufs['step'].zero_()
+    if 'kvalid' in extra:
+        bufs['kvalid'].copy_(extra['kvalid'])
+        bufs['real_len'].copy_(extra['kvalid'][:, :input_ids.shape[1]]
+                               .sum(1))
+    if 'kv_start' in extra:
+        bufs['kv_start'].copy_(extra['kv_start'])
+
+
+def _decode_step(model, caches, tok, out, finished, step, *, S,
+                 real_len=None, kvalid=None, kv_start=None, temperature=0.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, generator=None):
+    """One decode step of generate, in place on its buffers and with no
+    host read: the forward of the last chosen tokens `tok` (B,) at the
+    device position S + step (per-row write offsets over the caches;
+    rope positions real_len + step under a mask), then the next token,
+    chosen from its logits as `sample_tokens` chooses, into `tok` and
+    column step + 1 of `out` (a finished row emits eos from then on), and
+    `step` advanced. generate captures it once per geometry and replays
+    it; called directly it is the eager reference."""
+    B = tok.shape[0]
+    extra = {}
+    if kvalid is not None:
+        extra = dict(positions=(real_len + step)[:, None], kvalid=kvalid)
+        if kv_start is not None:
+            extra['kv_start'] = kv_start
+    logits, _ = model(tok[:, None], caches=caches,
+                      kv_write_pos=(S + step).expand(B), **extra)
+    nxt = sample_tokens(logits[:, -1, :], temperature, top_k, top_p,
+                        generator).to(tok.dtype)
+    if eos_token_id is not None:
+        nxt = torch.where(finished, eos_token_id, nxt)
+        finished |= nxt == eos_token_id
+    step += 1
+    out.scatter_(1, step.expand(B)[:, None], nxt[:, None])
+    tok.copy_(nxt)
+
+
+class DecodeGraphs:
+    """generate's captured decode steps of one owner (a model's own
+    generate calls, or a DecodeEngine's), with the buffers of each
+    geometry: batch, prompt length, max_new_tokens, an int8 cache or
+    not, the cache dtype. The graphs of one geometry (its mask modes and
+    sampling configurations) share its caches, and every graph shares
+    the runner's memory pool. Beside the pinned geometries (those used
+    under `pinning`: a DecodeEngine's warmed ones) the last one used is
+    kept, an earlier one dropped with its graphs when another comes;
+    `release` drops them all. One geometry holds its caches, 2 L B (S +
+    N) Hkv D elements of the cache dtype (int8 ones with their
+    per-(head, dim) scales), a (B, S + N) int32 mask and a few (B,)
+    vectors; the pool holds one step's activations."""
+
+    def __init__(self, runner):
+        self.runner = runner
+        self.buffers = {}
+        self.pinned = set()
+        self._pin = False
+
+    @contextlib.contextmanager
+    def pinning(self):
+        """Pin every geometry used inside: it stays until `release`."""
+        self._pin = True
+        try:
+            yield
+        finally:
+            self._pin = False
+
+    def graph(self, model, B, S, max_new_tokens, kv_cache_int8, mask,
+              sampling):
+        """The captured decode step of one generate call: its geometry's
+        buffers (allocated now, after the unpinned geometries are
+        dropped), and the graph of its mask mode and sampling
+        configuration, captured now when there is none (a sampled step
+        with a generator of its own, registered with the graph; generate
+        hands it the caller's state before the replays and takes it back
+        after)."""
+        geo = (B, S, max_new_tokens, bool(kv_cache_int8),
+               model.cache_dtype())
+        bufs = self.buffers.get(geo)
+        if bufs is None:
+            for old in [g for g in self.buffers if g not in self.pinned]:
+                self._drop(old)
+            bufs = self.buffers[geo] = _decode_buffers(
+                model, B, S, max_new_tokens, kv_cache_int8)
+        if self._pin:
+            self.pinned.add(geo)
+        key = (geo, mask, tuple(sorted(sampling.items())))
+        graph = self.runner.get(key)
+        if graph is None:
+            # the step that runs eagerly before the capture starts where
+            # a fresh call's would (a call's replays leave step at N - 1,
+            # one more would write past `out`)
+            for name, t in bufs.items():
+                if name != 'caches':
+                    t.zero_()
+            gen = (None if sampling['temperature'] == 0.0
+                   else torch.Generator(device=model.device))
+            body = functools.partial(_step_body, weakref.ref(model), bufs, S,
+                                     mask, sampling, gen)
+            graph = self.runner.capture(key, body, bufs,
+                                        _cache_tensors(bufs['caches']), gen)
+        return graph
+
+    def _drop(self, geo):
+        self.runner.drop(lambda key: key[0] == geo)
+        del self.buffers[geo]
+        self.pinned.discard(geo)
+
+    def release(self):
+        """Drop every graph and every geometry's buffers."""
+        self.runner.release()
+        self.buffers.clear()
+        self.pinned.clear()
+
+
+def _decode_graphs(owner, model):
+    """The `DecodeGraphs` of `owner` (created on first use; it lives as
+    long as the owner)."""
+    from ..inference.graphs import GraphRunner
+
+    store = _DECODE_GRAPHS.get(owner)
+    if store is None:
+        store = _DECODE_GRAPHS[owner] = DecodeGraphs(
+            GraphRunner(model.device, modules=[model]))
+    return store
+
+
+def release_decode_graphs(owner):
+    """Free the captured decode steps and caches `owner` keeps."""
+    store = _DECODE_GRAPHS.pop(owner, None)
+    if store is not None:
+        store.release()
+
+
+def _step_body(model_ref, bufs, S, mask, sampling, generator):
+    """A captured step's body: `_decode_step` over the geometry's
+    buffers, with the mask rows of its mask mode (the model held weakly,
+    so its graphs do not keep it alive)."""
+    rows = {}
+    if mask != 'none':
+        rows = dict(real_len=bufs['real_len'], kvalid=bufs['kvalid'])
+    if mask == 'kv_start':
+        rows['kv_start'] = bufs['kv_start']
+    return _decode_step(model_ref(), bufs['caches'], bufs['tok'],
+                        bufs['out'], bufs['finished'], bufs['step'], S=S,
+                        generator=generator, **rows, **sampling)
 
 
 # ---------------------------------------------------------------------------
@@ -406,6 +635,9 @@ class _eval_mode:
         for m_ in self.restore:
             m_.train()
 
+
+# The speculative loops below run eagerly, window by window; capturing
+# them as CUDA graphs is ROADMAP A9b.
 
 def generate_speculative(target, draft, input_ids, max_new_tokens=32,
                          num_draft_tokens=4, eos_token_id=None,

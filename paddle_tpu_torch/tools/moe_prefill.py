@@ -11,14 +11,18 @@ layers (its config.json as chip_smoke.py types it in), each with
 weights drawn from seed 0 as chip_smoke.py's phase 14 draws them:
 
 - times generate(max_new_tokens=1) over seeded 512-token prompts at
-  batch 1 and 8, one warm call and N timed ones (host clock around a
-  synchronised call: the prefill and one token's sampling), then
-  generate(max_new_tokens=17) N times: ms per decode forward is its
+  batch 1 and 8, after one warm call of 17 tokens (a tree whose generate
+  captures its decode step captures it there), N timed ones (host clock
+  around a synchronised call: the prefill and one token's sampling),
+  then generate(max_new_tokens=17) N times: ms per decode forward is its
   time less the faster prefill, over 16;
+- traces generate(max_new_tokens=1) and generate(max_new_tokens=17) at
+  b8 with torch.profiler: the decode forwards' share of device-busy
+  time is the difference of the two traces' busy times over the
+  difference of their walls;
 - traces one b8 prefill forward (the model over the prompts into fresh
-  caches) with torch.profiler: wall and device-busy time, X1's device
-  time by kernel (its skinny, CUDA-core and tensor-core kernels), and
-  the top kernels.
+  caches): wall and device-busy time, X1's device time by kernel (its
+  skinny, CUDA-core and tensor-core kernels), and the top kernels.
 
 Each model prints one JSON line. To compare two trees, run this script
 on each in turn within one call on one machine (A, B, B, A).
@@ -66,7 +70,7 @@ def run(torch, np, model, label, card, repeats):
     for B in (1, 8):
         ids = torch.from_numpy(np.random.default_rng(B + 40).integers(
             3, cfg.vocab_size, (B, PROMPT))).to(model.device)
-        model.generate(ids, max_new_tokens=2)                  # warm
+        model.generate(ids, max_new_tokens=DECODE + 1)         # warm
         ms = {}
         for n in (1, DECODE + 1):
             ms[n] = []
@@ -79,6 +83,12 @@ def run(torch, np, model, label, card, repeats):
         out[f'b{B}_prefill_ms'] = ms[1]
         out[f'b{B}_decode_forward_ms'] = [(t - min(ms[1])) / DECODE
                                           for t in ms[DECODE + 1]]
+    (w1, b1, *_), (w17, b17, n17, *_) = (
+        trace(torch, lambda: model.generate(ids, max_new_tokens=n))
+        for n in (1, DECODE + 1))
+    out.update(b8_decode_trace_ms=(w17 - w1) / DECODE,
+               b8_decode_busy_ms=(b17 - b1) / DECODE,
+               b8_decode_busy_share=(b17 - b1) / (w17 - w1))
     with torch.no_grad():
         caches = model.init_cache(8, PROMPT)
         wall, busy, n, x1, top = trace(

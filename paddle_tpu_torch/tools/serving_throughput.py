@@ -9,9 +9,11 @@ bf16, weights drawn from seed 0) as chip_smoke.py's serving phase does,
 warms it on one short request, then serves chip_smoke.py's burst (8
 requests of 32-512 prompt tokens and 32 new tokens each, admitted in
 three waves) N times. Each run prints one JSON line: tokens, wall time,
-tokens/s and ms per decode forward. To compare two trees, run this
-script on each in turn within one call on one machine (A, B, B, A): the
-host's speed drifts between calls.
+tokens/s and ms per decode forward. Then one engine step that decodes a
+full window of 4 rows is traced with torch.profiler (its wall, device-
+busy time and their ratio, one more JSON line). To compare two trees,
+run this script on each in turn within one call on one machine (A, B,
+B, A): the host's speed drifts between calls.
 """
 from __future__ import annotations
 
@@ -89,6 +91,33 @@ def main():
             'wall_s': wall, 'tok_s': n_tok / wall,
             'ms_per_decode_forward': wall / n_dec * 1e3, 'card': card}),
             flush=True)
+    rids = [engine.submit(p, 16) for p in prompts[:4]]
+    engine.step()                 # admissions and a first window
+    wall, busy = window_trace(torch, engine)
+    engine.run()
+    for r in rids:
+        engine.result(r)
+    print(json.dumps({'tree': tree, 'window_trace_wall_ms': wall,
+                      'window_trace_busy_ms': busy,
+                      'window_busy_share': busy / wall, 'card': card}),
+          flush=True)
+
+
+def window_trace(torch, engine):
+    """(wall ms, device-busy ms) of one engine step traced with
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith('CUDA')) / 1e3
+    return wall, busy
 
 
 if __name__ == '__main__':

@@ -1937,7 +1937,9 @@ def test_moe_generate_runs_the_kernels(card):
         assert got == dict(dict.fromkeys(before, 0), rms_norm=5 * n,
                            moe_grouped_matmul=3 * L * n,
                            decode_attention=L * (n - 1)), name
-        with _plain_kernels():
+        # X1's plain version reads its offsets on the host, so it runs
+        # the decode steps directly, not captured
+        with _plain_kernels(), _direct_steps():
             assert torch.equal(out, run()), name
     want = target.generate(ids, max_new_tokens=n)
     for d in (draft, target):
@@ -1949,3 +1951,198 @@ def test_moe_generate_runs_the_kernels(card):
             d, ids, num_draft_tokens=3))
         if d is target:
             assert eng.stats()['spec']['accept_rate'] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# The compiled decode window and decode step (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+def _direct_steps():
+    """generate's decode step run directly, its eager reference, in place
+    of the captured graph (a runner off the card calls the body)."""
+    from unittest import mock
+
+    from paddle_tpu_torch.inference.graphs import GraphRunner
+    from paddle_tpu_torch.models import generation
+
+    return mock.patch.object(generation, '_decode_graphs',
+                             lambda owner, model: generation.DecodeGraphs(
+                                 GraphRunner('cpu')))
+
+
+def _serving_engine(card, kv, **kw):
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+
+    cfg = llama_tiny(vocab_size=128, hidden_size=64, layers=2)
+    cfg.dtype = 'bfloat16'
+    model = LlamaForCausalLM(cfg, device=card, seed=0)
+    return ServingEngine(model, max_slots=3, block_size=4, max_new_tokens=12,
+                         decode_window=3, max_context_len=64,
+                         kv_cache_dtype=kv, **kw)
+
+
+@pytest.mark.parametrize('variant', ['greedy', 'sampled', 'carried'])
+@pytest.mark.parametrize('kv', [None, 'int8'], ids=['bf16', 'int8'])
+def test_serving_window_graph_equals_the_direct_window(card, kv, variant):
+    """A captured serving window replayed over live slots equals a direct
+    `_window` call on cloned state bit for bit: tokens, the carried
+    logits and every pool byte, greedy and sampled, over bf16 and int8
+    pools, and with the carried token a speculative engine's chunk step
+    commits first."""
+    from paddle_tpu_torch.inference.serving import _window
+
+    eng = _serving_engine(card, kv)
+    rng = np.random.default_rng(9)
+    for i, n in enumerate((5, 14, 9)):
+        eng.submit(rng.integers(3, 128, n),
+                   **(dict(temperature=0.9, top_k=30) if i != 1 else {}))
+    eng.step()
+    # the pages the next window writes, as a step tops them up first
+    eng._ensure_window_pages()
+    sampled, forced = variant == 'sampled', variant == 'carried'
+    if forced:
+        eng._slot_req[0].spec_next = 77
+        eng._slot_req[2].spec_next = 5
+    live = np.ones(3, bool)
+    graph = eng._window_graph(sampled, forced)
+    inputs = eng._window_inputs(live, sampled, forced)
+    t = {k: (v.clone() if isinstance(v, torch.Tensor)
+             else torch.as_tensor(v, device=card)) for k, v in inputs.items()}
+    pages = [type(pc)(*(f.clone() for f in pc)) for pc in eng._pages]
+    with torch.no_grad():
+        want, want_last, _ = _window(
+            eng.model, pages, t['last_logits'], t['btab'], t['ctx'],
+            t['live'], t['budget'], window=3, eos_token_id=None,
+            sampling=(tuple(t[k] for k in ('temp', 'topk', 'topp', 'seed',
+                                           'plen')) if sampled else None),
+            **(dict(forced_tok=t['forced_tok'], forced=t['forced'])
+               if forced else {}))
+    graph.load(**inputs)
+    got, got_last = graph.run()
+    assert torch.equal(got, want) and torch.equal(got_last, want_last)
+    for pa, pb in zip(eng._pages, pages):
+        for a, b in zip(pa, pb):
+            assert torch.equal(a, b)
+    if forced:
+        assert int(got[0, 0]) == 77 and int(got[2, 0]) == 5
+
+
+def test_serving_with_graphs_counts_and_refuses_a_replaced_pool(card):
+    """Through the captured windows a burst launches exactly what the
+    direct windows launch (K8q L per decode forward, K1 2L + 1 per
+    forward), the engine's streams equal an engine whose windows run
+    directly, and a pool replaced after the capture raises."""
+    from paddle_tpu_torch.inference.graphs import GraphRunner
+
+    prompts = [np.arange(3, 12), np.arange(5, 25), np.arange(40, 47)]
+    runs = []
+    for direct in (False, True):
+        eng = _serving_engine(card, 'int8')
+        if direct:
+            eng._graphs = GraphRunner('cpu')
+        eng.warmup()
+        before = dict(_build.LAUNCHES)
+        outs = eng.serve(prompts)
+        got = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        s = eng.stats()
+        assert got['paged_decode_attention_int8'] == 2 * s['decode_forwards']
+        assert got['rms_norm'] == 5 * (s['decode_forwards']
+                                       + s['prefill_forwards'])
+        runs.append((outs, got))
+    assert runs[0][1] == runs[1][1]
+    assert all(np.array_equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    eng = _serving_engine(card, None)
+    eng.warmup()
+    eng._pages = eng.model.init_paged_cache(eng.allocator.num_blocks, 4)
+    eng.submit(prompts[0])
+    with pytest.raises(RuntimeError, match='not the ones'):
+        eng.step()
+
+
+@pytest.mark.parametrize('mode', ['greedy', 'sampled', 'int8-kv-padded'])
+@pytest.mark.parametrize('arch', ['llama', 'moe'])
+def test_generate_graph_equals_the_direct_steps(card, arch, mode):
+    """generate's replayed decode step gives the tokens of its direct
+    steps (the sampled ones from the caller's generator, registered with
+    the graph: the same seed, the same draws), with the same launch
+    counts, over N replays; the caller's generator ends where the direct
+    loop leaves it."""
+    if arch == 'llama':
+        from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                                   llama_tiny)
+        cfg = llama_tiny(vocab_size=128, hidden_size=64, layers=2)
+        model = LlamaForCausalLM(cfg, device=card, seed=0)
+    else:
+        model, _ = _moe_models(card)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        3, 128, (3, 9))).to(card)
+    kw = dict(max_new_tokens=10)
+    if mode == 'sampled':
+        kw.update(temperature=0.9, top_k=40)
+    if mode == 'int8-kv-padded':
+        am = torch.ones_like(ids)
+        am[0, :3] = 0
+        ids = ids * am
+        kw.update(kv_cache_int8=True, attention_mask=am)
+    outs, counts, states = [], [], []
+    for direct in (False, True, False):
+        gen = torch.Generator(device=card).manual_seed(11)
+        before = dict(_build.LAUNCHES)
+        if direct:
+            with _direct_steps():
+                out = model.generate(ids, rng_key=gen, **kw)
+        else:
+            out = model.generate(ids, rng_key=gen, **kw)
+        counts.append({k: _build.LAUNCHES[k] - before[k] for k in before})
+        outs.append(out)
+        states.append(gen.get_state())
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[2], outs[1])
+    assert counts[0] == counts[1] == counts[2]
+    assert counts[0]['decode_attention'] == 2 * 9
+    assert torch.equal(states[0], states[1])
+
+
+def test_graphs_follow_a_replaced_weight(card):
+    """A weight replaced between two calls (a new tensor, as
+    `module.to(dtype)` or `load_state_dict(assign=True)` leave one)
+    drops the graphs captured over the old one: generate captures its
+    step anew over the buffers its last call left and gives the direct
+    steps' tokens over the new weight, greedy and then sampled over the
+    same buffers, and a warmed ServingEngine captures its window anew
+    and streams as an engine built over the new weight."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.generation import _decode_graphs
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+
+    cfg = llama_tiny(vocab_size=128, hidden_size=64, layers=2)
+    model = LlamaForCausalLM(cfg, device=card, seed=0)
+    ids = torch.from_numpy(np.random.default_rng(4).integers(
+        3, 128, (2, 9))).to(card)
+    first = model.generate(ids, max_new_tokens=8)
+    runner = _decode_graphs(model, model).runner
+    n = runner.captures
+    kw = dict(max_slots=2, block_size=4, max_new_tokens=6, decode_window=3,
+              max_context_len=32)
+    eng = ServingEngine(model, **kw)
+    eng.warmup()
+    m = eng._graphs.captures
+    model.lm_head = torch.nn.Parameter(model.lm_head.detach().flip(1)
+                                       .clone())
+    got = model.generate(ids, max_new_tokens=8)
+    with _direct_steps():
+        want = model.generate(ids, max_new_tokens=8)
+    assert runner.captures == n + 1
+    assert torch.equal(got, want) and not torch.equal(got, first)
+    # a sampling variant captured over the same geometry's buffers
+    skw = dict(max_new_tokens=8, temperature=0.9, top_k=40, rng_key=3)
+    got = model.generate(ids, **skw)
+    with _direct_steps():
+        want = model.generate(ids, **skw)
+    assert runner.captures == n + 2 and torch.equal(got, want)
+    assert len(_decode_graphs(model, model).buffers) == 1
+    prompts = [np.arange(3, 12), np.arange(20, 27)]
+    outs = eng.serve(prompts)
+    assert eng._graphs.captures == m + 1
+    fresh = ServingEngine(model, **kw).serve(prompts)
+    assert all(np.array_equal(a, b) for a, b in zip(outs, fresh))

@@ -2,7 +2,7 @@
 """Decode-attention (K7 / K9) times of the PyTorch port on one CUDA card,
 for comparing trees and kernel variants.
 
-    python3 tools/decode_times.py [TREE] [LABEL]
+    python3 tools/decode_times.py [TREE] [LABEL] [--forwards]
 
 Imports paddle_tpu_torch and chip_smoke.py from TREE (default: the
 checkout this file lies in) and prints one line per row, each timed by
@@ -13,8 +13,12 @@ b8, MHA and GQA, bf16 / int8 / float32, Qwen2-7B's group 7, b1 over a
 empty window, 64 positions and 2000 positions, and a one-element fill_
 kernel); and the b1 MHA rows again with the flush followed by a read of
 another 128 MB buffer, so that the L2 holds clean lines and not the
-flush's dirty ones. Run each tree in turn within one call (A, B, B, A):
-one card, one power limit.
+flush's dirty ones. With --forwards it prints instead phase 6's b1 and
+b8 decode forwards (Llama-7B width, 32 layers, bf16, 2048-position
+caches) as TREE's chip_smoke.bench_decode runs them, each followed by
+one forward traced with torch.profiler (wall, device busy and their
+ratio), and one JSON line per batch. Run each tree in turn within one
+call (A, B, B, A): one card, one power limit.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('tree', nargs='?', default=os.path.dirname(here))
     ap.add_argument('label', nargs='?', default=None)
+    ap.add_argument('--forwards', action='store_true')
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     label = args.label or os.path.basename(tree)
@@ -41,6 +46,9 @@ def main():
     from paddle_tpu_torch.ops.hopper import decode_attention as k
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.forwards:
+        forwards(torch, cs, tree, label)
+        return
     timer = cs.Timer(torch)
 
     def show(name, r):
@@ -105,6 +113,29 @@ def main():
     clean = CleanTimer(torch)
     for mode in ('bfloat16', 'int8'):
         show('K7 (clean L2)', cs.check_decode(torch, clean, 1, 32, 32, mode))
+
+
+def forwards(torch, cs, tree, label):
+    """Phase 6's b1 and b8 bf16 decode forwards through the tree's
+    bench_decode (its launch-count checks included), each profiled."""
+    import dataclasses
+    import json
+    import subprocess
+
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    model = LlamaForCausalLM(dataclasses.replace(llama_7b(),
+                                                 dtype='bfloat16'), seed=0)
+    for B in (1, 8):
+        tps, ms, _ = cs.bench_decode(torch, model, B, f'{label} b{B} bf16',
+                                     card, profile=True)
+        print(json.dumps({'tree': tree, 'batch': B, 'tokens_s': tps,
+                          'ms_per_forward': ms, 'card': card}), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == '__main__':
