@@ -202,6 +202,22 @@ Phases, in order (any failure exits non-zero and prints no result):
               whose first profiler sessions they are), the device-busy
               share of one direct and one replayed window, generate b8
               step and MoE b8 step.
+ 16. moe train MoE training, X1's backward on its dx and dW kernels:
+              (a) one MoELayer(dispatch_mode='ragged') at MoEConfig()'s
+              widths in float32 over 2 x 2048 tokens, the output and
+              every parameter's gradient and dx through the kernels
+              (exactly 3 X1, 3 dx and 3 dW launches) against the plain
+              versions (1e-5 / 1e-4 relative L2); (b) TrainEngine +
+              AdamW(1e-4, weight decay 0.01) over MoEConfig() cut to 4
+              layers, dispatch 'ragged', bf16, 4 x 2048 tokens on one
+              repeated batch as phase 9 runs it (falling losses,
+              tokens/s, ms per step, peak memory, exact launches a step:
+              K1 / K2 2L + 1, K5 L, K6 2L, X1 3L, dx 3L, dW 3L, every X1
+              launch on the tensor cores; one step traced); (c) in phase
+              3, dx and dW against their plain versions at (b)'s step,
+              the b8 / b1 512-token prefills and Mixtral-8x7B's 4096
+              tokens, bf16 and float32, and with half the experts empty,
+              each timed beside its bound and torch._grouped_mm.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, a JSON object with one record per kernel, and
@@ -1628,7 +1644,9 @@ def plain_kernels():
                           (hh, 'decode_attention_headmajor'),
                           (hq, 'quant_matmul'), (hq, 'quant_matmul_int4'),
                           (hq, 'quant_matmul_fp8'),
-                          (hm, 'moe_grouped_matmul')):
+                          (hm, 'moe_grouped_matmul'),
+                          (hm, 'moe_grouped_matmul_dx'),
+                          (hm, 'moe_grouped_matmul_dw')):
             stack.enter_context(mock.patch.object(
                 mod, name, getattr(mod, name + '_plain')))
         yield
@@ -1712,7 +1730,8 @@ def count_launches(torch, fn):
 
     torch.cuda.synchronize()
     for counts in (ops.LAUNCHES, hq.PATH_LAUNCHES, hf.FLASH_PATH_LAUNCHES,
-                   hm.PATH_LAUNCHES):
+                   hm.PATH_LAUNCHES, hm.DX_PATH_LAUNCHES,
+                   hm.DW_PATH_LAUNCHES):
         for name in counts:
             counts[name] = 0
     out = fn()
@@ -2428,7 +2447,10 @@ def bmha_phase(torch, np, card, g, f32_tol, steps=32, H=32, D=128, BS=64,
 
 KERNEL_GROUPS = (('flash_fwd', 'K5 flash fwd'), ('flash_bwd', 'K6 flash bwd'),
                  ('rms_norm_fwd', 'K1 rms fwd'), ('rms_norm_bwd', 'K2 rms bwd'),
-                 ('xent_fwd', 'K3 xent fwd'), ('xent_bwd', 'K4 xent bwd'))
+                 ('xent_fwd', 'K3 xent fwd'), ('xent_bwd', 'K4 xent bwd'),
+                 ('moe_dw', 'X1dW'), ('moe_tc_kernel<true>', 'X1dx'),
+                 ('moe_tc_kernel<false>', 'X1 fwd'),
+                 ('moe_', 'X1 CUDA-core routes'))
 
 
 def kernel_group(key):
@@ -2495,24 +2517,33 @@ def profile_train_step(torch, eng, ids, card, label='train'):
               f'{key[:90]}')
 
 
-def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5):
-    """TrainEngine + AdamW(1e-4, weight decay 0.01) over `cfg` on one
+def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5,
+              model_fn=None, per_step=None, routes_fn=None):
+    """TrainEngine + AdamW(1e-4, weight decay 0.01) over the model
+    `model_fn()` builds (default LlamaForCausalLM(cfg, seed=0)) on one
     repeated batch of B x S tokens: `warmup` then `steps` timed steps
-    (tokens/s, ms per step, peak memory, per-step losses that must
-    fall from about ln V + sigma^2 / 2), exact launch counts per step
+    (tokens/s, ms per step, peak memory, per-step losses that must fall
+    from about ln V + sigma^2 / 2, plus aux_loss_weight a layer for an MoE
+    model's balanced random routing), exact launch counts per step
     (`flash`: the forward and backward keys the attention runs; every
     flash launch of a bf16 model with head size up to 128 on the tensor
-    cores), and one step traced with torch.profiler. Returns the launch
-    counts."""
+    cores; `per_step`: the other kernels' launches a step, default the
+    Llama path's K1 / K2 2L + 1 and K3 / K4 1; `routes_fn(n)`, where
+    given, checks the per-route counts after n steps), and one step
+    traced with torch.profiler. Returns the launch counts."""
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.models.llama import LlamaForCausalLM
     from paddle_tpu_torch.ops.hopper import flash_attention as hf
+    from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as hm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.training import TrainEngine
 
     L = cfg.num_hidden_layers
+    if per_step is None:
+        per_step = dict(rms_norm=2 * L + 1, rms_norm_bwd=2 * L + 1,
+                        softmax_xent_fwd=1, softmax_xent_bwd=1)
     t = time.perf_counter()
-    model = LlamaForCausalLM(cfg, seed=0)
+    model = (model_fn or (lambda: LlamaForCausalLM(cfg, seed=0)))()
     eng = TrainEngine(model, AdamW(learning_rate=1e-4, weight_decay=0.01),
                       log_window=steps)
     torch.cuda.synchronize()
@@ -2523,7 +2554,8 @@ def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5):
     ids = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (B, S + 1))).to(model.device)
     torch.cuda.reset_peak_memory_stats()
-    for counts in (ops.LAUNCHES, hf.FLASH_PATH_LAUNCHES):
+    for counts in (ops.LAUNCHES, hf.FLASH_PATH_LAUNCHES, hm.PATH_LAUNCHES,
+                   hm.DX_PATH_LAUNCHES, hm.DW_PATH_LAUNCHES):
         for name in counts:
             counts[name] = 0
     for _ in range(warmup):
@@ -2542,34 +2574,38 @@ def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5):
     n = warmup + steps
     fwd_key, bwd_key = flash
     want = dict.fromkeys(ops.LAUNCHES, 0)
-    want.update({fwd_key: L * n, bwd_key: 2 * L * n},
-                rms_norm=(2 * L + 1) * n, rms_norm_bwd=(2 * L + 1) * n,
-                softmax_xent_fwd=n, softmax_xent_bwd=n)
+    want.update({key: c * n for key, c in per_step.items()})
+    want.update({fwd_key: L * n, bwd_key: 2 * L * n})
     print(f'{label}: {steps} timed steps of {B} x {S} tokens after {warmup} '
           f'warm-up: {steps * B * S / wall:.1f} tokens/s, '
           f'{wall / steps * 1e3:.1f} ms per step, peak memory '
           f'{peak / 2**30:.2f} GiB [{card}]')
     print(f'{label}: losses per step {[round(x, 5) for x in losses]}')
     print(f'{label}: launches {launches} over {n} steps (per step: '
-          f'{fwd_key} L, {bwd_key} 2L (dq, dk/dv), rms fwd and bwd 2L+1, '
-          f'xent fwd and bwd 1; L = {L})', flush=True)
+          f'{fwd_key} L, {bwd_key} 2L (dq, dk/dv), {per_step}; L = {L})',
+          flush=True)
     if launches != want:
         raise AssertionError(f'{label} launch counts {launches} != {want}')
+    if routes_fn is not None:
+        routes_fn(n)
     D = cfg.hidden_size // cfg.num_attention_heads
-    route = hf.path(getattr(torch, cfg.dtype), D)
+    dtype = model.cache_dtype()
+    route = hf.path(dtype, D)
     want_routes = dict.fromkeys(routes, 0)
     want_routes[route] = 3 * L * n
     print(f'{label}: flash launches by route {routes} (every one on '
-          f'{route}: {cfg.dtype}, head size {D})', flush=True)
-    if routes != want_routes or (cfg.dtype == 'bfloat16' and D <= 128
+          f'{route}: {dtype}, head size {D})', flush=True)
+    if routes != want_routes or (dtype == torch.bfloat16 and D <= 128
                                  and route != 'tensor_core'):
         raise AssertionError(f'{label} flash routes {routes} != '
                              f'{want_routes}')
     # random-init logits are N(0, sigma^2) with sigma^2 = std^2 * hidden
     # (the final norm's output has unit RMS), so the first loss is about
-    # ln V + sigma^2 / 2, not ln V
+    # ln V + sigma^2 / 2, not ln V; an MoE model adds aux_loss_weight
+    # times its layers' aux losses, each about 1 at a balanced routing
     first = math.log(cfg.vocab_size) + 0.5 * (
-        cfg.initializer_range ** 2 * cfg.hidden_size)
+        cfg.initializer_range ** 2 * cfg.hidden_size) + getattr(
+            cfg, 'aux_loss_weight', 0.0) * L
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f'non-finite training loss: {losses}')
     if abs(losses[0] - first) > 0.1:
@@ -2578,9 +2614,9 @@ def train_run(torch, np, card, cfg, B, S, label, flash, warmup=2, steps=5):
     if not losses[-1] < losses[0]:
         raise AssertionError(f'the loss did not fall on a repeated batch: '
                              f'{losses}')
-    print(f'{label}: first loss {losses[0]:.4f} vs ln V + sigma^2 / 2 = '
-          f'{first:.4f} (ln V = {math.log(cfg.vocab_size):.4f}); last '
-          f'{losses[-1]:.4f}')
+    print(f'{label}: first loss {losses[0]:.4f} vs ln V + sigma^2 / 2 '
+          f'(+ aux_loss_weight L for MoE) = {first:.4f} (ln V = '
+          f'{math.log(cfg.vocab_size):.4f}); last {losses[-1]:.4f}')
     profile_train_step(torch, eng, ids, card, label)
     del eng, model
     gc.collect()
@@ -3918,10 +3954,12 @@ MOE_PROMPT, MOE_NEW = 512, 32
 MOE_BF16_TOL = 0.5
 
 
-def x1_routing(np, T, E, k, seed):
+def x1_routing(np, T, E, k, seed, empty=()):
     """The expert offsets (E + 1,) int32 of T tokens' top-k choices over
-    seeded router logits, and the experts that received rows."""
+    seeded router logits (the experts in `empty` receive no rows), and
+    the experts that received rows."""
     lg = np.random.default_rng(seed).normal(size=(T, E))
+    lg[:, list(empty)] = -np.inf
     counts = np.bincount(np.argsort(-lg, axis=1)[:, :k].reshape(-1),
                          minlength=E)
     return (np.concatenate([[0], np.cumsum(counts)]).astype(np.int32),
@@ -4005,6 +4043,106 @@ def check_moe_matmul(torch, np, timer, T, E, k, K, N, dtype):
             rec['library'] = f'torch._grouped_mm: {e}'[:200]
     del x, w, out, ref
     return rec
+
+
+def x1_bwd_inputs(torch, np, T, E, k, K, N, dtype, empty=()):
+    """The inputs of one X1 product's backward: T tokens' seeded top-k
+    routing over E experts (those in `empty` receive no rows), x (R, K),
+    w (E, K, N) and the output's gradient dy (R, N) on the card; and the
+    experts that received rows."""
+    off, distinct = x1_routing(np, T, E, k, T * 7 + E + K, empty)
+    R = T * k
+    g = torch.Generator(device='cuda').manual_seed(R + K + N + 1)
+    x = torch.randn(R, K, device='cuda', generator=g).to(dtype)
+    w = (0.02 * torch.randn(E, K, N, device='cuda', generator=g)).to(dtype)
+    dy = (0.02 * torch.randn(R, N, device='cuda', generator=g)).to(dtype)
+    return x, w, dy, torch.from_numpy(off).to('cuda'), distinct
+
+
+def check_moe_backward(torch, np, timer, T, E, k, K, N, dtype, empty=()):
+    """X1's backward at one product of the MoE path (the forward x (R, K)
+    @ w[e] (K, N) over T tokens' top-k rows): the dx kernel (dy w[e]^T
+    over w as it lies, on the forward's route rule) and the dW kernel
+    (x_e^T dy_e for every expert, zero without rows) against their plain
+    versions, with the route each took (bf16 past the skinny bound on
+    the tensor cores). Bounds: dx reads dy, the weights of the experts
+    with rows and writes dx; dW reads x and dy and writes all of dw; both
+    2 R K N operations at the dtype's peak. The library call is
+    torch._grouped_mm over (dy, w^T) for dx and (x^T, dy) for dW, where
+    the installed torch takes those shapes (else the row says why).
+    Returns the (dx, dW) rows."""
+    from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as k_
+
+    x, w, dy, offsets, distinct = x1_bwd_inputs(torch, np, T, E, k, K, N,
+                                                dtype, empty)
+    R = x.shape[0]
+    item = x.element_size()
+    dt = dname(torch, dtype)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    shape = (f'x ({R}, {K}) {dt} over {E} experts ({distinct} with rows, '
+             f'top-{k} of {T} tokens), w ({E}, {K}, {N}), dy ({R}, {N})')
+    iters = 3 if R * K * N > 1e11 else 5
+    ends = offsets[1:]
+    rows = []
+    for name, run, plain, library, nbytes, routes, want in (
+            ('dx', lambda: k_.moe_grouped_matmul_dx(dy, w, offsets),
+             lambda: k_.moe_grouped_matmul_dx_plain(dy, w, offsets),
+             lambda: torch._grouped_mm(dy, w.transpose(-2, -1), offs=ends),
+             R * N * item + distinct * K * N * item + R * K * item,
+             k_.DX_PATH_LAUNCHES,
+             k_.path(R, E, N, K, dtype, True)),
+            ('dW', lambda: k_.moe_grouped_matmul_dw(x, dy, offsets),
+             lambda: k_.moe_grouped_matmul_dw_plain(x, dy, offsets),
+             lambda: torch._grouped_mm(x.t(), dy, offs=ends),
+             R * K * item + R * N * item + E * K * N * item,
+             k_.DW_PATH_LAUNCHES, k_.dw_path(K, N, dtype, True))):
+        what = f'moe_grouped_matmul {name} {shape}'
+        before = dict(routes)
+        out = run()
+        took = [p for p, n in routes.items() if n != before[p]]
+        ref = plain()
+        torch.cuda.synchronize()
+        if took != [want] or (dtype == torch.bfloat16 and R > E
+                              and took != ['tensor_core']):
+            raise AssertionError(f'{what} took {took}, not {want}')
+        # float32: sums of up to R products in another order; bf16: one
+        # rounding of the float32 sum on top
+        tol = X1_TOL[dt]
+        err = within(out, ref, tol, what)
+        b_, by = bound_ms(nbytes + (E + 1) * 4, 2 * R * K * N, peak)
+        rec = {'shape': shape, 'product': name, 'path': took[0],
+               'experts_with_rows': distinct, 'max_abs_err': err,
+               'tolerance': tol_text(tol),
+               'ms': timer(run, iters=iters),
+               'plain_ms': timer(plain, iters=iters),
+               'bound_ms': b_, 'bound_by': by, 'library_ms': None,
+               'library': f'torch._grouped_mm ({dt})'}
+        try:
+            lib = library()
+            rec['library_err'] = (lib.float() - ref.float()).abs().max(
+            ).item()
+            rec['library_ms'] = timer(library, iters=iters)
+        except (RuntimeError, AttributeError) as e:   # a yardstick only
+            rec['library'] = f'torch._grouped_mm: {e}'[:200]
+        rows.append(rec)
+        del out, ref
+    del x, w, dy
+    return rows
+
+
+# the backward rows of phase 3: (T, E, k, K, N, dtypes, empty experts).
+# MoEConfig()'s training step first (phase 16: 4 x 2048 tokens, the
+# main path), then its b8 and b1 512-token prefills, Mixtral-8x7B's 4096
+# tokens (R = 8192), each product in both directions (gate / up, down),
+# and a routing with half the experts empty
+X1_BWD_ROWS = (
+    [(8192, 64, 6, 2048, 1408, ('bfloat16',), ()),
+     (8192, 64, 6, 1408, 2048, ('bfloat16',), ())]
+    + [(T, 64, 6, K, N, ('bfloat16', 'float32'), ())
+       for T in (4096, 512) for K, N in ((2048, 1408), (1408, 2048))]
+    + [(4096, 8, 2, K, N, ('bfloat16', 'float32'), ())
+       for K, N in ((4096, 14336), (14336, 4096))]
+    + [(512, 64, 6, 2048, 1408, ('bfloat16', 'float32'), tuple(range(32)))])
 
 
 X1_CROSSOVER = ((64, 6, ((2048, 1408), (1408, 2048))),
@@ -4688,6 +4826,132 @@ def graphs_phase(torch, np, card):
     return {'graphs': counts}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: MoE training (X1's backward)
+# ---------------------------------------------------------------------------
+
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S = 4, 4, 2048
+MOE_LAYER_TOKENS = (2, 2048)
+
+
+def moe_layer_grads(torch, np, card, out_tol=1e-5, rel_tol=1e-4):
+    """(a) One MoELayer(dispatch_mode='ragged') at MoEConfig()'s widths
+    (64 routed experts top 6, 2 shared) in float32 over 2 x 2048 tokens:
+    the output and aux loss of sum(out * g) + 0.01 aux, every parameter's
+    gradient and dx, through the kernels (exactly 3 X1, 3 dx and 3 dW
+    launches) against the plain versions. The router's float32 product
+    runs before X1 in the same layer, so both runs route alike. Bounds:
+    the output within `out_tol` relative L2, every gradient within
+    `rel_tol` (grads_phase's bound: summation order only)."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.distributed.moe import MoELayer
+    from paddle_tpu_torch.models.moe_lm import MoEConfig
+
+    cfg = MoEConfig()
+    H = cfg.hidden_size
+    layer = MoELayer(H, cfg.intermediate_size, num_experts=cfg.num_experts,
+                     top_k=cfg.top_k,
+                     num_shared_experts=cfg.num_shared_experts,
+                     return_aux=True, dispatch_mode='ragged',
+                     dtype=torch.float32, device='cuda',
+                     generator=torch.Generator(device='cuda').manual_seed(0))
+    g = torch.Generator(device='cuda').manual_seed(1)
+    x0 = torch.randn(*MOE_LAYER_TOKENS, H, device='cuda', generator=g)
+    cot = torch.randn(*MOE_LAYER_TOKENS, H, device='cuda', generator=g)
+
+    def run():
+        layer.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_()
+        out, aux = layer(x)
+        ((out * cot).sum() + 0.01 * aux).backward()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in layer.named_parameters()}
+        grads['dx'] = x.grad
+        return out.detach(), aux.item(), grads
+
+    (out, aux, grads), counts = count_launches(torch, run)
+    want = dict.fromkeys(counts, 0)
+    want.update(moe_grouped_matmul=3, moe_grouped_matmul_dx=3,
+                moe_grouped_matmul_dw=3)
+    if counts != want:
+        raise AssertionError(f'moe layer grads: launch counts {counts} != '
+                             f'{want}')
+    before = dict(ops.LAUNCHES)
+    with plain_kernels():
+        p_out, p_aux, p_grads = run()
+    torch.cuda.synchronize()
+    if dict(ops.LAUNCHES) != before:
+        raise AssertionError('moe layer grads: the plain run launched a '
+                             'kernel')
+    out_err = rel_l2(torch, out, p_out)
+    rel = {n: rel_l2(torch, grads[n], p_grads[n]) for n in p_grads}
+    worst = max(rel, key=rel.get)
+    print(f'moe train (a): MoELayer float32, {cfg.num_experts} experts '
+          f'top-{cfg.top_k} + {cfg.num_shared_experts} shared, '
+          f'{H} -> {cfg.intermediate_size}, {MOE_LAYER_TOKENS} tokens: '
+          f'output |kernels - plain| / |plain| {out_err:.3g}, aux '
+          f'{aux:.6f} vs {p_aux:.6f}; worst gradient {rel[worst]:.3g} '
+          f'({worst}) over {sorted(rel)} [{card}]', flush=True)
+    if not (out_err <= out_tol and abs(aux - p_aux) <= 1e-6 * abs(p_aux)
+            and rel[worst] <= rel_tol):
+        raise AssertionError(f'moe layer grads: output {out_err} > '
+                             f'{out_tol}, aux {aux} vs {p_aux}, or gradient '
+                             f'{worst} {rel[worst]} > {rel_tol}')
+    del layer, grads, p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_train_routes(L):
+    """The route check of phase 16 (b): every X1 launch, forward, dx and
+    dW, on the tensor cores (bf16, R = B S k rows, far past the skinny
+    bound)."""
+    from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as hm
+
+    def check(n):
+        got = {'forward': dict(hm.PATH_LAUNCHES),
+               'dx': dict(hm.DX_PATH_LAUNCHES),
+               'dW': dict(hm.DW_PATH_LAUNCHES)}
+        print(f'moe train: X1 launches by route {got}', flush=True)
+        for what, routes in got.items():
+            want = dict.fromkeys(routes, 0)
+            want['tensor_core'] = 3 * L * n
+            if routes != want:
+                raise AssertionError(f'moe train: X1 {what} routes {routes} '
+                                     f'!= {want}')
+    return check
+
+
+def moe_train_phase(torch, np, card):
+    """Phase 16: MoE training. (a) float32 layer gradients through the
+    kernels against the plain versions; (b) TrainEngine + AdamW over
+    MoEConfig() at 4 layers, dispatch 'ragged', bf16, 4 x 2048 tokens
+    (train_run: falling losses, exact launches a step: K1 / K2 2L + 1,
+    K5 L, K6 2L, X1 3L forward, 3L dx and 3L dW, every X1 launch on the
+    tensor cores; the loss is the plain float32 log-softmax, as the JAX
+    package's MoE loss is, so no K3 / K4; one step traced). Returns its
+    launch counts as one path."""
+    from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
+
+    t_phase = time.perf_counter()
+    moe_layer_grads(torch, np, card)
+    L = MOE_TRAIN_LAYERS
+    cfg = dataclasses.replace(MoEConfig(), num_hidden_layers=L,
+                              dispatch_mode='ragged')
+    launches = train_run(
+        torch, np, card, cfg, MOE_TRAIN_B, MOE_TRAIN_S, 'moe train',
+        ('flash_attention_fwd', 'flash_attention_bwd'),
+        model_fn=lambda: MoEForCausalLM(cfg, seed=0, dtype='bfloat16'),
+        per_step=dict(rms_norm=2 * L + 1, rms_norm_bwd=2 * L + 1,
+                      moe_grouped_matmul=3 * L,
+                      moe_grouped_matmul_dx=3 * L,
+                      moe_grouped_matmul_dw=3 * L),
+        routes_fn=moe_train_routes(L))
+    print(f'moe train: phase took {time.perf_counter() - t_phase:.1f} s',
+          flush=True)
+    return {'moe train': launches}
+
+
 def main():
     try:
         import numpy as np
@@ -4891,6 +5155,15 @@ def main():
         torch.cuda.empty_cache()
         moe_crossover(torch, np, timer, card)
         torch.cuda.empty_cache()
+        # 16 (c). X1's backward, dx and dW, at phase 16's training step,
+        # the b8 / b1 prefills and Mixtral's shapes, with empty experts
+        for T, E, k, K, N, dts, empty in X1_BWD_ROWS:
+            for dt in dts:
+                dx, dw = check_moe_backward(torch, np, timer, T, E, k, K, N,
+                                            getattr(torch, dt), empty)
+                cases.setdefault('moe_grouped_matmul_dx', []).append(dx)
+                cases.setdefault('moe_grouped_matmul_dw', []).append(dw)
+            torch.cuda.empty_cache()
         for name, cs in cases.items():
             for c in cs:
                 print(f'kernel {name}: {json.dumps(c)} [{card}]', flush=True)
@@ -4920,6 +5193,14 @@ def main():
                   f'{c["ms"]:.4f} ms{tiled}, bound {c["bound_ms"]:.4f} '
                   f'({c["bound_by"]}), plain {c["plain_ms"]:.4f}{lib} '
                   f'[{card}]')
+        for c in cases['moe_grouped_matmul_dx'] + cases[
+                'moe_grouped_matmul_dw']:
+            lib = ('' if c['library_ms'] is None
+                   else f', torch._grouped_mm {c["library_ms"]:.4f}')
+            print(f'moe_grouped_matmul {c["product"]} {c["shape"]} '
+                  f'({c["path"]}): {c["ms"]:.4f} ms, bound '
+                  f'{c["bound_ms"]:.4f} ({c["bound_by"]}), plain '
+                  f'{c["plain_ms"]:.4f}{lib} [{card}]')
         del timer
         torch.cuda.empty_cache()
 
@@ -4974,6 +5255,11 @@ def main():
 
         # 15. the compiled decode window and step against their bodies
         graph_launches = graphs_phase(torch, np, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 16. MoE training: layer gradients, TrainEngine at MoEConfig()
+        moe_train_launches = moe_train_phase(torch, np, card)
 
         records = []
         for name, src, rep in (
@@ -5007,7 +5293,10 @@ def main():
                  'quant_matmul.py:154'),
                 ('quant_matmul_fp8', 'quant_matmul.cu',
                  'quant_matmul.py:124'),
-                ('moe_grouped_matmul', 'moe_grouped_matmul.cu', None)):
+                ('moe_grouped_matmul', 'moe_grouped_matmul.cu', None),
+                ('moe_grouped_matmul_dx', 'moe_grouped_matmul_tc.cu', None),
+                ('moe_grouped_matmul_dw', 'moe_grouped_matmul_dw.cu',
+                 None)):
             cs = cases[name]
             head = cs[0]       # the main path's shape and dtype
             by_path = {'serving': serve_launches[name],
@@ -5016,13 +5305,15 @@ def main():
                        'fused': fused_launches.get(name, 0),
                        'train': train_launches[name]}
             for paths in (swa_launches, qwen2_launches, prefix_launches,
-                          spec_launches, moe_launches_, graph_launches):
+                          spec_launches, moe_launches_, graph_launches,
+                          moe_train_launches):
                 by_path.update((path, counts.get(name, 0))
                                for path, counts in paths.items())
             records.append({
                 'name': name, 'route': 'cuda',
                 'source': f'paddle_tpu_torch/csrc/{src}',
-                # X1 replaces XLA's lax.ragged_dot, not a Pallas kernel
+                # X1 replaces XLA's lax.ragged_dot, not a Pallas kernel,
+                # and its dx / dW the VJP XLA supplies for it
                 'replaces': (f'paddle_tpu/ops/pallas/{rep}' if rep else
                              'paddle_tpu/distributed/moe.py:104'),
                 'launches': sum(by_path.values()),
@@ -5051,6 +5342,12 @@ def main():
                 if not (by_route['skinny'] and by_route['tensor_core']):
                     raise AssertionError(f'X1 routes phase 14 never '
                                          f'launched: {by_route}')
+            if name == 'moe_grouped_matmul_dx':
+                # the forward's routes over the transposed weight: bf16
+                # past the skinny bound on the tensor cores, the rest in
+                # moe_grouped_matmul.cu
+                records[-1]['cuda_core_source'] = \
+                    'paddle_tpu_torch/csrc/moe_grouped_matmul.cu'
             if name.startswith('flash_attention'):
                 # bf16 up to D = 128 (the main paths) on the tensor cores;
                 # float32 and bf16 past 128 on the CUDA cores

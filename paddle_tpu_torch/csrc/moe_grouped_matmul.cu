@@ -44,6 +44,16 @@
 // the tensor cores do not (moe_grouped_matmul_tc.cu takes bf16 prefill
 // rows): float32, which TF32 would round, and bf16 with K or N not a
 // multiple of 8 or unaligned pointers.
+//
+// With trans_w both paths compute the backward's dx = dy w[e]^T (the VJP
+// of ragged_dot in x, which XLA supplies to the JAX package) over the
+// forward's weight as it lies, (E, N, K) in these kernels' names: no
+// transposed copy of the expert weights is made. The skinny path's
+// weight rows then run along K, so each warp owns 8 output columns and
+// its 32 lanes stride over K by 16-byte loads of those 8 weight rows and
+// of the tile's x rows; a fixed shuffle tree adds the lanes. The tiled
+// path stages w[e]'s (N, K) tile as it stages x's, one 16-wide K slice
+// of 64 rows. The wrapper picks dx's route by the forward's rule.
 
 #include "common.cuh"
 #include "moe_grouped_matmul.cuh"
@@ -56,6 +66,7 @@ constexpr int kLanesN = 8;              // column lanes of a skinny block
 constexpr int kLanesK = kThreads / kLanesN;
 constexpr int kRowsK = 8;               // consecutive K rows a lane takes
 constexpr int kTileM = 64, kTileN = 64, kTileK = 16;
+constexpr int kColsWarp = 8;            // columns a warp owns, trans_w skinny
 
 // n elements of T from p (16-byte aligned, n * sizeof(T) a multiple of
 // 16) by 16-byte loads
@@ -175,7 +186,82 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// V elements of a row from k0: one 16-byte load when `vec` (rows and
+// pointer 16-byte aligned, K a multiple of V), else element by element,
+// zero past K or for an invalid row
+template <typename T, int V>
+__device__ __forceinline__ void load_k(float (&out)[V],
+                                       const T* __restrict__ row, int k0,
+                                       int K, bool valid, bool vec) {
+  if (valid && vec) {
+    pt::Pack<T, V> p;
+    ldg16<T, V>(p, row + k0);
+#pragma unroll
+    for (int v = 0; v < V; ++v) out[v] = pt::to_f32(p.v[v]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      out[v] = (valid && k0 + v < K) ? pt::to_f32(row[k0 + v]) : 0.f;
+  }
+}
+
+// the skinny path over a transposed weight (trans_w): w[e] is (N, K)
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    moe_skinny_t_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                        const int* __restrict__ offsets, T* __restrict__ y,
+                        int K, int N, int E, bool vec_ok) {
+  constexpr int V = 16 / sizeof(T);      // K elements a lane loads at once
+  constexpr int BN = kThreads / 32 * kColsWarp;
+  __shared__ int s_off[kMaxExperts + 1];
+  __shared__ Pair s_pair;
+  if (!find_pair(offsets, E, kSkinnyRows, blockIdx.x, s_off, &s_pair))
+    return;
+  const int r0 = s_pair.r0, rows = s_pair.r1 - s_pair.r0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = blockIdx.y * BN + warp * kColsWarp;
+  const T* __restrict__ we = w + static_cast<size_t>(s_pair.e) * K * N;
+
+  float acc[kSkinnyRows][kColsWarp];
+#pragma unroll
+  for (int r = 0; r < kSkinnyRows; ++r)
+#pragma unroll
+    for (int j = 0; j < kColsWarp; ++j) acc[r][j] = 0.f;
+
+  for (int k0 = lane * V; k0 < K; k0 += 32 * V) {
+    float xv[kSkinnyRows][V];
+#pragma unroll
+    for (int r = 0; r < kSkinnyRows; ++r)
+      load_k<T, V>(xv[r], x + static_cast<size_t>(r0 + r) * K, k0, K,
+                   r < rows, vec_ok);
+#pragma unroll
+    for (int j = 0; j < kColsWarp; ++j) {
+      float wv[V];
+      load_k<T, V>(wv, we + static_cast<size_t>(nw + j) * K, k0, K,
+                   nw + j < N, vec_ok);
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+#pragma unroll
+        for (int r = 0; r < kSkinnyRows; ++r)
+          acc[r][j] = fmaf(xv[r][v], wv[v], acc[r][j]);
+    }
+  }
+  // the 32 lanes' sums by a fixed shuffle tree; lane r * 8 + j stores
+  // row r, column j
+#pragma unroll
+  for (int r = 0; r < kSkinnyRows; ++r)
+#pragma unroll
+    for (int j = 0; j < kColsWarp; ++j) {
+#pragma unroll
+      for (int d = 16; d >= 1; d >>= 1)
+        acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], d);
+      if (lane == r * kColsWarp + j && r < rows && nw + j < N)
+        y[static_cast<size_t>(r0 + r) * N + nw + j] =
+            pt::from_f32<T>(acc[r][j]);
+    }
+}
+
+template <typename T, bool kTransW>
 __global__ void __launch_bounds__(kThreads)
     moe_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const int* __restrict__ offsets, T* __restrict__ y,
@@ -190,7 +276,8 @@ __global__ void __launch_bounds__(kThreads)
   const int nb = blockIdx.y * kTileN;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   // loads: x row tid / 4, K columns (tid % 4) * 4 ..; w K row tid / 16,
-  // columns (tid % 16) * 4 ..
+  // columns (tid % 16) * 4 .. (trans_w: w[e] (N, K) row tid / 4, K
+  // columns (tid % 4) * 4 .., as x)
   const int lr = tid / 4, lk = (tid % 4) * 4;
   const int wk = tid / 16, wn = (tid % 16) * 4;
   float xr[4], wr[4];
@@ -202,13 +289,24 @@ __global__ void __launch_bounds__(kThreads)
                   ? pt::to_f32(x[static_cast<size_t>(r0 + lr) * K + k])
                   : 0.f;
     }
-    const int k = k0 + wk;
+    if constexpr (kTransW) {
+      const int n = nb + lr;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = nb + wn + i;
-      wr[i] = (k < K && n < N)
-                  ? pt::to_f32(we[static_cast<size_t>(k) * N + n])
-                  : 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + lk + i;
+        wr[i] = (n < N && k < K)
+                    ? pt::to_f32(we[static_cast<size_t>(n) * K + k])
+                    : 0.f;
+      }
+    } else {
+      const int k = k0 + wk;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = nb + wn + i;
+        wr[i] = (k < K && n < N)
+                    ? pt::to_f32(we[static_cast<size_t>(k) * N + n])
+                    : 0.f;
+      }
     }
   };
   float acc[4][4];
@@ -222,7 +320,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       xs[lk + i][lr] = xr[i];
-      ws[wk][wn + i] = wr[i];
+      if constexpr (kTransW)
+        ws[lk + i][lr] = wr[i];
+      else
+        ws[wk][wn + i] = wr[i];
     }
     __syncthreads();
     if (k0 + kTileK < K) load(k0 + kTileK);
@@ -255,34 +356,46 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* offsets, void* y,
                    int R, int K, int N, int E, bool skinny, bool vec_ok,
-                   cudaStream_t stream) {
+                   bool trans_w, cudaStream_t stream) {
   const int bm = skinny ? kSkinnyRows : kTileM;
-  const int bn = skinny ? kLanesN * static_cast<int>(16 / sizeof(T)) : kTileN;
+  const int bn = !skinny ? kTileN
+                 : trans_w ? kThreads / 32 * kColsWarp
+                           : kLanesN * static_cast<int>(16 / sizeof(T));
   const dim3 grid((R + bm - 1) / bm + min(E, R), (N + bn - 1) / bn);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   const int* op = static_cast<const int*>(offsets);
   T* yp = static_cast<T*>(y);
-  if (skinny) {
+  if (skinny && trans_w) {
+    moe_skinny_t_kernel<T><<<grid, kThreads, 0, stream>>>(xp, wp, op, yp, K,
+                                                          N, E, vec_ok);
+  } else if (skinny) {
     moe_skinny_kernel<T><<<grid, kThreads, 0, stream>>>(xp, wp, op, yp, K, N,
                                                         E, vec_ok);
+  } else if (trans_w) {
+    moe_tiled_kernel<T, true><<<grid, kThreads, 0, stream>>>(xp, wp, op, yp,
+                                                             K, N, E);
   } else {
-    moe_tiled_kernel<T><<<grid, kThreads, 0, stream>>>(xp, wp, op, yp, K, N,
-                                                       E);
+    moe_tiled_kernel<T, false><<<grid, kThreads, 0, stream>>>(xp, wp, op, yp,
+                                                              K, N, E);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (R, K), w (E, K, N), offsets (E + 1) int32, y (R, N); dtype a
-// pt::DType of x and w; skinny 1 for the weight-streaming path, 0 for the
-// tiled one; vec_ok 1 when w's rows are 16-byte aligned (N a multiple of
-// 16 / element size and w aligned). R = 0 launches nothing.
+// x (R, K), w (E, K, N) or, with trans_w, (E, N, K) (y = x w[e]^T),
+// offsets (E + 1) int32, y (R, N); dtype a pt::DType of x and w; skinny 1
+// for the weight-streaming path, 0 for the tiled one; vec_ok 1 when the
+// skinny path may load 16 bytes at once: w's rows 16-byte aligned (N a
+// multiple of 16 / element size and w aligned), with trans_w x's and w's
+// rows (K a multiple of 16 / element size, x and w aligned). R = 0
+// launches nothing.
 extern "C" int pt_moe_grouped_matmul(int device, const void* x, const void* w,
                                      const void* offsets, void* y, int R,
                                      int K, int N, int E, int skinny,
-                                     int vec_ok, int dtype, void* stream) {
+                                     int vec_ok, int trans_w, int dtype,
+                                     void* stream) {
   cudaError_t err = pt::set_device(device);
   if (err != cudaSuccess) return err;
   if (R == 0 || N == 0) return cudaSuccess;
@@ -290,9 +403,9 @@ extern "C" int pt_moe_grouped_matmul(int device, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == pt::kBF16)
     return launch<__nv_bfloat16>(x, w, offsets, y, R, K, N, E, skinny != 0,
-                                 vec_ok != 0, s);
+                                 vec_ok != 0, trans_w != 0, s);
   if (dtype == pt::kF32)
     return launch<float>(x, w, offsets, y, R, K, N, E, skinny != 0,
-                         vec_ok != 0, s);
+                         vec_ok != 0, trans_w != 0, s);
   return cudaErrorInvalidValue;
 }

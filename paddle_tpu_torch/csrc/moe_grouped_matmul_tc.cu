@@ -15,6 +15,13 @@
 // skinny bound with K % 8 == 0, N % 8 == 0 and 16-byte-aligned x and w;
 // the C entry refuses anything else.
 //
+// With trans_w the same kernel computes the backward's dx = dy w[e]^T
+// (the VJP of ragged_dot in x, which XLA supplies to the JAX package):
+// w lies as the forward's weight, (E, N, K) in this kernel's names, and
+// its tile is staged K-major as x's is (below), so no transposed copy of
+// the expert weights is made (370 MB a weight a layer at MoEConfig()'s
+// widths). The wrapper picks dx's route by the forward's rule.
+//
 // What bounds it. A 512-token prefill at top 6 over 64 experts puts ~48
 // rows on each expert (R = 3072); Mixtral's top 2 over 8 puts ~128 (R =
 // 1024). There 2 R K N operations take 0.3-0.4x of the time the experts'
@@ -55,6 +62,9 @@
 // 64 x 256 tile lies as four 64-column d-blocks of 64 K rows x 128 bytes
 // in the same swizzle (the image flash_attention_tc.cu stages V in), read
 // through desc_sw128_mn with the d-block stride as the leading offset.
+// With trans_w, w[e] is (N, K): the strip's 256 rows of 64 K columns lie
+// as x's tile does (32 KB, K-major, 128-byte swizzle), read through
+// desc_sw128 with the transpose bit clear.
 //
 // Order: each output is one warpgroup's float32 sum over K in a fixed
 // order (no split-K, no atomics), so the result is bitwise repeatable.
@@ -95,6 +105,7 @@ constexpr int kWBytes = (kBN / 64) * kDBlock;
 constexpr int kStageBytes = kXBytes + kWBytes;
 constexpr int kSmemBytes = kStages * kStageBytes + 1024;   // + alignment
 
+template <bool kTransW>
 __global__ void __launch_bounds__(kThreads, 1)
     moe_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                   const int* __restrict__ offsets, bf16* __restrict__ y,
@@ -132,17 +143,32 @@ __global__ void __launch_bounds__(kThreads, 1)
         cp_async16(xs + r * 128 + ((c ^ (r & 7)) << 4),
                    ok ? x + static_cast<int64_t>(r0 + r) * K + gk : x, ok);
       }
-      // a warp takes one K row's 32 chunks: 512 consecutive bytes
       const uint32_t ws = xs + kXBytes;
+      if constexpr (kTransW) {
+        // w[e] is (N, K): the strip's 256 rows of 64 K columns, K-major
+        // as the x tile lies (row n's chunk c at c ^ (n % 8)); 8 threads
+        // take a row's 128 bytes
 #pragma unroll
-      for (int i = 0; i < kBK * (kBN / 8) / kThreads; ++i) {
-        const int idx = tid + i * kThreads;
-        const int kr = idx >> 5, c = idx & 31;
-        const int gk = k0 + kr, gn = n0 + 8 * c;
-        const bool ok = gk < K && gn < N;
-        cp_async16(ws + (c >> 3) * kDBlock + kr * 128 +
-                       (((c & 7) ^ (kr & 7)) << 4),
-                   ok ? we + static_cast<int64_t>(gk) * N + gn : w, ok);
+        for (int i = 0; i < kBN * 8 / kThreads; ++i) {
+          const int idx = tid + i * kThreads;
+          const int n = idx >> 3, c = idx & 7;
+          const int gn = n0 + n, gk = k0 + 8 * c;
+          const bool ok = gn < N && gk < K;
+          cp_async16(ws + n * 128 + ((c ^ (n & 7)) << 4),
+                     ok ? we + static_cast<int64_t>(gn) * K + gk : w, ok);
+        }
+      } else {
+        // a warp takes one K row's 32 chunks: 512 consecutive bytes
+#pragma unroll
+        for (int i = 0; i < kBK * (kBN / 8) / kThreads; ++i) {
+          const int idx = tid + i * kThreads;
+          const int kr = idx >> 5, c = idx & 31;
+          const int gk = k0 + kr, gn = n0 + 8 * c;
+          const bool ok = gk < K && gn < N;
+          cp_async16(ws + (c >> 3) * kDBlock + kr * 128 +
+                         (((c & 7) ^ (kr & 7)) << 4),
+                     ok ? we + static_cast<int64_t>(gk) * N + gn : w, ok);
+        }
       }
     }
     cp_async_commit();
@@ -168,9 +194,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_ss_m64n256k16_tb(acc, desc_sw128(xa + 32 * kk),
-                               desc_sw128_mn(wb + kk * 16 * 128, kDBlock));
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        if constexpr (kTransW)
+          wgmma_ss_m64n256k16<0, 0>(acc, desc_sw128(xa + 32 * kk),
+                                    desc_sw128(wb + 32 * kk));
+        else
+          wgmma_ss_m64n256k16<0, 1>(
+              acc, desc_sw128(xa + 32 * kk),
+              desc_sw128_mn(wb + kk * 16 * 128, kDBlock));
+      }
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(acc);
@@ -203,15 +235,39 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <bool kTransW>
+cudaError_t launch_tc(int device, const void* x, const void* w,
+                      const void* offsets, void* y, int R, int K, int N,
+                      int E, cudaStream_t stream) {
+  // the dynamic shared memory past 48 KB is allowed once per device
+  static unsigned long long opted = 0;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(opted & bit)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        moe_tc_kernel<kTransW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (err != cudaSuccess) return err;
+    opted |= bit;
+  }
+  const dim3 grid((R + kBM - 1) / kBM + min(E, R), (N + kBN - 1) / kBN);
+  moe_tc_kernel<kTransW><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const int*>(offsets), static_cast<bf16*>(y), K, N, E);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x (R, K), w (E, K, N), offsets (E + 1) int32, y (R, N), contiguous;
-// dtype must be bf16, K and N multiples of 8, x, w and y 16-byte aligned;
-// refuses anything else. R = 0 or N = 0 launches nothing.
+// x (R, K), w (E, K, N) or, with trans_w, (E, N, K) (y = x w[e]^T: the
+// backward's dx over the forward's weight as it lies), offsets (E + 1)
+// int32, y (R, N), contiguous; dtype must be bf16, K and N multiples of
+// 8, x, w and y 16-byte aligned; refuses anything else. R = 0 or N = 0
+// launches nothing.
 extern "C" int pt_moe_grouped_matmul_tc(int device, const void* x,
                                         const void* w, const void* offsets,
                                         void* y, int R, int K, int N, int E,
-                                        int dtype, void* stream) {
+                                        int trans_w, int dtype,
+                                        void* stream) {
   cudaError_t err = pt::set_device(device);
   if (err != cudaSuccess) return err;
   if (dtype != pt::kBF16 || R < 0 || K < 0 || N < 0 || K % 8 || N % 8 ||
@@ -219,20 +275,7 @@ extern "C" int pt_moe_grouped_matmul_tc(int device, const void* x,
       !pt::aligned16(y))
     return cudaErrorInvalidValue;
   if (R == 0 || N == 0) return cudaSuccess;
-  // the dynamic shared memory past 48 KB is allowed once per device
-  static unsigned long long opted = 0;
-  const unsigned long long bit = 1ull << (device & 63);
-  if (!(opted & bit)) {
-    err = cudaFuncSetAttribute(moe_tc_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return err;
-    opted |= bit;
-  }
-  const dim3 grid((R + kBM - 1) / kBM + min(E, R), (N + kBN - 1) / kBN);
-  moe_tc_kernel<<<grid, kThreads, kSmemBytes,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const int*>(offsets), static_cast<bf16*>(y), K, N, E);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return trans_w ? launch_tc<true>(device, x, w, offsets, y, R, K, N, E, s)
+                 : launch_tc<false>(device, x, w, offsets, y, R, K, N, E, s);
 }

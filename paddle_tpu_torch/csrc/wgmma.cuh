@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (quant_matmul_tc.cu, flash_attention_tc.cu, moe_grouped_matmul_tc.cu):
+// (quant_matmul_tc.cu, flash_attention_tc.cu, moe_grouped_matmul_tc.cu,
+// moe_grouped_matmul_dw.cu):
 // addresses and 16- / 4-byte
 // cp.async copies into shared memory, the proxy fence, wgmma descriptors
 // of 128-byte-swizzled tiles, and the wgmma instructions in the shapes
@@ -154,12 +155,13 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
 }
 
 // d (64 x 256 per warpgroup, float32) += A (64 x 16) * B (16 x 256), both
-// bf16 in shared memory: A K-major, B MN-major (transposed: N contiguous,
-// as a (K, N) weight lies) over four 64-column d-blocks, read through
-// desc_sw128_mn
-__device__ __forceinline__ void wgmma_ss_m64n256k16_tb(float (&d)[128],
-                                                       uint64_t a,
-                                                       uint64_t b) {
+// bf16 in shared memory. kTransA / kTransB are wgmma's transpose bits: 0
+// reads the operand K-major (desc_sw128), 1 MN-major (desc_sw128_mn; M or
+// N contiguous, as a (K, N) weight lies: B then spans four 64-column
+// d-blocks, with the d-block stride as the descriptor's leading offset)
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss_m64n256k16(float (&d)[128],
+                                                    uint64_t a, uint64_t b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -176,7 +178,7 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16_tb(float (&d)[128],
       "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
       "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
       "%127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n"
+      "%128, %129, p, 1, 1, %131, %132;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -204,7 +206,7 @@ __device__ __forceinline__ void wgmma_ss_m64n256k16_tb(float (&d)[128],
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
 // The float32 accumulator of an m64nN wgmma, per thread: warp w of the

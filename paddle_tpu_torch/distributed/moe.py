@@ -15,6 +15,15 @@ Two dispatch forms compute the experts, as in the JAX package:
   order. On the card it reads nothing on the host, so the layer's
   dropless forward can be captured in a CUDA graph.
 
+Both forms train: every step is differentiable (the router's float32
+product, the top-k sort and renormalisation, the aux loss through
+`probs.mean`, the gathers, gate scaling, inverse permutation and k-way
+sum, the shared experts), and under a gradient the grouped product runs
+`ops.moe_grouped_matmul`'s autograd Function, whose backward launches
+X1's dx and dW kernels on the card (one launch each, the offsets on the
+device) and their plain versions on the CPU. The dense form's einsums
+and batched products differentiate as PyTorch's own.
+
 The cached forward of `models.moe_lm` always routes dropless. Expert
 weights are dense tensors: the `NaiveGate` / `SwitchGate` / `GShardGate`
 classes, quantized expert weights (`QuantizedExpertWeight`, and with it

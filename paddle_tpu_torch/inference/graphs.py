@@ -133,6 +133,8 @@ def _counters():
     """The Python launch counters a replay must advance."""
     return (_build.LAUNCHES, quant_matmul.PATH_LAUNCHES,
             moe_grouped_matmul.PATH_LAUNCHES,
+            moe_grouped_matmul.DX_PATH_LAUNCHES,
+            moe_grouped_matmul.DW_PATH_LAUNCHES,
             flash_attention.FLASH_PATH_LAUNCHES)
 
 

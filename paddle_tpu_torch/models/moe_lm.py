@@ -12,7 +12,10 @@ which drops routings past an expert's capacity, as in the JAX package).
 The model generates through `GenerationMixin.generate` (greedy, sampled,
 eos, left-padded `attention_mask`, `kv_cache_int8`),
 `inference.DecodeEngine` and speculative decoding (`generate_speculative`
-as target, draft or both). It has no `block_tables`, so
+as target, draft or both), and trains dropless or dense: `loss` (the
+float32 NLL plus `aux_loss_weight` times the layers' aux loss) under
+`training.TrainEngine`, X1's backward on its dx and dW kernels. It has
+no `block_tables`, so
 `ServingEngine` refuses it, as the JAX engine does. Quantized expert
 weights are not ported (ROADMAP B4): `quantize_weights(8)` raises
 (`quantization.quantize_matmul_weights`).

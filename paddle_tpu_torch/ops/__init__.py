@@ -193,12 +193,11 @@ def moe_grouped_matmul(x, w, offsets):
     expert, w (E, K, N) in x's dtype, offsets (E + 1,) int32 from 0 to R
     -> (R, N), each expert's rows times its weight with float32 sums. On
     the card the offsets stay on the device (one launch, no host read).
-    Inference only: raises when x or w needs a gradient."""
+    Differentiable in x and w: under a gradient it runs
+    `MoEGroupedMatmulFn`, whose backward launches the dx and dw kernels
+    on the card and takes their plain versions on the CPU."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            'moe_grouped_matmul has no backward yet: MoE training is not '
-            'ported (ROADMAP B6); run the dropless path under '
-            'torch.no_grad()')
+        return _moe.MoEGroupedMatmulFn.apply(x, w, offsets)
     fn = (_moe.moe_grouped_matmul if on_card(x, 'moe_grouped_matmul')
           else _moe.moe_grouped_matmul_plain)
     return fn(x, w, offsets)

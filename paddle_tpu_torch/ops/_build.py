@@ -43,7 +43,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 # _bwd_seg), K5w / K6w (flash_attention_fwd_window / _bwd_window), K8q
 # (paged_decode_attention_int8), K9 (decode_attention_headmajor), K10f8
 # (quant_matmul_fp8). X1 (moe_grouped_matmul) replaces XLA's ragged_dot,
-# not a Pallas kernel.
+# not a Pallas kernel; its backward counts dx (moe_grouped_matmul_dx) and
+# dW (moe_grouped_matmul_dw) apart.
 LAUNCHES = {'rms_norm': 0, 'rms_norm_bwd': 0, 'softmax_xent_fwd': 0,
             'softmax_xent_bwd': 0, 'flash_attention_fwd': 0,
             'flash_attention_fwd_seg': 0, 'flash_attention_fwd_window': 0,
@@ -52,7 +53,8 @@ LAUNCHES = {'rms_norm': 0, 'rms_norm_bwd': 0, 'softmax_xent_fwd': 0,
             'paged_decode_attention': 0, 'paged_decode_attention_int8': 0,
             'decode_attention': 0, 'decode_attention_headmajor': 0,
             'quant_matmul': 0, 'quant_matmul_int4': 0,
-            'quant_matmul_fp8': 0, 'moe_grouped_matmul': 0}
+            'quant_matmul_fp8': 0, 'moe_grouped_matmul': 0,
+            'moe_grouped_matmul_dx': 0, 'moe_grouped_matmul_dw': 0}
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -90,9 +92,11 @@ _SIGNATURES = {
     'pt_quant_matmul_tc': [_I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                            _I, _I, _VP],
     'pt_moe_grouped_matmul': [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                              _I, _VP],
+                              _I, _I, _VP],
     'pt_moe_grouped_matmul_tc': [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                 _VP],
+                                 _I, _VP],
+    'pt_moe_grouped_matmul_dw': [_I, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                 _I, _VP],
 }
 
 _lib = None

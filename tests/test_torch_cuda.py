@@ -1857,6 +1857,137 @@ def test_moe_grouped_matmul_no_rows_and_refusals(card):
                                              device=card))
 
 
+# X1's backward: (T, E, k, K, N, empty experts) of the forward product
+# x (R, K) @ w[e] (K, N): odd widths (no 16-byte rows, a column tail), K
+# past a staged chunk, most experts empty, the 64-expert model's b1
+# prefill (gate / up) and decode, and no rows at all
+X1_BWD_SHAPES = [(5, 6, 2, 37, 100, (1, 4)), (40, 6, 3, 600, 72, (0,)),
+                 (3, 11, 1, 64, 64, (2, 3, 5, 6, 7, 8, 9)),
+                 (512, 64, 6, 2048, 1408, ()), (8, 64, 6, 1408, 2048, ()),
+                 (0, 4, 2, 64, 48, ())]
+
+
+def _x1_bwd_inputs(card, T, E, k, K, N, dtype, empty):
+    rng = np.random.default_rng(T + K + N)
+    x, w, off = _x1_inputs(card, rng, T, E, k, K, N, dtype, empty)
+    dy = _randn(rng, (x.shape[0], N), card, dtype, 0.02)
+    return x, w, dy, off
+
+
+def _x1_close(got, want, dtype):
+    rtol, atol = X1_TOL[dtype]
+    scale = want.abs().max().item() if want.numel() else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol * max(scale, 1e-30))
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('p', ['skinny', 'tiled', 'tensor_core'])
+@pytest.mark.parametrize('T,E,k,K,N,empty', X1_BWD_SHAPES)
+def test_moe_grouped_matmul_dx_paths(card, p, T, E, k, K, N, empty, dtype):
+    """dx = dy w[e]^T on every route against the plain version, bitwise
+    repeatable, one CUDA kernel a call (none at R = 0); the tensor-core
+    route refuses what it does not take."""
+    x, w, dy, off = _x1_bwd_inputs(card, T, E, k, K, N, dtype, empty)
+    if p == 'tensor_core' and (dtype != torch.bfloat16 or K % 8 or N % 8):
+        with pytest.raises(ValueError, match='tensor-core path takes'):
+            k_moe.launch_dx_path(p, dy, w, off)
+        return
+    before = _build.LAUNCHES['moe_grouped_matmul_dx']
+    got = k_moe.launch_dx_path(p, dy, w, off)
+    assert got.shape == x.shape and got.dtype == dtype
+    assert _build.LAUNCHES['moe_grouped_matmul_dx'] == before + (T > 0)
+    _x1_close(got, k_moe.moe_grouped_matmul_dx_plain(dy, w, off), dtype)
+    assert torch.equal(got, k_moe.launch_dx_path(p, dy, w, off))
+    if T:
+        assert _build.kernels_per_call(
+            lambda: k_moe.launch_dx_path(p, dy, w, off), card) == 1
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('p', ['tiled', 'tensor_core'])
+@pytest.mark.parametrize('T,E,k,K,N,empty', X1_BWD_SHAPES)
+def test_moe_grouped_matmul_dw_paths(card, p, T, E, k, K, N, empty, dtype):
+    """dw[e] = x_e^T dy_e on both routes against the plain version: zero
+    for every expert with no rows (all of them at R = 0, which launches
+    too), bitwise repeatable, one CUDA kernel a call."""
+    x, w, dy, off = _x1_bwd_inputs(card, T, E, k, K, N, dtype, empty)
+    if p == 'tensor_core' and (dtype != torch.bfloat16 or K % 8 or N % 8):
+        with pytest.raises(ValueError, match='tensor-core path takes'):
+            k_moe.launch_dw_path(p, x, dy, off)
+        return
+    got = k_moe.launch_dw_path(p, x, dy, off)
+    want = k_moe.moe_grouped_matmul_dw_plain(x, dy, off)
+    assert got.shape == w.shape and got.dtype == dtype
+    _x1_close(got, want, dtype)
+    sizes = (off[1:] - off[:-1]).cpu()
+    assert not got[sizes == 0].any()
+    assert torch.equal(got, k_moe.launch_dw_path(p, x, dy, off))
+    assert _build.kernels_per_call(
+        lambda: k_moe.launch_dw_path(p, x, dy, off), card) == 1
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_moe_grouped_matmul_backward_launches_kernels(card, dtype):
+    """ops.moe_grouped_matmul under a gradient on CUDA tensors: one
+    forward, one dx and one dW launch on the route rules' paths, and
+    never the plain versions (patched to raise); the gradients equal the
+    plain versions'."""
+    from unittest import mock
+
+    x, w, dy, off = _x1_bwd_inputs(card, 512, 64, 6, 2048, 1408, dtype, ())
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    keys = ('moe_grouped_matmul', 'moe_grouped_matmul_dx',
+            'moe_grouped_matmul_dw')
+    before = [_build.LAUNCHES[k] for k in keys]
+    routes = (dict(k_moe.DX_PATH_LAUNCHES), dict(k_moe.DW_PATH_LAUNCHES))
+
+    def refuse(*a, **kw):
+        raise AssertionError('a CUDA tensor reached a plain version')
+
+    with mock.patch.multiple(k_moe, moe_grouped_matmul_plain=refuse,
+                             moe_grouped_matmul_dx_plain=refuse,
+                             moe_grouped_matmul_dw_plain=refuse):
+        ops.moe_grouped_matmul(xg, wg, off).backward(dy)
+    torch.cuda.synchronize()
+    assert [_build.LAUNCHES[k] for k in keys] == [b + 1 for b in before]
+    want = 'tensor_core' if dtype == torch.bfloat16 else 'tiled'
+    assert k_moe.DX_PATH_LAUNCHES[want] == routes[0][want] + 1
+    assert k_moe.DW_PATH_LAUNCHES[want] == routes[1][want] + 1
+    _x1_close(xg.grad, k_moe.moe_grouped_matmul_dx_plain(dy, w, off), dtype)
+    _x1_close(wg.grad, k_moe.moe_grouped_matmul_dw_plain(x, dy, off), dtype)
+
+
+def test_moe_model_trains_on_the_card(card):
+    """A bf16 MoEForCausalLM (dropless, 8 experts top 2, a shared expert)
+    through TrainEngine + AdamW on one repeated batch: the loss falls,
+    every step launches 3L X1, 3L dx and 3L dW kernels, and the router and
+    experts move."""
+    from paddle_tpu_torch.models.moe_lm import MoEForCausalLM, moe_tiny
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.training import TrainEngine
+
+    cfg = moe_tiny(vocab_size=128, num_experts=8, dispatch_mode='ragged')
+    model = MoEForCausalLM(cfg, device=card, dtype='bfloat16', seed=0)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    eng = TrainEngine(model, AdamW(learning_rate=1e-2), log_window=5)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 128, (4, 129))).to(card)
+    keys = ('moe_grouped_matmul', 'moe_grouped_matmul_dx',
+            'moe_grouped_matmul_dw')
+    before = [_build.LAUNCHES[k] for k in keys]
+    for _ in range(5):
+        logs = eng.step((ids,))
+    L = cfg.num_hidden_layers
+    assert [_build.LAUNCHES[k] - b for k, b in zip(keys, before)] == \
+        [3 * L * 5] * 3
+    assert all(np.isfinite(logs['losses']))
+    assert logs['losses'][-1] < logs['losses'][0]
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), start[n])]
+    assert not still, still
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_moe_layer_dropless_in_a_cuda_graph(card, dtype):
     """The dropless layer's forward (gating, sort, offsets, three X1

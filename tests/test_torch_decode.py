@@ -40,6 +40,11 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
 from paddle_tpu_torch.ops.hopper import decode_attention as t_decode
 from paddle_tpu_torch.ops.hopper import paged_attention as t_paged
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
 # float32 on both sides; the two differ only in summation order
 DECODE_TOL = dict(rtol=2e-5, atol=2e-5)
 CFG = dict(vocab_size=96, hidden_size=64, layers=2)

@@ -31,6 +31,12 @@ from paddle_tpu_torch.inference import graphs
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 CFG = dict(vocab_size=64, hidden_size=32, layers=1, heads=4, kv_heads=2,
            intermediate_size=64, max_pos=64)
 # two slots, 4-token pages, windows of 2: each request's budget of 2

@@ -39,6 +39,12 @@ from paddle_tpu_torch.incubate.nn import functional as TF
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.hopper import headmajor_attention as t_hm
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 # float32 on both sides: summation order only
 TOL = dict(rtol=2e-5, atol=2e-5)
 # a whole decoder stack in float32 (a few layers of products)

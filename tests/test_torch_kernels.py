@@ -28,6 +28,12 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops.hopper import paged_attention as t_paged
 from paddle_tpu_torch.ops.hopper import rms_norm as t_rms
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # float32 on both sides; the two differ only in summation order

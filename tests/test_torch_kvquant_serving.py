@@ -40,6 +40,12 @@ from paddle_tpu_torch.models.generation import (QuantPagedKVCache,
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 from paddle_tpu_torch.ops.hopper import paged_attention as t_paged
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 # float32 on both sides; the two differ only in summation order (the
 # tolerance of tests/test_paged_attention.py for the Pallas kernel)
 PAGED_TOL = dict(rtol=2e-4, atol=2e-4)

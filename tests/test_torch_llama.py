@@ -23,6 +23,11 @@ from paddle_tpu_torch.framework import io
 from paddle_tpu_torch.inference.serving import _prefill_kv
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
 # float32 on both sides; summation order differs between XLA and PyTorch
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
 

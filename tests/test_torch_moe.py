@@ -6,7 +6,8 @@ weights and inputs (float32, CPU).
   1e-6).
 - `ragged_expert_apply` (the grouped product X1's plain version under
   it) equal to the JAX function within 1e-5, also with experts that
-  receive no rows; X1's plain version and its path rule.
+  receive no rows; X1's plain version, its gradient on CPU tensors and
+  its path rule (the rest of MoE training: tests/test_torch_moe_train.py).
 - `MoELayer` equal to the JAX layer within 1e-5: dropless, dense with
   capacity drops and 'ragged', with and without shared experts, k = 1,
   2, 3, the aux loss (returned and in the buffer); the 'auto' warning.
@@ -22,7 +23,8 @@ weights and inputs (float32, CPU).
   token-equal to the JAX package's with equal accept counts;
   `generate_speculative_sampled`'s properties.
 - The Mixtral converter and `fused_moe` (float32, bf16, weight-only
-  int8) against the JAX ones; every refusal.
+  int8) against the JAX ones; the converted model's loss and gradients
+  against `jax.grad`; every refusal.
 
 JAX references run under `jax.jit` (its eager ops compile one by one),
 each model built once per module, its random weights drawn by numpy
@@ -39,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu import autograd as jautograd
 from paddle_tpu.distributed import moe as jmoe
 from paddle_tpu.incubate.nn import functional as jinc
 from paddle_tpu.inference import engine as jengine
@@ -59,6 +62,12 @@ from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM, moe_tiny
 from paddle_tpu_torch.ops.hopper import moe_grouped_matmul as x1
 from paddle_tpu_torch.quantization import quantize_matmul_weights
+
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -168,8 +177,13 @@ def test_grouped_matmul_plain_and_rules():
                                                       dtype=torch.int32))
     with pytest.raises(TypeError, match='share a dtype'):
         ops.moe_grouped_matmul(x, w.double(), off)
-    with pytest.raises(NotImplementedError, match='no backward'):
-        ops.moe_grouped_matmul(x, w.requires_grad_(), off)
+    # under a gradient: the autograd Function, on CPU tensors over the
+    # plain backward (dw[e] = x_e^T dy_e, zero for the empty experts)
+    ops.moe_grouped_matmul(x, w.requires_grad_(), off).sum().backward()
+    for e, (a, b) in enumerate(((0, 0), (0, 4), (4, 4), (4, 7))):
+        np.testing.assert_allclose(
+            w.grad[e].numpy(),
+            x[a:b].sum(0)[:, None].expand(5, 3).numpy(), **TOL)
     with pytest.raises(ValueError, match='CUDA device'):
         x1.moe_grouped_matmul(x, w.detach(), off)
     # the skinny path while R <= 8 E: every decode shape of the slice;
@@ -584,16 +598,27 @@ def _mixtral_state(cfg, seed=5):
     return sd
 
 
+@functools.lru_cache(maxsize=None)
+def _mixtral_models():
+    """(JAX, port) models converted from one seeded Mixtral state, made
+    once (nothing trains them in place)."""
+    jcfg = jconvert.hf_mixtral_config(MIXTRAL)
+    tcfg = tconvert.hf_mixtral_config(MIXTRAL)
+    sd = _mixtral_state(MIXTRAL)
+    with _numpy_init(5):
+        jm = jconvert.from_hf_mixtral(sd, jcfg)
+    tm = tconvert.from_hf_mixtral(
+        {k: torch.from_numpy(v) for k, v in sd.items()}, tcfg, device='cpu')
+    return jm, tm
+
+
 def test_mixtral_converter_equal_jax():
     jcfg = jconvert.hf_mixtral_config(MIXTRAL)
     tcfg = tconvert.hf_mixtral_config(MIXTRAL)
     assert vars(tcfg) == vars(jcfg)
     assert tcfg.dispatch_mode == 'ragged' and tcfg.num_shared_experts == 0
     sd = _mixtral_state(MIXTRAL)
-    with _numpy_init(5):
-        jm = jconvert.from_hf_mixtral(sd, jcfg)
-    tm = tconvert.from_hf_mixtral(
-        {k: torch.from_numpy(v) for k, v in sd.items()}, tcfg, device='cpu')
+    jm, tm = _mixtral_models()
     want = {k: _np(v) for k, v in jm.state_dict().items()}
     got = io.jax_state_dict(tm)
     assert set(got) == set(want)
@@ -608,6 +633,28 @@ def test_mixtral_converter_equal_jax():
     np.testing.assert_allclose(float(aux), float(waux), rtol=1e-5)
     bf = tconvert.from_hf_mixtral(sd, tcfg, dtype='bfloat16', device='cpu')
     assert bf.layers[0].moe.experts.w_down.dtype == torch.bfloat16
+
+
+def test_mixtral_converted_model_gradients_equal_jax():
+    """The converted model trains dropless: its loss (NLL + the
+    router's aux loss, aux_loss_weight 0.01) and every parameter's
+    gradient against jax.grad of the JAX converted model's loss."""
+    jm, tm = _mixtral_models()
+    ids = _ids(8, 2, 11, 64)
+    value, grads = jax.jit(jautograd.value_and_grad(
+        lambda m, x: m.loss(x)))(jm, jnp.asarray(ids))
+    want = {io.port_name(k): _np(v) for k, v in grads.state_dict().items()
+            if v is not None}
+    tm.zero_grad(set_to_none=True)
+    loss = tm.loss(torch.from_numpy(ids))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(value), **TOL)
+    got = {n: p.grad for n, p in tm.named_parameters()}
+    assert set(got) == set(want)
+    for name, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[name], err_msg=name,
+                                   **TOL)
+    tm.zero_grad(set_to_none=True)
 
 
 def test_mixtral_converter_refusals():

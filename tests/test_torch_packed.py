@@ -30,6 +30,12 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.hopper import flash_attention as t_flash
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 # float32 on both sides, summation order apart (tests/test_torch_train_
 # kernels.py)
 FLASH_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -41,6 +41,12 @@ from paddle_tpu_torch.models.generation import QuantKVCache, RowQuantKVCache
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            cached_attention, llama_tiny)
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 CFG = dict(vocab_size=96, hidden_size=64, layers=2)
 TOL = {'float32': dict(rtol=1e-5, atol=1e-5),
        'bfloat16': dict(rtol=2e-2, atol=2e-2)}

@@ -30,6 +30,12 @@ from paddle_tpu_torch.nn import quant as nq
 from paddle_tpu_torch.ops.hopper import quant_matmul as tq
 from paddle_tpu_torch.quantization import quantize_matmul_weights
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 # float32 sums over the raw codes in another order: the products are
 # exact in both, the sums differ by rounding
 MM_TOL = dict(rtol=1e-5, atol=1e-4)

@@ -27,6 +27,12 @@ from paddle_tpu_torch.framework import io
 from paddle_tpu_torch.inference import DecodeEngine, ServingEngine
 from paddle_tpu_torch.models import convert
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 # float32 on both sides, summation order apart (tests/test_torch_llama.py)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 

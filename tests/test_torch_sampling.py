@@ -34,6 +34,12 @@ from paddle_tpu_torch.inference.serving import (_SUB_PROPOSE, _filtered,
 from paddle_tpu_torch.models.generation import filter_logits_batched
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 V = 96
 KW = dict(max_slots=3, block_size=8, max_context_len=64, max_new_tokens=12,
           decode_window=4, buckets=(16, 64))

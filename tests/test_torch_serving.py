@@ -23,6 +23,12 @@ from paddle_tpu_torch.inference import (BlockAllocator, OutOfBlocks,
                                         Request, RequestQueue, ServingEngine)
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 CFG = dict(vocab_size=96, hidden_size=64, layers=2)
 
 

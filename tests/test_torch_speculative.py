@@ -44,6 +44,12 @@ from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 V = 96
 CFG = dict(vocab_size=V, hidden_size=64, layers=2)
 

@@ -32,6 +32,12 @@ from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW, lr
 from paddle_tpu_torch.training import TrainEngine
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 CFG = dict(vocab_size=128, hidden_size=64, layers=2, heads=4, kv_heads=2,
            intermediate_size=128, max_pos=256)
 # float32 on both sides; the two differ in summation order only

@@ -28,6 +28,12 @@ from paddle_tpu_torch.ops.hopper import flash_attention as t_flash
 from paddle_tpu_torch.ops.hopper import rms_norm as t_rms
 from paddle_tpu_torch.ops.hopper import softmax_xent as t_xent
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 # float32 on both sides; the two differ only in summation order
 TOL = dict(rtol=1e-5, atol=1e-5)
 # attention sums up to 256 products per score and per gradient entry

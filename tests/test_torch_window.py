@@ -41,6 +41,12 @@ from paddle_tpu_torch.ops.hopper import flash_attention as t_flash
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.training import TrainEngine
 
+# Parallel test workers (pytest-xdist) share the machine's cores: one
+# intra-op thread a worker keeps PyTorch's CPU ops (on tensors far too
+# small to gain from more) from oversubscribing them.
+torch.set_num_threads(1)
+
+
 # float32 on both sides, summation order apart (tests/test_torch_train_
 # kernels.py): attention sums up to a few hundred products per entry
 FLASH_TOL = dict(rtol=1e-4, atol=1e-5)
