@@ -158,7 +158,9 @@ Phases, in order (any failure exits non-zero and prints no result):
               DecodeEngine and ServingEngine (float32 and int8 pages,
               prefix cache and chunked prefill) equal to the
               non-speculative ones, through the kernels and the plain
-              versions, and a self-draft accepting every proposal.
+              versions, and a self-draft accepting every proposal. Every
+              speculative window replays its CUDA graph (warmed before
+              the timed runs: capture seconds and bytes per geometry).
  14. moe      the MoE language model (MoEForCausalLM), run right after
               phase 3 so that its trace is the process's first profiler
               session: (a) MoEConfig() at the JAX package's defaults,
@@ -198,10 +200,20 @@ Phases, in order (any failure exits non-zero and prints no result):
               each; (b) generate b1 / b8 at that width and (c)
               MoEConfig() b8, greedy and sampled: the replayed step's
               tokens equal to the direct steps', ms per decode forward
-              of each; (d) in a fresh process (`--graphs-profile`,
-              whose first profiler sessions they are), the device-busy
-              share of one direct and one replayed window, generate b8
-              step and MoE b8 step.
+              of each; (d) the speculative windows at that width with a
+              2-layer draft: phase 4's engine over bf16 and int8 pools,
+              greedy and sampled, replayed against a direct _spec_window
+              call on cloned state (candidates, commit counts, next
+              tokens, carried logits, both models' pools past the
+              scratch page bit-equal),
+              and generate_speculative b1 / b8 and the sampled b1 (the
+              same seed) against their windows run directly, ms per
+              window of each, capture seconds and bytes; (e) in a fresh
+              process (`--graphs-profile`, whose first profiler
+              sessions they are), the device-busy share of one direct
+              and one replayed window, speculative window, generate b8
+              step and MoE b8 step, each replay's traced launches equal
+              to its capture's counts.
  16. moe train MoE training, X1's backward on its dx and dW kernels:
               (a) one MoELayer(dispatch_mode='ragged') at MoEConfig()'s
               widths in float32 over 2 x 2048 tokens, the output and
@@ -2006,10 +2018,11 @@ def capture_logits(torch, model, fn):
 
 @contextlib.contextmanager
 def direct_steps():
-    """generate's decode step run directly, the eager reference, in place
-    of its captured graph (a runner off the card calls the body): Python
-    then runs every step, so forward hooks see every forward and the
-    plain versions, which read the device on the host, can run."""
+    """generate's decode step and generate_speculative's windows run
+    directly, the eager reference, in place of their captured graphs (a
+    runner off the card calls the body): Python then runs every step, so
+    forward hooks see every forward and the plain versions, which read
+    the device on the host, can run."""
     from paddle_tpu_torch.inference.graphs import GraphRunner
     from paddle_tpu_torch.models import generation
 
@@ -3588,6 +3601,25 @@ def verify_gap(torch, model, prompt, tokens, k, tol):
         raise AssertionError(f'spec bf16: verify logits moved {gap} > {tol}')
 
 
+def spec_warmup(eng, draft, prompt_lens, B, k, label, card):
+    """DecodeEngine.warmup over the decode_spec geometries of these
+    prompt lengths at batch B and the engine's budget (the windows of
+    the calls that follow, captured before them); prints the report and
+    each window's capture seconds and reserved bytes."""
+    from paddle_tpu_torch.inference.graphs import for_decode_engine
+    from paddle_tpu_torch.models.generation import _decode_graphs
+
+    geos = [g for g in for_decode_engine(eng, prompt_lens,
+                                         spec_draft_tokens=[k],
+                                         spec_batch_sizes=(B,))
+            if g.kind == 'decode_spec']
+    report = eng.warmup(geometries=geos, draft=draft)
+    g = _decode_graphs(eng, eng.model).spec_runners[draft].stats()
+    print(f'{label}: warmup {report}; per speculative geometry capture '
+          f'{g["capture_s"]} s, reserved {g["reserved_bytes"]} bytes '
+          f'[{card}]', flush=True)
+
+
 def spec_generate_b1(torch, np, model, drafts, card, total):
     """(a) speculative decoding at batch 1 (512-token prompt, 64 new
     tokens, k = 4) with each draft against model.generate in the same
@@ -3611,9 +3643,8 @@ def spec_generate_b1(torch, np, model, drafts, card, total):
     for name, draft, quant in drafts:
         Ld = draft.config.num_hidden_layers
         eng = DecodeEngine(model, max_new_tokens=N)
-        eng.generate_speculative(draft, prompt, max_new_tokens=2,
-                                 num_draft_tokens=k)         # warm
-        eng = DecodeEngine(model, max_new_tokens=N)
+        spec_warmup(eng, draft, [512], 1, k, f'spec generate b1 {name}',
+                    card)
         (out, t_spec), counts = count_launches(torch, lambda: timed(
             torch, lambda: eng.generate_speculative(draft, prompt,
                                                     num_draft_tokens=k)))
@@ -3626,9 +3657,10 @@ def spec_generate_b1(torch, np, model, drafts, card, total):
                       out.cpu().numpy(), V, [N])
         sp = s['spec']
         lead = leading_equal(np, got, ref)
-        print(f'spec generate b1 (through DecodeEngine), draft {name}: '
+        print(f'spec generate b1 (through DecodeEngine, windows '
+              f'replayed), draft {name}: '
               f'{N / t_spec:.2f} tok/s ({t_spec:.3f} s, '
-              f'{t_ref / t_spec:.3f}x model.generate), '
+              f'{t_ref / t_spec:.3f}x model.generate replayed), '
               f'k {k}, {sp["windows"]} windows, accept rate '
               f'{sp["accept_rate"]:.4f} ({sp["accepted"]} of '
               f'{sp["proposed"]}), target forwards per token '
@@ -3654,8 +3686,7 @@ def spec_generate_b8(torch, np, model, draft, card, total):
     model.generate(ids, max_new_tokens=N)      # warm: captures the step
     ref, t_ref = timed(torch, lambda: model.generate(ids, max_new_tokens=N))
     eng = DecodeEngine(model, max_new_tokens=N)
-    eng.generate_speculative(draft, ids[:, :64], max_new_tokens=4,
-                             num_draft_tokens=k)             # warm
+    spec_warmup(eng, draft, [256], 8, k, 'spec DecodeEngine b8', card)
     before = eng.stats()
     (out, t_spec), counts = count_launches(torch, lambda: timed(
         torch, lambda: eng.generate_speculative(draft, ids,
@@ -3670,8 +3701,9 @@ def spec_generate_b8(torch, np, model, draft, card, total):
           for key in ('windows', 'proposed', 'accepted')}
     leads = [leading_equal(np, out[b, 256:].tolist(), ref[b, 256:].tolist())
              for b in range(8)]
-    print(f'spec DecodeEngine b8, 2-layer draft: {8 * N / t_spec:.2f} tok/s '
-          f'({t_spec:.3f} s; model.generate b8 {8 * N / t_ref:.2f}), '
+    print(f'spec DecodeEngine b8 (windows replayed), 2-layer draft: '
+          f'{8 * N / t_spec:.2f} tok/s ({t_spec:.3f} s; model.generate b8 '
+          f'replayed {8 * N / t_ref:.2f}, {t_ref / t_spec:.3f}x), '
           f'{sp["windows"]} windows, accept rate '
           f'{sp["accepted"] / sp["proposed"]:.4f}, leading tokens equal to '
           f'generate per row {leads} of {N} (printed: bf16); launches '
@@ -3703,9 +3735,18 @@ def spec_serving(torch, np, model, draft, card, paths):
             if spec:
                 kw.update(draft=draft, num_draft_tokens=SPEC_K)
             engine = ServingEngine(model, **kw)
-            engine.serve([prompts[0][:32]], max_new_tokens=8)    # warm
             label = (f'spec serving {kv or "bf16"} '
                      f'{"speculative" if spec else "plain"}')
+            if spec:
+                # every verify ctx bucket the burst's contexts reach
+                report = engine.warmup(geometries=engine.geometries(
+                    prompt_lens=[32] + [len(p) for p in prompts],
+                    max_new_tokens=32))
+                g = engine.stats()['graphs']
+                print(f'{label}: warmup {report}; per geometry capture '
+                      f'{g["capture_s"]} s, reserved {g["reserved_bytes"]} '
+                      f'bytes [{card}]', flush=True)
+            engine.serve([prompts[0][:32]], max_new_tokens=8)    # warm
             wall, launches, before, after, out, first, steps = stepped_run(
                 torch, engine, arrivals, watch=range(8))
             check_outputs(label, prompts, out, V, [32] * 8)
@@ -3823,7 +3864,7 @@ def spec_agreement(torch, np, card, total):
         got, counts = count_launches(torch, lambda: generate_speculative(
             model, d, x, max_new_tokens=16, num_draft_tokens=SPEC_K))
         add_counts(total, counts)
-        with plain_kernels():
+        with plain_kernels(), direct_steps():
             plain = generate_speculative(model, d, x, max_new_tokens=16,
                                          num_draft_tokens=SPEC_K)
         checks.append((label, torch.equal(got, want)
@@ -3901,7 +3942,9 @@ def spec_phase(torch, np, card):
     int8 pools against the non-speculative engine, and sampled rows; (d)
     float32 at 2 layers: streams equal to the non-speculative ones through
     the kernels and the plain versions, and a self-draft accepting every
-    proposal. Returns the launch counts of its runs as one path."""
+    proposal. Every speculative window replays its captured graph, its
+    geometries warmed before the timed runs. Returns the launch counts
+    of its runs as one path."""
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 
     t_phase = time.perf_counter()
@@ -4684,6 +4727,170 @@ def window_checks(torch, np, model, card, kv):
     torch.cuda.empty_cache()
 
 
+def spec_engine(torch, np, model, draft, kv, sampled_rows=True):
+    """Phase 4's engine settings with `draft` (k = SPEC_K) over `kv`
+    pools, 4 requests (2 sampled when `sampled_rows`) admitted and
+    through their first window, the pages of the next window topped up:
+    (engine, live rows, the next window's verify ctx bucket)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.engine import bucket_length
+
+    engine = ServingEngine(model, draft=draft, num_draft_tokens=SPEC_K,
+                           kv_cache_dtype=kv, **SERVE_KW)
+    rng = np.random.default_rng(31)
+    for i, n in enumerate((96, 200, 333, 480)):
+        engine.submit(rng.integers(3, model.config.vocab_size, n),
+                      **(dict(temperature=0.8, top_p=0.95)
+                         if sampled_rows and i % 2 else {}))
+    engine.step()                    # admissions and the first window
+    # the pages the next window writes, as a step tops them up first
+    engine._ensure_window_pages()
+    live = np.asarray([r is not None and p is None for r, p in
+                       zip(engine._slot_req, engine._pfill)])
+    ctx = bucket_length(int(np.where(live, engine._ctx, 0).max())
+                        + SPEC_K + 1, engine.buckets)
+    return engine, live, ctx
+
+
+def spec_direct(torch, engine, pages, dpages, t, ctx, sampled):
+    """`_spec_window` called directly over `pages` / `dpages` and the
+    window inputs `t` (tensors) of `engine`: its eager reference."""
+    from paddle_tpu_torch.inference.serving import _spec_window
+
+    sampling = (tuple(t[k] for k in ('temp', 'topk', 'topp', 'seed', 'plen'))
+                if sampled else None)
+    with torch.no_grad():
+        return _spec_window(engine.model, engine.draft, pages, dpages,
+                            t['last_logits'], t['forced_tok'], t['forced'],
+                            t['btab'], t['ctx'], t['live'], t['budget'],
+                            k=engine.spec_window, ctx_bucket=ctx,
+                            eos_token_id=engine.eos_token_id,
+                            sampling=sampling)
+
+
+def spec_window_checks(torch, np, model, draft, card, kv, reps=2):
+    """The captured speculative window of a live batch (`spec_engine`)
+    against a direct `_spec_window` call on cloned pools and logits,
+    greedy and sampled: candidates, commit counts, next tokens and
+    carried logits equal bit for bit, and the target's and the draft's
+    pages byte for byte after, past the scratch page (it takes every
+    slot's uncommitted verify rows, which collide there and land in no
+    fixed order; it is never read); then the ms per window of each, `reps`
+    more runs over the same inputs (each rewrites the same rows), and
+    the capture's seconds and reserved bytes."""
+    label = 'int8 pools' if kv else 'bf16 pools'
+    engine, live, ctx = spec_engine(torch, np, model, draft, kv)
+    dev = engine.device
+    for sampled in (False, True):
+        graph = engine._spec_graph(ctx, sampled)
+        inputs = engine._window_inputs(live, sampled, True)
+        t = {k: (v.clone() if isinstance(v, torch.Tensor)
+                 else torch.as_tensor(v, device=dev))
+             for k, v in inputs.items()}
+        pages, dpages = clone_pools(engine._pages), clone_pools(engine._dpages)
+
+        def direct():
+            return spec_direct(torch, engine, pages, dpages, t, ctx, sampled)
+
+        def replay():
+            graph.load(**inputs)
+            return graph.run()
+
+        want = direct()
+        got = replay()
+        outs = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        pools = [bool(torch.equal(a[1:], b[1:])) for pa, pb in zip(
+            pages + dpages, engine._pages + engine._dpages)
+            for a, b in zip(pa, pb)]
+        # page 0, the scratch page, takes the rows no request keeps (the
+        # verify's uncommitted rows of every slot): rows that land on one
+        # slot there are written in no fixed order, and it is never read
+        scratch = all(torch.equal(a[0], b[0]) for pa, pb in zip(
+            pages + dpages, engine._pages + engine._dpages)
+            for a, b in zip(pa, pb))
+        same = all(outs) and all(pools)
+        n_commit = int(got[1].sum())
+        times = {}
+        for name, fn in (('direct', direct), ('replay', replay)):
+            _, dt = timed(torch, lambda: [fn() for _ in range(reps)])
+            times[name] = dt / reps * 1e3
+        mode = 'sampled' if sampled else 'greedy'
+        print(f'graphs spec {label} window ({mode}, k {SPEC_K}, ctx bucket '
+              f'{ctx}, 2-layer draft): replay equal to the direct body on '
+              f'cloned state (candidates, commit counts, next tokens, '
+              f'carried logits {outs}; target and draft pools past the '
+              f'scratch page {all(pools)}, the scratch page {scratch}) '
+              f'{same}; {n_commit} tokens committed; '
+              f'{times["direct"]:.2f} ms per window direct, '
+              f'{times["replay"]:.2f} ms replayed ({SPEC_K + 1} draft and 1 '
+              f'verify forwards x {engine.max_slots} slots); captured in '
+              f'{graph.capture_s:.3f} s, {graph.reserved_bytes} bytes '
+              f'reserved [{card}]', flush=True)
+        if not same:
+            raise AssertionError(f'graphs spec {label}: the replayed '
+                                 f'speculative window differs from the '
+                                 f'direct body')
+        del pages, dpages
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_generate_checks(torch, np, model, draft, card, P=GRAPH_PROMPT,
+                         N=GRAPH_NEW // 2):
+    """DecodeEngine.generate_speculative at b1 and b8 and
+    generate_speculative_sampled at b1 (the same seed) through the
+    replayed windows against their windows run directly
+    (`direct_steps`, which have nothing to capture): equal tokens; the
+    ms per window of each, the capture's seconds and reserved bytes."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.models.generation import (
+        _decode_graphs, generate_speculative_sampled)
+
+    V = model.config.vocab_size
+    for label, B in (('b1', 1), ('b8', 8), ('sampled b1', 1)):
+        ids = torch.from_numpy(np.random.default_rng(B + 70).integers(
+            3, V, (B, P))).to(model.device)
+        eng = DecodeEngine(model, max_new_tokens=N)
+        owner = eng
+        if label.startswith('sampled'):
+            owner = model
+
+            def run():
+                return generate_speculative_sampled(
+                    model, draft, ids, max_new_tokens=N,
+                    num_draft_tokens=SPEC_K, temperature=0.8, top_k=50,
+                    rng_key=7)
+        else:
+            def run():
+                return eng.generate_speculative(draft, ids,
+                                                num_draft_tokens=SPEC_K)
+        run()                                               # capture
+        store = _decode_graphs(owner, model)
+        graph = list(store.spec_runners[draft].entries.values())[-1]
+        w0 = eng.stats()['spec']['windows']
+        got, t_g = timed(torch, run)
+        windows = eng.stats()['spec']['windows'] - w0
+        with direct_steps():
+            want, t_d = timed(torch, run)
+        same = bool(torch.equal(got, want))
+        per = (f'{t_d / windows * 1e3:.2f} ms per window direct, '
+               f'{t_g / windows * 1e3:.2f} ms replayed ({windows} windows)'
+               if windows else f'{t_d:.3f} s a call direct, {t_g:.3f} s '
+               f'replayed')
+        print(f'graphs spec generate {label} ({P}-token prompts, {N} new '
+              f'tokens, k {SPEC_K}, 2-layer draft): tokens through the '
+              f'replayed windows equal to the direct windows {same}; {per}; '
+              f'captured in {graph.capture_s:.3f} s, {graph.reserved_bytes} '
+              f'bytes reserved [{card}]', flush=True)
+        if not same:
+            raise AssertionError(f'graphs spec generate {label}: replayed '
+                                 f'and direct windows disagree')
+        if owner is model:
+            model.release_graphs()
+        eng.release()
+
+
 def generate_checks(torch, np, model, B, label, card, P=GRAPH_PROMPT,
                     N=GRAPH_NEW):
     """generate at batch B through the captured steps against the direct
@@ -4722,10 +4929,11 @@ def generate_checks(torch, np, model, B, label, card, P=GRAPH_PROMPT,
 
 def graphs_profile(torch, np, card):
     """The device-busy share of a direct and a replayed decode window
-    (phase 4's engine at Llama-7B width), generate's b8 decode step at
-    that width, and MoEConfig()'s b8 step, each one traced: run in a
-    fresh process (`--graphs-profile`), whose first profiler sessions
-    these are."""
+    (phase 4's engine at Llama-7B width), speculative window (the same
+    engine with a 2-layer draft), generate's b8 decode step at that
+    width, and MoEConfig()'s b8 step, each one traced: run in a fresh
+    process (`--graphs-profile`), whose first profiler sessions these
+    are."""
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.inference.serving import _window
     from paddle_tpu_torch.models.generation import _decode_graphs
@@ -4758,6 +4966,28 @@ def graphs_profile(torch, np, card):
     check_replay_trace(rows, graph, 1, 'window replayed')
     del engine, graph
 
+    # a speculative window (k = SPEC_K, the 2-layer draft) of 4 greedy
+    # rows, traced direct and replayed
+    draft = layer_draft(torch, model, 2)
+    spec, live, ctx = spec_engine(torch, np, model, draft, None,
+                                  sampled_rows=False)
+    graph = spec._spec_graph(ctx, False)
+    inputs = spec._window_inputs(live, False, True)
+    t = {k: (v.clone() if isinstance(v, torch.Tensor)
+             else torch.as_tensor(v, device=spec.device))
+         for k, v in inputs.items()}
+    what = f'one speculative window (k = {SPEC_K}, ctx bucket {ctx})'
+    profile_forward(torch, lambda: spec_direct(
+        torch, spec, spec._pages, spec._dpages, t, ctx, False),
+        'spec window direct', card, phase='graphs', what=what)
+    graph.load(**inputs)
+    rows = profile_forward(torch, graph.run, 'spec window replayed', card,
+                           phase='graphs', what=what)
+    check_replay_trace(rows, graph, 1, 'spec window replayed')
+    del spec, graph, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
     def step_profiles(m, label, P, n=8):
         ids = torch.from_numpy(np.random.default_rng(68).integers(
             3, m.config.vocab_size, (8, P))).to(m.device)
@@ -4783,11 +5013,13 @@ def graphs_profile(torch, np, card):
 
 
 def graphs_phase(torch, np, card):
-    """Phase 15: the decode window and the decode step replayed as CUDA
-    graphs against their direct bodies at Llama-7B width (phase 4's
-    engine over bf16 and int8 pools; generate b1 and b8) and at
-    MoEConfig() (generate b8), then the busy shares from a fresh
-    process. Returns the launch counts of its runs."""
+    """Phase 15: the decode window, the decode step and the speculative
+    windows replayed as CUDA graphs against their direct bodies at
+    Llama-7B width (phase 4's engine over bf16 and int8 pools, plain and
+    with a 2-layer draft; generate b1 and b8; generate_speculative b1
+    and b8, sampled b1) and at MoEConfig() (generate b8), then the busy
+    shares from a fresh process. Returns the launch counts of its
+    runs."""
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
 
@@ -4800,6 +5032,10 @@ def graphs_phase(torch, np, card):
             window_checks(torch, np, model, card, kv)
         for B in (1, 8):
             generate_checks(torch, np, model, B, 'Llama-7B', card)
+        draft = layer_draft(torch, model, 2)
+        for kv in (None, 'int8'):
+            spec_window_checks(torch, np, model, draft, card, kv)
+        spec_generate_checks(torch, np, model, draft, card)
 
     _, counts = count_launches(torch, checks)
     del model
@@ -4952,6 +5188,20 @@ def moe_train_phase(torch, np, card):
     return {'moe train': launches}
 
 
+def lap_timer():
+    """lap(name) prints the seconds since the previous lap (the first:
+    since the timer was made) as the time phase `name` took."""
+    last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f'chip_smoke: phase {name} took {now - last[0]:.1f} s',
+              flush=True)
+        last[0] = now
+
+    return lap
+
+
 def main():
     try:
         import numpy as np
@@ -4994,6 +5244,8 @@ def main():
         if spills:
             raise AssertionError(f'decode-template kernels that spill: '
                                  f'{spills}')
+
+        lap = lap_timer()
 
         # 3. kernels against their plain versions
         torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
@@ -5203,63 +5455,76 @@ def main():
                   f'{c["plain_ms"]:.4f}{lib} [{card}]')
         del timer
         torch.cuda.empty_cache()
+        lap('3 (kernel checks)')
 
         # 14 (a)-(c). the MoE language model, right after the kernel
         # checks: its profile is the process's first profiler session
         moe_launches_ = moe_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
+        lap('14 (MoE LM)')
 
         # 4-5. serving, launch counts, leaks, logits; then int8 serving
         serve_launches, int8_launches = serve_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
+        lap('4-5 (serving)')
 
         # 6. decode over contiguous caches: the JAX bench's decode
         # section, DecodeEngine, float32 agreement
         decode_launches = decode_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
+        lap('6 (decode)')
 
         # 7. Paddle's fused-inference ops: fused_multi_transformer,
         # FusedMultiTransformer, block_multihead_attention
         fused_launches = fused_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
+        lap('7 (fused inference)')
 
         # 8. a training step's gradients through the kernels vs plain
         grads_phase(torch, np, card)
+        lap('8 (gradients)')
 
         # 9. training at the JAX bench's configuration
         train_launches = train_phase(torch, np, card)
+        lap('9 (training)')
 
         # 10. sliding-window and packed training, sliding-window decode
         swa_launches = swa_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
+        lap('10 (SWA, packed)')
 
         # 11. Qwen2-7B widths: serving, decode, fp8 weights, agreement
         qwen2_launches = qwen2_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
+        lap('11 (Qwen2-7B)')
 
         # 12. per-request sampling, prefix caching, chunked prefill
         prefix_launches = prefix_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
+        lap('12 (prefix, chunks)')
 
         # 13. speculative decoding: generate, DecodeEngine, ServingEngine
         spec_launches = spec_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
+        lap('13 (speculative)')
 
         # 15. the compiled decode window and step against their bodies
         graph_launches = graphs_phase(torch, np, card)
         gc.collect()
         torch.cuda.empty_cache()
+        lap('15 (graphs)')
 
         # 16. MoE training: layer gradients, TrainEngine at MoEConfig()
         moe_train_launches = moe_train_phase(torch, np, card)
+        lap('16 (MoE training)')
 
         records = []
         for name, src, rep in (

@@ -12,7 +12,6 @@ from __future__ import annotations
 import inspect
 import time
 
-import numpy as np
 import torch
 
 # powers of two: prompt lengths are padded to the smallest bucket that
@@ -56,8 +55,10 @@ class DecodeEngine:
 
     `generate_speculative` is greedy speculative decoding with a draft
     model (see `models.generation.generate_speculative`): its prompts
-    are not padded (as in the JAX engine), and `stats()` counts its
-    forwards of both models and its proposals."""
+    are not padded (as in the JAX engine), its window is a CUDA graph
+    per geometry (batch, prompt length, max_new_tokens, k, the draft)
+    kept as the decode step's are, and `stats()` counts its forwards of
+    both models and its proposals."""
 
     def __init__(self, model, max_new_tokens=32, temperature=0.0, top_k=0,
                  top_p=1.0, eos_token_id=None, buckets=None):
@@ -99,18 +100,21 @@ class DecodeEngine:
                              'buckets': self.buckets}}
 
     @torch.no_grad()
-    def warmup(self, artifact=None, geometries=None):
-        """Capture the decode step of every declared `decode` geometry
-        (batch, prompt_len, max_new_tokens; `graphs.for_decode_engine`
-        enumerates them) by one generate call over zero ids each, before
-        the first request; these calls are not counted in `stats()`.
+    def warmup(self, artifact=None, geometries=None, draft=None):
+        """Capture every declared geometry before the first request
+        (`graphs.for_decode_engine` enumerates them): the decode step of
+        each `decode` geometry (batch, prompt_len, max_new_tokens) by one
+        generate call over zero ids, the speculative window of each
+        `decode_spec` geometry (the same and num_draft_tokens) over
+        `draft`, which that kind needs (ValueError without it, as the
+        JAX engine raises). These calls are not counted in `stats()`.
         The engine keeps the warmed geometries' graphs and caches until
         `release()`, and besides them those of the last other geometry
         it decoded. Returns the JAX package's report (`traces`: the
         graphs captured now). `artifact=` raises NotImplementedError (a
-        CUDA graph cannot be persisted), and so does the `decode_spec`
-        kind (speculative decoding runs eagerly, ROADMAP A9b)."""
-        from ..models.generation import _decode_graphs
+        CUDA graph cannot be persisted)."""
+        from ..models.generation import (_check_speculative_pair,
+                                         _decode_graphs, _eval_mode)
         from .graphs import geometry_parts, warmup_report
 
         if artifact is not None:
@@ -120,27 +124,35 @@ class DecodeEngine:
         if geometries is None:
             raise ValueError('warmup needs geometries=... (see '
                              'inference.graphs.for_decode_engine)')
-        geometries = list(geometries)
+        geometries = [geometry_parts(g) for g in geometries]
+        for kind, _p in geometries:
+            if kind not in ('decode', 'decode_spec'):
+                raise ValueError(f'DecodeEngine geometries are of kind '
+                                 f'decode or decode_spec, got {kind!r}')
+            if kind == 'decode_spec' and draft is None:
+                raise ValueError(
+                    'geometry kind decode_spec needs the draft model: '
+                    'pass warmup(..., draft=draft_model)')
+        if draft is not None:
+            _check_speculative_pair(self.model, draft)
         store = _decode_graphs(self, self.model)
-        n0 = store.runner.captures
+        n0 = store.captures()
         counts = dict(self._forwards)
         t0 = time.perf_counter()
-        with store.pinning():
-            for g in geometries:
-                kind, p = geometry_parts(g)
+        with store.pinning(), _eval_mode(self.model, draft):
+            for kind, p in geometries:
+                B, L = int(p['batch']), int(p['prompt_len'])
+                mnt = int(p['max_new_tokens'])
                 if kind == 'decode_spec':
-                    raise NotImplementedError(
-                        'speculative decoding runs eagerly (ROADMAP A9b): '
-                        'no decode_spec geometry to capture')
-                if kind != 'decode':
-                    raise ValueError(f'DecodeEngine geometries are of kind '
-                                     f'decode, got {kind!r}')
-                ids = torch.zeros((int(p['batch']), int(p['prompt_len'])),
-                                  dtype=torch.int64, device=self.model.device)
-                self.generate(ids, max_new_tokens=int(p['max_new_tokens']))
+                    store.spec_graph(self.model, draft, B, L, mnt,
+                                     int(p['num_draft_tokens']), False)
+                else:
+                    self.generate(torch.zeros((B, L), dtype=torch.int64,
+                                              device=self.model.device),
+                                  max_new_tokens=mnt)
         self._forwards = counts
         return warmup_report(len(geometries), time.perf_counter() - t0,
-                             store.runner.captures - n0)
+                             store.captures() - n0)
 
     def release(self):
         """Free the captured decode steps and the caches this engine
@@ -186,24 +198,24 @@ class DecodeEngine:
         """Greedy speculative decoding with `draft` proposing
         `num_draft_tokens` tokens a window: lossless against `generate`
         at temperature 0 on this engine's model alone (the engine's
-        sampling configuration does not apply), its eos included.
-        Batch 1 reads the host once per window; batched rows commit at
-        their own rates (per-row `kv_write_pos`). Returns (B, S +
+        sampling configuration does not apply), its eos included. Rows
+        commit at their own rates (per-row `kv_write_pos`), the host
+        reads once per window, and the window replays the graph of its
+        geometry (captured at first use or by `warmup`). Returns (B, S +
         max_new_tokens) ids."""
         from ..models.generation import (_check_speculative_pair,
                                          _eval_mode, _speculative_loop)
 
         model = self.model
         ids = torch.as_tensor(input_ids, device=model.device)
-        B, S = ids.shape
         mnt = (self.max_new_tokens if max_new_tokens is None
                else int(max_new_tokens))
         k = int(num_draft_tokens)
         if k < 1:
             raise ValueError('num_draft_tokens must be >= 1')
-        _check_speculative_pair(model, draft, B)
+        _check_speculative_pair(model, draft)
         with _eval_mode(model, draft), torch.no_grad():
-            gen, counts = _speculative_loop(model, draft, ids, mnt, k,
+            gen, counts = _speculative_loop(model, draft, self, ids, mnt, k,
                                             self.eos_token_id)
         f = self._forwards
         f['prefill'] += 1
@@ -214,130 +226,3 @@ class DecodeEngine:
             self.spec_counts[key] += n
         return torch.cat([ids, torch.as_tensor(gen, dtype=ids.dtype,
                                                device=ids.device)], dim=1)
-
-
-# ---------------------------------------------------------------------------
-# Speculative windows and their host loops (shared with
-# models/generation.py)
-# ---------------------------------------------------------------------------
-
-def _window_b1(target, draft, tcaches, dcaches, c, L, k):
-    """One batch-1 speculative window at the uniform cache index L: the
-    draft proposes k tokens in k + 1 one-token steps (the last writes the
-    k-th proposal's own KV row), the target verifies [c, d1..dk] in one
-    forward, and the greedy commit rule runs on the device as a cumprod
-    (`_commit_window` is its host-side spec). Returns (drafts (k,), the
-    accepted count m, the next token) as device tensors."""
-    tok, toks = c, []
-    for i in range(k + 1):
-        logits, dcaches = draft(tok, caches=dcaches, cache_index=L + i)
-        if i < k:
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(c.dtype)
-            toks.append(tok)
-    drafts = torch.cat(toks, dim=1)[0]                       # (k,)
-    window = torch.cat([c, drafts[None]], dim=1)             # (1, k + 1)
-    tlogits, tcaches = target(window, caches=tcaches, cache_index=L)
-    choices = torch.argmax(tlogits[0], dim=-1).to(c.dtype)   # (k + 1,)
-    m = torch.cumprod((drafts == choices[:k]).long(), 0).sum()
-    return drafts, m, choices[m]
-
-
-def _spec_loop_host_b1(target, draft, tcaches, dcaches, input_ids,
-                       max_new_tokens, k, eos_token_id):
-    """Batch 1: both prefills, then one window per iteration with ONE
-    host read (the window's candidate, proposals, accepted count and
-    next token together); the next window's candidate stays on the
-    device. Returns ([max_new_tokens ids], counts)."""
-    B, S = input_ids.shape
-    logits, tcaches = target(input_ids, caches=tcaches, cache_index=0)
-    draft(input_ids, caches=dcaches, cache_index=0)
-    c = torch.argmax(logits[:, -1], dim=-1)[:, None].to(input_ids.dtype)
-    counts = {'windows': 0, 'proposed': 0, 'accepted': 0}
-    out, L = [], S
-    while len(out) < max_new_tokens:
-        drafts, m, nxt = _window_b1(target, draft, tcaches, dcaches, c, L,
-                                    k)
-        host = torch.cat([c[0], drafts, m[None].to(c.dtype),
-                          nxt[None]]).tolist()
-        m_h = host[k + 1]
-        committed = host[:m_h + 1]
-        counts['windows'] += 1
-        counts['proposed'] += k
-        counts['accepted'] += m_h
-        out.extend(committed)
-        L += len(committed)
-        c = nxt.view(1, 1)
-        if eos_token_id is not None and eos_token_id in committed:
-            break
-    if eos_token_id is not None:
-        if eos_token_id in out:
-            out = out[:out.index(eos_token_id) + 1]
-        out += [eos_token_id] * (max_new_tokens - len(out))
-    return [out[:max_new_tokens]], counts
-
-
-def _spec_window_batched(target, draft, tcaches, dcaches, c, wp, k):
-    """A batched speculative window: rows write at their own offsets wp
-    (B,) on both models (the draft's one-token steps take K7 at per-row
-    lengths), and the commit rule runs per row. c (B, 1). Returns
-    (drafts (B, k), m (B,), next (B,))."""
-    tok, toks = c, []
-    for i in range(k + 1):
-        logits, dcaches = draft(tok, caches=dcaches, kv_write_pos=wp + i)
-        if i < k:
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(c.dtype)
-            toks.append(tok)
-    drafts = torch.cat(toks, dim=1)                          # (B, k)
-    window = torch.cat([c, drafts], dim=1)                   # (B, k + 1)
-    tlogits, tcaches = target(window, caches=tcaches, kv_write_pos=wp)
-    choices = torch.argmax(tlogits, dim=-1).to(c.dtype)      # (B, k + 1)
-    m = torch.cumprod((drafts == choices[:, :k]).long(), 1).sum(1)
-    return drafts, m, torch.gather(choices, 1, m[:, None])[:, 0]
-
-
-def _spec_loop_host_batched(target, draft, tcaches, dcaches, input_ids,
-                            max_new_tokens, k, eos_token_id):
-    """B > 1: rows commit at their own rates (per-row write offsets) by
-    the batch-1 rule, one host read per window. Finished and full rows
-    still ride through the window but commit nothing; their offset is
-    held inside the cache (torch raises on a write past it, where JAX
-    drops it), and what they write there is never read back. Returns
-    (B lists of max_new_tokens ids, counts)."""
-    B, S = input_ids.shape
-    dev = input_ids.device
-    logits, tcaches = target(input_ids, caches=tcaches, cache_index=0)
-    draft(input_ids, caches=dcaches, cache_index=0)
-    c_host = torch.argmax(logits[:, -1], dim=-1).tolist()
-    counts = {'windows': 0, 'proposed': 0, 'accepted': 0}
-    out = [[] for _ in range(B)]
-    finished = [False] * B
-    L = np.full((B,), S, np.int64)
-
-    def row_needs(b):
-        return not finished[b] and len(out[b]) < max_new_tokens
-
-    while any(row_needs(b) for b in range(B)):
-        c = torch.tensor(c_host, dtype=input_ids.dtype, device=dev)[:, None]
-        wp = torch.as_tensor(np.minimum(L, S + max_new_tokens), device=dev)
-        drafts, m, nxt = _spec_window_batched(target, draft, tcaches,
-                                              dcaches, c, wp, k)
-        host = torch.cat([drafts, m[:, None].to(drafts.dtype),
-                          nxt[:, None].to(drafts.dtype)], 1).tolist()
-        counts['windows'] += 1
-        for b in range(B):
-            if not row_needs(b):
-                continue
-            mb = host[b][k]
-            committed = [c_host[b]] + host[b][:mb]
-            c_host[b] = host[b][k + 1]
-            counts['proposed'] += k
-            counts['accepted'] += mb
-            out[b].extend(committed)
-            if eos_token_id is not None and eos_token_id in committed:
-                out[b] = out[b][:out[b].index(eos_token_id) + 1]
-                finished[b] = True
-            L[b] += len(committed)
-    pad = eos_token_id if eos_token_id is not None else 0
-    return [out[b][:max_new_tokens]
-            + [pad] * (max_new_tokens - len(out[b][:max_new_tokens]))
-            for b in range(B)], counts

@@ -1,8 +1,9 @@
 """Captured decode bodies: one CUDA graph per geometry, replayed
 (counterpart of the JAX package's compiled windows and `aot` warm-up).
 
-The JAX engines run a decode window or a decode step as one compiled
-dispatch (`jax.jit`), compiled once per geometry. The port runs the same
+The JAX engines run a decode window, a decode step or a speculative
+propose / verify window as one compiled dispatch (`jax.jit`), compiled
+once per geometry. The port runs the same
 bodies eagerly as Python code, so every decode forward pays the host
 time of its few hundred launches. A `GraphRunner` captures such a body
 once per geometry key into a CUDA graph and replays it. It holds, per
@@ -45,9 +46,9 @@ kernel for its plain version runs the bodies directly (a runner off the
 card), not through graphs captured before the swap.
 
 `Geometry` is the port's copy of the JAX package's geometry record
-(`paddle_tpu/aot/geometry.py`): the `serve_window` kind a
-`ServingEngine.warmup` captures and the `decode` kind of
-`DecodeEngine.warmup`.
+(`paddle_tpu/aot/geometry.py`): the `serve_window` and
+`serve_spec_window` kinds a `ServingEngine.warmup` captures and the
+`decode` and `decode_spec` kinds of `DecodeEngine.warmup`.
 """
 from __future__ import annotations
 
@@ -67,8 +68,15 @@ class Geometry:
 
       serve_window  window (ServingEngine: its decode window, every
                     sampling and carry variant its config implies)
+      serve_spec_window
+                    spec, ctx (ServingEngine(draft=): a speculative
+                    propose / verify window of `spec` draft tokens whose
+                    verify gathers `ctx` positions, greedy and sampled)
       decode        batch, prompt_len, max_new_tokens (DecodeEngine:
                     the decode step of a generate call)
+      decode_spec   batch, prompt_len, max_new_tokens, num_draft_tokens
+                    (DecodeEngine: the window of a generate_speculative
+                    call)
     """
 
     __slots__ = ('kind', 'params')
@@ -95,11 +103,15 @@ def geometry_parts(g):
 
 
 def for_decode_engine(engine, prompt_lens, batch_sizes=(1,),
-                      max_new_tokens=None):
+                      max_new_tokens=None, spec_draft_tokens=None,
+                      spec_batch_sizes=(1,)):
     """The `decode` geometries a DecodeEngine serves for the declared
     prompt lengths, batch sizes and budgets (None: the engine's): one
     per (batch, bucket, padded or exact) of each budget, as the JAX
-    package enumerates them."""
+    package enumerates them; with `spec_draft_tokens` (k values) also a
+    `decode_spec` geometry per (spec batch size, k, budget, prompt
+    length): speculative prompts are not bucketed, so every declared
+    length is its own geometry."""
     from .engine import bucket_length
 
     mnts = (max_new_tokens if isinstance(max_new_tokens, (list, tuple))
@@ -117,6 +129,15 @@ def for_decode_engine(engine, prompt_lens, batch_sizes=(1,),
                 out.append(Geometry('decode', batch=int(B),
                                     prompt_len=int(L),
                                     max_new_tokens=budget))
+    for B in (spec_batch_sizes if spec_draft_tokens else ()):
+        for k in spec_draft_tokens:
+            for mnt in mnts:
+                budget = engine.max_new_tokens if mnt is None else int(mnt)
+                out.extend(Geometry('decode_spec', batch=int(B),
+                                    prompt_len=int(L),
+                                    max_new_tokens=budget,
+                                    num_draft_tokens=int(k))
+                           for L in prompt_lens)
     return out
 
 

@@ -78,16 +78,19 @@
      chunk step's plain window committed catch the draft's pages up
      before the next speculative window.
 
-  9. The compiled decode window: `_window` is captured as a CUDA graph
-     once per geometry (greedy or sampled, with or without the carried
-     token of a speculative engine; the slots, window, table width,
-     eos and pool dtype are the engine's) and replayed over the pools it
-     captured (`inference/graphs.py`); each window uploads its per-slot
-     state into the graph's buffers and copies the carried logits out
-     into the engine's own buffer. A first use mid-serving, or
-     `warmup()` before the first request, captures over an all-frozen
-     dummy batch on the scratch page, so it touches no live page. The
-     speculative window, the admission prefills, the chunk forwards
+  9. The compiled windows: `_window` and the speculative `_spec_window`
+     are captured as CUDA graphs once per geometry and replayed over
+     the pools they captured (`inference/graphs.py`). A decode window's
+     geometry is greedy or sampled, with or without the carried token
+     of a speculative engine; a speculative window's is greedy or
+     sampled and the verify's gathered length (its ctx bucket), and it
+     writes the draft's pools too. The slots, window, k, table width,
+     eos and pool dtype are the engine's. Each window uploads its
+     per-slot state into the graph's buffers and copies the carried
+     logits out into the engine's own buffer. A first use mid-serving,
+     or `warmup()` before the first request, captures over an
+     all-frozen dummy batch on the scratch page of every pool, so it
+     touches no live page. The admission prefills, the chunk forwards
      and the draft's catch-up run eagerly (ROADMAP A9b).
 
 Per request, `result(rid)` is what the JAX engine returns: the prompt,
@@ -705,14 +708,19 @@ def _pool_tensors(pages):
     return [f for pc in pages for f in pc]
 
 
+def _window_sampling(static):
+    """The sampling vectors of a captured window's static buffers, or
+    None when its geometry is greedy."""
+    if 'temp' not in static:
+        return None
+    return tuple(static[k] for k in ('temp', 'topk', 'topp', 'seed', 'plen'))
+
+
 def _window_body(model, pages, static, *, window, eos_token_id):
     """`_window` over a captured window's static buffers: the sampling
     vectors when the geometry samples, the carried token when it has
     one. Returns (tokens (SLOTS, window), last_logits)."""
-    sampling = None
-    if 'temp' in static:
-        sampling = tuple(static[k] for k in ('temp', 'topk', 'topp', 'seed',
-                                             'plen'))
+    sampling = _window_sampling(static)
     forced = {}
     if 'forced' in static:
         forced = dict(forced_tok=static['forced_tok'],
@@ -789,11 +797,12 @@ def _spec_window(target, draft, pages, dpages, last_logits, forced_tok,
          pages (the rest to the scratch page), so the pages hold what a
          non-speculative engine would have written.
 
-    Returns (candidates (K, k + 1), commit counts (K,), next tokens
-    (K,), last_logits, pages, dpages): a row's committed tokens are its
+    The gathered verify cache is a temporary of the window (inside a
+    capture, of the runner's memory pool, which every ctx bucket's
+    graph shares). Returns (candidates (K, k + 1), commit counts (K,),
+    next tokens (K,), last_logits): a row's committed tokens are its
     first commit-count candidates; its next token is the one the host
-    carries on the request. It runs eagerly (its gathered verify cache
-    per context bucket: capturing it is ROADMAP A9b)."""
+    carries on the request. The pools are written in place."""
     K = last_logits.shape[0]
     gen0 = None
     if sampling is None:
@@ -845,7 +854,19 @@ def _spec_window(target, draft, pages, dpages, last_logits, forced_tok,
     last = tlg[rows, (nc - 1).clamp_min(0)]
     last_logits = torch.where(live[:, None], last.to(last_logits.dtype),
                               last_logits)
-    return window_ids, nc, next_tok, last_logits, pages, dpages
+    return window_ids, nc, next_tok, last_logits
+
+
+def _spec_window_body(target, draft, pages, dpages, static, *, k,
+                      ctx_bucket, eos_token_id):
+    """`_spec_window` over a captured speculative window's static
+    buffers."""
+    return _spec_window(target, draft, pages, dpages, static['last_logits'],
+                        static['forced_tok'], static['forced'],
+                        static['btab'], static['ctx'], static['live'],
+                        static['budget'], k=k, ctx_bucket=ctx_bucket,
+                        eos_token_id=eos_token_id,
+                        sampling=_window_sampling(static))
 
 
 # the JAX engine's arguments the port does not take yet, by feature
@@ -970,8 +991,11 @@ class ServingEngine:
         self._last_logits = torch.zeros(
             (self.max_slots, model.config.vocab_size),
             dtype=model.cache_dtype(), device=self.device)
-        # the captured decode windows, one per geometry
-        self._graphs = GraphRunner(self.device, modules=[model])
+        # the captured windows, one per geometry, over the weights of both
+        # models: a replaced weight of either drops them
+        self._graphs = GraphRunner(
+            self.device,
+            modules=[model] + ([draft] if draft is not None else []))
         # one page across every layer and every pool field (an int8
         # pool's scale rows included), the draft's pools' too
         self.allocator.bytes_per_page = sum(
@@ -1161,22 +1185,51 @@ class ServingEngine:
 
     restore = snapshot
 
-    def geometries(self):
-        """The window geometries this engine's config implies: one
-        `serve_window` (the JAX package's kind), captured in every
-        sampling and carry variant by `warmup`."""
-        return [Geometry('serve_window', window=self.decode_window)]
+    def geometries(self, prompt_lens=None, max_new_tokens=None):
+        """The window geometries this engine's config implies, as the
+        JAX package enumerates them (`aot.geometry.for_serving_engine`,
+        the kinds the port captures): one `serve_window` on a plain
+        engine. On a speculative one, a `serve_spec_window` per verify
+        ctx bucket (bucket(max live context + k + 1)) that live contexts
+        reach, from the smallest declared admission length (`prompt_lens`,
+        default every length up to max_context_len) to the longest
+        context a decoding row can hold (the largest prompt plus the
+        largest budget of `max_new_tokens`, default the engine's, within
+        max_context_len, less one); and the `serve_window` its chunk steps
+        run when it chunks or caches prefixes. `warmup` captures each
+        greedy and sampled."""
+        W = self.decode_window
+        if self.draft is None:
+            return [Geometry('serve_window', window=W)]
+        k = self.spec_window
+        lens = [int(L) for L in (range(1, self.max_context_len + 1)
+                                 if prompt_lens is None else prompt_lens)]
+        mnts = (max_new_tokens if isinstance(max_new_tokens, (list, tuple))
+                else [max_new_tokens])
+        budget = max(self.max_new_tokens if m is None else int(m)
+                     for m in mnts)
+        m_hi = min(max(lens) + budget, self.max_context_len) - 1
+        out, v = [], min(lens) + k + 1
+        while v <= m_hi + k + 1:
+            b = bucket_length(v, self.buckets)
+            out.append(Geometry('serve_spec_window', spec=k, ctx=b))
+            v = b + 1
+        if self.prefill_chunk is not None or self.prefix_cache:
+            out.append(Geometry('serve_window', window=W))
+        return out
 
     @torch.no_grad()
     def warmup(self, artifact=None, geometries=None):
-        """Capture every decode-window geometry (default: `geometries()`)
-        before the first request: greedy and sampled, and on a
-        speculative engine with the carried token. Returns the JAX
-        package's report (`traces`: the graphs captured now). Raises
-        RuntimeError while requests are in flight, as the JAX engine
-        does, and NotImplementedError for `artifact=` (a CUDA graph
-        cannot be persisted) and for the kinds the port runs eagerly.
-        A geometry not warmed is captured at its first window."""
+        """Capture every window geometry (default: `geometries()`)
+        before the first request, greedy and sampled: the decode window
+        (on a speculative engine with the carried token) and the
+        speculative window of each ctx bucket. Returns the JAX package's
+        report (`traces`: the graphs captured now). Raises RuntimeError
+        while requests are in flight, as the JAX engine does; ValueError
+        for a geometry enumerated for another window, k or a plain
+        engine; NotImplementedError for `artifact=` (a CUDA graph cannot
+        be persisted) and for the kinds the port runs eagerly. A
+        geometry not warmed is captured at its first window."""
         if artifact is not None:
             raise NotImplementedError(
                 'warmup(artifact=): a CUDA graph cannot be persisted; '
@@ -1192,11 +1245,25 @@ class ServingEngine:
         n0 = self._graphs.captures
         for g in geometries:
             kind, params = geometry_parts(g)
+            if kind == 'serve_spec_window':
+                if self.draft is None:
+                    raise ValueError(
+                        f'geometry {params} needs a speculative engine '
+                        f'(construct with draft=...)')
+                if int(params['spec']) != self.spec_window:
+                    raise ValueError(
+                        f'geometry {params} was enumerated for '
+                        f'num_draft_tokens {params["spec"]}; the engine '
+                        f'has {self.spec_window}')
+                for sampled in (False, True):
+                    self._spec_graph(int(params['ctx']), sampled)
+                continue
             if kind != 'serve_window':
                 raise NotImplementedError(
                     f'geometry kind {kind!r}: the port captures the decode '
-                    f'window (serve_window); prefills, chunk steps and '
-                    f'speculative windows run eagerly (ROADMAP A9b)')
+                    f'window (serve_window) and the speculative window '
+                    f'(serve_spec_window); admission prefills and chunk '
+                    f'steps run eagerly (ROADMAP A9b)')
             if int(params.get('window', self.decode_window)) \
                     != self.decode_window:
                 raise ValueError(
@@ -1227,18 +1294,11 @@ class ServingEngine:
                               self._forced_state()))
         return inputs
 
-    def _window_graph(self, sampled, forced=None):
-        """The captured decode window of `sampled` (else greedy), with
-        the carried token when `forced` (default: on a speculative
-        engine, whose chunk steps run this window), captured now when it
-        is not yet, over an all-frozen dummy batch: every row not live
-        with its table on the scratch page, so the eager run before the
-        capture writes page 0 alone."""
-        forced = self.draft is not None if forced is None else bool(forced)
-        key = ('serve_window', bool(sampled), forced)
-        graph = self._graphs.get(key)
-        if graph is not None:
-            return graph
+    def _window_static(self, sampled, forced):
+        """A captured window's static buffers, zeroed: an all-frozen
+        dummy batch (every row not live, its table on the scratch
+        page), with the sampling vectors when `sampled` and the carried
+        tokens when `forced`."""
         S, dev = self.max_slots, self.device
 
         def z(*shape, dtype):
@@ -1258,12 +1318,46 @@ class ServingEngine:
         if forced:
             static.update(forced_tok=z(S, dtype=torch.int64),
                           forced=z(S, dtype=torch.bool))
+        return static
+
+    def _window_graph(self, sampled, forced=None):
+        """The captured decode window of `sampled` (else greedy), with
+        the carried token when `forced` (default: on a speculative
+        engine, whose chunk steps run this window), captured now when it
+        is not yet, over an all-frozen dummy batch, so the eager run
+        before the capture writes page 0 alone."""
+        forced = self.draft is not None if forced is None else bool(forced)
+        key = ('serve_window', bool(sampled), forced)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph
+        static = self._window_static(sampled, forced)
         pages = list(self._pages)
         body = functools.partial(
             _window_body, self.model, pages, static,
             window=self.decode_window, eos_token_id=self.eos_token_id)
         return self._graphs.capture(key, body, static,
                                     _pool_tensors(pages))
+
+    def _spec_graph(self, ctx_bucket, sampled):
+        """The captured speculative window whose verify gathers
+        `ctx_bucket` positions, `sampled` or greedy, captured now when it
+        is not yet, over an all-frozen dummy batch, so the eager run
+        before the capture writes page 0 of both pools alone. Its state
+        is the target's and the draft's pools."""
+        key = ('serve_spec_window', self.spec_window, int(ctx_bucket),
+               bool(sampled))
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph
+        static = self._window_static(sampled, True)
+        pages, dpages = list(self._pages), list(self._dpages)
+        body = functools.partial(
+            _spec_window_body, self.model, self.draft, pages, dpages, static,
+            k=self.spec_window, ctx_bucket=int(ctx_bucket),
+            eos_token_id=self.eos_token_id)
+        return self._graphs.capture(key, body, static,
+                                    _pool_tensors(pages + dpages))
 
     @torch.no_grad()
     def step(self):
@@ -1316,15 +1410,7 @@ class ServingEngine:
                            for r, p in zip(self._slot_req, self._pfill)])
         sampled = bool((self._temp[live] > 0).any())
         if self.draft is not None and not chunk_rows:
-            inputs = {k: torch.as_tensor(v, device=self.device) for k, v in
-                      self._window_inputs(live, sampled, False).items()}
-            sampling = (tuple(inputs[k] for k in ('temp', 'topk', 'topp',
-                                                  'seed', 'plen'))
-                        if sampled else None)
-            args = tuple(inputs[k] for k in ('btab', 'ctx', 'live', 'budget'))
-            return self._spec_step(live, int(np.where(live, self._ctx,
-                                                      0).max()), args,
-                                   sampling)
+            return self._spec_step(live, sampled)
         graph = self._window_graph(sampled)
         graph.check_state(_pool_tensors(self._pages))
         graph.load(**self._window_inputs(live, sampled))
@@ -1350,24 +1436,23 @@ class ServingEngine:
                 finished.append(req)
         return finished
 
-    def _spec_step(self, live, max_ctx, args, sampling):
+    def _spec_step(self, live, sampled):
         """A speculative step's window (every slot decoding): the draft's
-        pages caught up first, then `_spec_window` with the verify's
-        gathered cache long enough for the farthest row's k + 1 writes,
-        and one host read of its candidates, commit counts and next
-        tokens together."""
+        pages caught up first, then the captured `_spec_window` of the
+        ctx bucket that holds the farthest row's k + 1 writes, its
+        inputs uploaded into the graph's buffers, and one host read of
+        its candidates, commit counts and next tokens together."""
         k = self.spec_window
         catchup = self._draft_catchup_rows()
         if catchup:
             self._draft_advance(catchup)
-        ftok, forced = (torch.as_tensor(a, device=self.device)
-                        for a in self._forced_state())
-        cand, nc, nxt, last, self._pages, self._dpages = \
-            _spec_window(self.model, self.draft, self._pages, self._dpages,
-                         self._last_logits, ftok, forced, *args, k=k,
-                         ctx_bucket=bucket_length(max_ctx + k + 1,
-                                                  self.buckets),
-                         eos_token_id=self.eos_token_id, sampling=sampling)
+        max_ctx = int(np.where(live, self._ctx, 0).max())
+        graph = self._spec_graph(bucket_length(max_ctx + k + 1,
+                                               self.buckets), sampled)
+        graph.check_state(_pool_tensors(self._pages + self._dpages))
+        graph.load(**self._window_inputs(live, sampled, True))
+        cand, nc, nxt, last = graph.run()
+        # the graph's outputs are overwritten by its next replay
         self._last_logits.copy_(last)
         self.verify_forwards += 1
         self.draft_forwards['decode'] += k + 1

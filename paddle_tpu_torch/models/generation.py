@@ -13,7 +13,10 @@ the card). The per-token step (`_decode_step`) runs at a device
 position, with the output column, the finished mask and the step count
 advanced on the device: it is captured once per geometry as a CUDA graph
 and replayed (`inference/graphs.py`), and the host reads the tokens
-once, at the end. The geometry's caches belong to its captured step, so
+once, at the end. The speculative paths (`generate_speculative`,
+`generate_speculative_sampled`, `DecodeEngine.generate_speculative`)
+capture their propose / verify window the same way and read the host
+once per window. The geometry's caches belong to its captured body, so
 the prefill writes them in place, and they outlive the call: a model
 keeps those of the last geometry it decoded, a DecodeEngine those of
 the geometries it warmed and of the last one it decoded besides
@@ -485,21 +488,27 @@ def _decode_step(model, caches, tok, out, finished, step, *, S,
 
 
 class DecodeGraphs:
-    """generate's captured decode steps of one owner (a model's own
-    generate calls, or a DecodeEngine's), with the buffers of each
-    geometry: batch, prompt length, max_new_tokens, an int8 cache or
-    not, the cache dtype. The graphs of one geometry (its mask modes and
-    sampling configurations) share its caches, and every graph shares
-    the runner's memory pool. Beside the pinned geometries (those used
-    under `pinning`: a DecodeEngine's warmed ones) the last one used is
-    kept, an earlier one dropped with its graphs when another comes;
-    `release` drops them all. One geometry holds its caches, 2 L B (S +
-    N) Hkv D elements of the cache dtype (int8 ones with their
-    per-(head, dim) scales), a (B, S + N) int32 mask and a few (B,)
-    vectors; the pool holds one step's activations."""
+    """generate's captured decode steps and generate_speculative's
+    captured windows of one owner (a model's own calls, or a
+    DecodeEngine's), with the buffers of each geometry. A decode
+    geometry is the batch, prompt length, max_new_tokens, an int8 cache
+    or not and the cache dtype; a speculative one adds k and the draft
+    (held weakly). The graphs of one geometry (its mask modes and
+    sampling configurations) share its caches. Decode steps share one
+    runner's memory pool; the windows over each draft have a runner of
+    their own, which watches the draft's weights beside the model's.
+    Beside the pinned geometries (those used under `pinning`: a
+    DecodeEngine's warmed ones) the last one used is kept, an earlier
+    one dropped with its graphs when another comes; `release` drops
+    them all. A decode geometry holds its caches, 2 L B (S + N) Hkv D
+    elements of the cache dtype (int8 ones with their per-(head, dim)
+    scales), a (B, S + N) int32 mask and a few (B,) vectors; a
+    speculative one both models' caches of S + N + k + 1 positions; the
+    pools hold one step's or window's activations."""
 
     def __init__(self, runner):
         self.runner = runner
+        self.spec_runners = weakref.WeakKeyDictionary()
         self.buffers = {}
         self.pinned = set()
         self._pin = False
@@ -513,50 +522,99 @@ class DecodeGraphs:
         finally:
             self._pin = False
 
+    def _buffers(self, geo, make):
+        """The buffers of `geo`, made now (after the unpinned geometries
+        are dropped) when there are none; pinned under `pinning`."""
+        bufs = self.buffers.get(geo)
+        if bufs is None:
+            for old in [g for g in self.buffers if g not in self.pinned]:
+                self._drop(old)
+            bufs = self.buffers[geo] = make()
+        if self._pin:
+            self.pinned.add(geo)
+        return bufs
+
     def graph(self, model, B, S, max_new_tokens, kv_cache_int8, mask,
               sampling):
         """The captured decode step of one generate call: its geometry's
-        buffers (allocated now, after the unpinned geometries are
-        dropped), and the graph of its mask mode and sampling
+        buffers, and the graph of its mask mode and sampling
         configuration, captured now when there is none (a sampled step
         with a generator of its own, registered with the graph; generate
         hands it the caller's state before the replays and takes it back
         after)."""
         geo = (B, S, max_new_tokens, bool(kv_cache_int8),
                model.cache_dtype())
-        bufs = self.buffers.get(geo)
-        if bufs is None:
-            for old in [g for g in self.buffers if g not in self.pinned]:
-                self._drop(old)
-            bufs = self.buffers[geo] = _decode_buffers(
-                model, B, S, max_new_tokens, kv_cache_int8)
-        if self._pin:
-            self.pinned.add(geo)
+        bufs = self._buffers(geo, lambda: _decode_buffers(
+            model, B, S, max_new_tokens, kv_cache_int8))
         key = (geo, mask, tuple(sorted(sampling.items())))
         graph = self.runner.get(key)
         if graph is None:
-            # the step that runs eagerly before the capture starts where
-            # a fresh call's would (a call's replays leave step at N - 1,
-            # one more would write past `out`)
-            for name, t in bufs.items():
-                if name != 'caches':
-                    t.zero_()
             gen = (None if sampling['temperature'] == 0.0
                    else torch.Generator(device=model.device))
             body = functools.partial(_step_body, weakref.ref(model), bufs, S,
                                      mask, sampling, gen)
-            graph = self.runner.capture(key, body, bufs,
-                                        _cache_tensors(bufs['caches']), gen)
+            graph = self._capture(self.runner, key, body, bufs,
+                                  bufs['caches'], gen)
         return graph
 
+    def spec_graph(self, model, draft, B, S, max_new_tokens, k,
+                   kv_cache_int8, sampling=None):
+        """The captured speculative window of one generate_speculative
+        call (greedy), or with `sampling` ((name, value) pairs of
+        temperature, top_k and top_p) of a batch-1 sampled one, whose
+        proposals draw from a generator of its own registered with the
+        graph: its geometry's buffers, and the graph, captured now when
+        there is none in the draft's runner."""
+        from ..inference.graphs import GraphRunner
+
+        geo = ('spec', B, S, max_new_tokens, k, bool(kv_cache_int8),
+               model.cache_dtype(), weakref.ref(draft))
+        bufs = self._buffers(geo, lambda: _spec_buffers(
+            model, draft, B, S, max_new_tokens, k, kv_cache_int8))
+        runner = self.spec_runners.get(draft)
+        if runner is None:
+            runner = self.spec_runners[draft] = GraphRunner(
+                self.runner.device, modules=[model, draft])
+        key = (geo, sampling)
+        graph = runner.get(key)
+        if graph is None:
+            gen = (None if sampling is None
+                   else torch.Generator(device=model.device))
+            body = functools.partial(_spec_body, weakref.ref(model),
+                                     weakref.ref(draft), bufs, k, sampling,
+                                     gen)
+            graph = self._capture(runner, key, body, bufs,
+                                  bufs['caches'] + bufs['dcaches'], gen)
+        return graph
+
+    @staticmethod
+    def _capture(runner, key, body, bufs, caches, gen):
+        # the run that goes eagerly before the capture starts where a
+        # fresh call's would (a call's replays leave a decode step at N
+        # - 1, one more would write past `out`)
+        for name, t in bufs.items():
+            if name not in ('caches', 'dcaches'):
+                t.zero_()
+        return runner.capture(key, body, bufs, _cache_tensors(caches), gen)
+
+    def _runners(self):
+        return [self.runner, *self.spec_runners.values()]
+
+    def captures(self):
+        """Graphs captured so far, decode steps and windows."""
+        return sum(r.captures for r in self._runners())
+
     def _drop(self, geo):
-        self.runner.drop(lambda key: key[0] == geo)
+        for runner in self._runners():
+            runner.drop(lambda key: key[0] == geo)
         del self.buffers[geo]
         self.pinned.discard(geo)
 
     def release(self):
         """Drop every graph and every geometry's buffers."""
-        self.runner.release()
+        for runner in self._runners():
+            runner.release()
+        self.spec_runners.clear()
         self.buffers.clear()
         self.pinned.clear()
 
@@ -598,23 +656,22 @@ def _step_body(model_ref, bufs, S, mask, sampling, generator):
 # Speculative decoding
 # ---------------------------------------------------------------------------
 
-def _check_speculative_pair(target, draft, batch):
+def _check_speculative_pair(target, draft):
     """What every speculative entry point refuses up front: a draft on
-    another device than the target, and (batch > 1) a model whose cached
-    forward lacks per-row write offsets."""
+    another device than the target, and a model whose cached forward
+    lacks per-row write offsets (the windows write at device
+    positions)."""
     if draft.device != target.device:
         raise ValueError(
             f'the draft is on {draft.device}, the target on '
             f'{target.device}: speculative decoding runs both on one '
             f'device')
-    if batch != 1:
-        for m_ in (target, draft):
-            if 'kv_write_pos' not in inspect.signature(
-                    m_.forward).parameters:
-                raise NotImplementedError(
-                    f'{type(m_).__name__} does not support batched '
-                    f'speculative decoding (cached forward lacks '
-                    f'kv_write_pos); loop prompts individually')
+    for m_ in (target, draft):
+        if 'kv_write_pos' not in inspect.signature(m_.forward).parameters:
+            raise NotImplementedError(
+                f'{type(m_).__name__} does not support speculative '
+                f'decoding (cached forward lacks kv_write_pos): its '
+                f'windows write at device positions')
 
 
 class _eval_mode:
@@ -636,9 +693,6 @@ class _eval_mode:
             m_.train()
 
 
-# The speculative loops below run eagerly, window by window; capturing
-# them as CUDA graphs is ROADMAP A9b.
-
 def generate_speculative(target, draft, input_ids, max_new_tokens=32,
                          num_draft_tokens=4, eos_token_id=None,
                          kv_cache_int8=False):
@@ -653,11 +707,12 @@ def generate_speculative(target, draft, input_ids, max_new_tokens=32,
     by the next window (writes start at the committed length, and
     position masking hides the rows beyond it).
 
-    Batch 1 runs over a uniform cache index and reads the host once per
-    window (the accepted count and the next token together). Batched
-    prompts (B > 1, equal length) commit per row at their own rates
-    through per-row write offsets (`kv_write_pos`; models that lack it
-    are batch-1 only), each row by the rule its solo `generate` follows.
+    Rows commit at their own rates through per-row write offsets
+    (`kv_write_pos`), each row by the rule its solo `generate` follows,
+    and the host reads once per window (the proposals, accepted counts
+    and next tokens together). The window is captured once per geometry
+    as a CUDA graph and replayed (`_spec_window`); its caches outlive
+    the call, kept as `generate`'s are (`DecodeGraphs`).
     kv_cache_int8=True serves both models over int8 caches
     (`QuantKVCache`, scales calibrated at their prefills), matching
     `target.generate(..., kv_cache_int8=True)`. Returns (B, S +
@@ -668,33 +723,122 @@ def generate_speculative(target, draft, input_ids, max_new_tokens=32,
         raise ValueError(
             'kv_cache_int8 needs a multi-token prompt: the per-head '
             'scales calibrate on the prefill rows')
-    _check_speculative_pair(target, draft, B)
+    _check_speculative_pair(target, draft)
     with _eval_mode(target, draft), torch.no_grad():
-        gen, _counts = _speculative_loop(target, draft, ids, max_new_tokens,
-                                         num_draft_tokens, eos_token_id,
-                                         kv_cache_int8)
+        gen, _counts = _speculative_loop(target, draft, target, ids,
+                                         max_new_tokens, num_draft_tokens,
+                                         eos_token_id, kv_cache_int8)
     return torch.cat([ids, torch.as_tensor(gen, dtype=ids.dtype,
                                            device=ids.device)], dim=1)
 
 
-def _speculative_loop(target, draft, input_ids, max_new_tokens,
-                      num_draft_tokens, eos_token_id, kv_cache_int8=False):
-    """Both caches sized S + max_new_tokens + k + 1 (room for the last
-    window), then the batch-1 or the batched window loop. Returns (B
-    lists of max_new_tokens ids, {'windows', 'proposed', 'accepted'})."""
-    from ..inference.engine import (_spec_loop_host_b1,
-                                    _spec_loop_host_batched)
+def _spec_buffers(model, draft, B, S, max_new_tokens, k, kv_cache_int8):
+    """The buffers of one speculative geometry: both models' contiguous
+    caches of S + max_new_tokens + k + 1 positions (room for the last
+    window), and a window's inputs, each row's candidate `c` (B, 1) and
+    write offset `wp` (B,). All zeros: a window may run on them as they
+    are."""
+    max_len = S + max_new_tokens + k + 1
+    dev = model.device
+    return dict(caches=model.init_cache(B, max_len, quantized=kv_cache_int8),
+                dcaches=draft.init_cache(B, max_len,
+                                         quantized=kv_cache_int8),
+                c=torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                wp=torch.zeros((B,), dtype=torch.int64, device=dev))
 
+
+def _spec_window(target, draft, tcaches, dcaches, c, wp, k):
+    """One greedy speculative window: rows write at their own offsets wp
+    (B,) on both models (the draft's one-token steps take K7 at per-row
+    lengths), the draft proposes k tokens in k + 1 one-token steps (the
+    last writes the k-th proposal's own KV row), the target verifies [c,
+    d1..dk] in one forward, and the commit rule runs per row on the
+    device as a cumprod (`_commit_window` is its host-side spec). c (B,
+    1). Returns (drafts (B, k), accepted counts m (B,), next tokens
+    (B,))."""
+    tok, toks = c, []
+    for i in range(k + 1):
+        logits, dcaches = draft(tok, caches=dcaches, kv_write_pos=wp + i)
+        if i < k:
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(c.dtype)
+            toks.append(tok)
+    drafts = torch.cat(toks, dim=1)                          # (B, k)
+    window = torch.cat([c, drafts], dim=1)                   # (B, k + 1)
+    tlogits, tcaches = target(window, caches=tcaches, kv_write_pos=wp)
+    choices = torch.argmax(tlogits, dim=-1).to(c.dtype)      # (B, k + 1)
+    m = torch.cumprod((drafts == choices[:, :k]).long(), 1).sum(1)
+    return drafts, m, torch.gather(choices, 1, m[:, None])[:, 0]
+
+
+def _spec_body(model_ref, draft_ref, bufs, k, sampling, generator):
+    """A captured speculative window's body over its geometry's buffers:
+    `_spec_window` (greedy), or `_sampled_window` under `sampling` ((name,
+    value) pairs of temperature, top_k, top_p) drawing from `generator`.
+    The models are held weakly, so the graphs do not keep them alive."""
+    target, draft = model_ref(), draft_ref()
+    if sampling is None:
+        return _spec_window(target, draft, bufs['caches'], bufs['dcaches'],
+                            bufs['c'], bufs['wp'], k)
+    return _sampled_window(target, draft, bufs['caches'], bufs['dcaches'],
+                           bufs['c'], bufs['wp'], generator, k,
+                           dict(sampling))
+
+
+def _speculative_loop(target, draft, owner, input_ids, max_new_tokens,
+                      num_draft_tokens, eos_token_id, kv_cache_int8=False):
+    """The greedy speculative host loop over the geometry's captured
+    window in the `DecodeGraphs` of `owner` (the target, or the
+    DecodeEngine that calls it): both prefills into the geometry's
+    caches, then one window per iteration over every row with one host
+    read. Rows commit at their own rates by the batch-1 rule; finished
+    and full rows still ride through the window but commit nothing, and
+    their offset is held inside the cache (torch raises on a write past
+    it, where JAX drops it): what they write there is never read back.
+    Returns (B lists of max_new_tokens ids, {'windows', 'proposed',
+    'accepted'})."""
     B, S = input_ids.shape
     k = int(num_draft_tokens)
     if k < 1:
         raise ValueError('num_draft_tokens must be >= 1')
-    max_len = S + max_new_tokens + k + 1
-    tcaches = target.init_cache(B, max_len, quantized=kv_cache_int8)
-    dcaches = draft.init_cache(B, max_len, quantized=kv_cache_int8)
-    loop = _spec_loop_host_b1 if B == 1 else _spec_loop_host_batched
-    return loop(target, draft, tcaches, dcaches, input_ids, max_new_tokens,
-                k, eos_token_id)
+    graph = _decode_graphs(owner, target).spec_graph(
+        target, draft, B, S, max_new_tokens, k, kv_cache_int8)
+    bufs = graph.static
+    for t in _cache_tensors(bufs['caches'] + bufs['dcaches']):
+        t.zero_()              # the geometry's caches, as a fresh call's
+    logits, _ = target(input_ids, caches=bufs['caches'], cache_index=0)
+    draft(input_ids, caches=bufs['dcaches'], cache_index=0)
+    c_host = torch.argmax(logits[:, -1], dim=-1).tolist()
+    counts = {'windows': 0, 'proposed': 0, 'accepted': 0}
+    out = [[] for _ in range(B)]
+    finished = [False] * B
+    L = np.full((B,), S, np.int64)
+
+    def row_needs(b):
+        return not finished[b] and len(out[b]) < max_new_tokens
+
+    while any(row_needs(b) for b in range(B)):
+        graph.load(c=np.asarray(c_host, np.int64)[:, None],
+                   wp=np.minimum(L, S + max_new_tokens))
+        drafts, m, nxt = graph.run()
+        host = torch.cat([drafts, m[:, None], nxt[:, None]], 1).tolist()
+        counts['windows'] += 1
+        for b in range(B):
+            if not row_needs(b):
+                continue
+            mb = host[b][k]
+            committed = [c_host[b]] + host[b][:mb]
+            c_host[b] = host[b][k + 1]
+            counts['proposed'] += k
+            counts['accepted'] += mb
+            out[b].extend(committed)
+            if eos_token_id is not None and eos_token_id in committed:
+                out[b] = out[b][:out[b].index(eos_token_id) + 1]
+                finished[b] = True
+            L[b] += len(committed)
+    pad = eos_token_id if eos_token_id is not None else 0
+    return [out[b][:max_new_tokens]
+            + [pad] * (max_new_tokens - len(out[b][:max_new_tokens]))
+            for b in range(B)], counts
 
 
 def _commit_window(c, d_row, t_row, k):
@@ -743,8 +887,11 @@ def generate_speculative_sampled(target, draft, input_ids,
     drives the first token and the draft's proposals; the accept coins
     and resamples come from a second, independent generator seeded by
     one draw of the first. The host reads once per window (the
-    proposals and both models' distributions together). The streams
-    are the port's own, never the JAX package's threefry draws."""
+    proposals and both models' distributions together). The window is
+    captured once per geometry and sampling configuration as a CUDA
+    graph and replayed (`_sampled_window`), its caches kept as
+    `generate`'s are. The streams are the port's own, never the JAX
+    package's threefry draws."""
     if temperature == 0.0:
         return generate_speculative(target, draft, input_ids,
                                     max_new_tokens, num_draft_tokens,
@@ -755,7 +902,7 @@ def generate_speculative_sampled(target, draft, input_ids,
         raise NotImplementedError(
             'sampled speculative decoding is batch-1; loop prompts '
             'individually (greedy supports batches)')
-    _check_speculative_pair(target, draft, B)
+    _check_speculative_pair(target, draft)
     with _eval_mode(target, draft), torch.no_grad():
         out = _speculative_sampled_loop(
             target, draft, ids, max_new_tokens, num_draft_tokens,
@@ -777,25 +924,27 @@ def _sampled_prefill(m, caches, ids, cfg):
     return _sampled_dist(logits[:, -1, :], **cfg)
 
 
-def _sampled_propose(m, caches, c, idx, gen, k, cfg):
-    """The draft samples k tokens in k + 1 one-token steps (the last
-    writes the k-th proposal's KV row); returns them (k,) with the
-    draft's distribution at each (k, V)."""
+def _sampled_window(target, draft, tcaches, dcaches, c, wp, gen, k, cfg):
+    """One batch-1 sampled window: the draft samples k proposals in k + 1
+    one-token steps at the offsets wp + i (the last writes the k-th
+    proposal's KV row), each drawn from `gen` by `_draw` (a captured
+    body cannot take `torch.multinomial`'s host-side checks), then the
+    target verifies [c, d1..dk] in one forward. c (1, 1), wp (1,).
+    Returns (the proposals (k,), the draft's distributions at each (k,
+    V), the target's (k + 1, V))."""
     tok, toks, ps = c, [], []
     for i in range(k + 1):
-        logits, caches = m(tok, caches=caches, cache_index=idx + i)
+        logits, dcaches = draft(tok, caches=dcaches, kv_write_pos=wp + i)
         if i == k:
             break
         p = _sampled_dist(logits[:, -1], **cfg)
-        tok = torch.multinomial(p, 1, generator=gen)
+        tok = _draw(p, gen)[:, None]
         toks.append(tok[0, 0])
         ps.append(p[0])
-    return torch.stack(toks), torch.stack(ps)
-
-
-def _sampled_verify(m, caches, window, idx, cfg):
-    logits, caches = m(window, caches=caches, cache_index=idx)
-    return _sampled_dist(logits[0], **cfg)
+    drafts = torch.stack(toks)
+    tlogits, tcaches = target(torch.cat([c, drafts[None]], 1),
+                              caches=tcaches, kv_write_pos=wp)
+    return drafts, torch.stack(ps), _sampled_dist(tlogits[0], **cfg)
 
 
 def _sampled_commit(d, pt, pd, k, coins):
@@ -824,33 +973,40 @@ def _sampled_commit(d, pt, pd, k, coins):
 def _speculative_sampled_loop(target, draft, input_ids, max_new_tokens,
                               num_draft_tokens, temperature, top_k, top_p,
                               rng_key, eos_token_id):
+    """Both prefills into the geometry's caches (the target's own
+    `DecodeGraphs`), the first token, then one captured `_sampled_window`
+    per iteration and its rejection-sampling commit on the host. The
+    proposals draw from the graph's generator, which takes the caller's
+    state before the windows and hands it back after: the same
+    `rng_key`, the same stream as the window run directly."""
     B, S = input_ids.shape
     k = int(num_draft_tokens)
     if k < 1:
         raise ValueError('num_draft_tokens must be >= 1')
     dev = input_ids.device
-    max_len = S + max_new_tokens + k + 1
-    tcaches = target.init_cache(B, max_len)
-    dcaches = draft.init_cache(B, max_len)
     cfg = dict(temperature=float(temperature), top_k=int(top_k),
                top_p=float(top_p))
+    graph = _decode_graphs(target, target).spec_graph(
+        target, draft, B, S, max_new_tokens, k, False, tuple(cfg.items()))
+    bufs = graph.static
+    for t in _cache_tensors(bufs['caches'] + bufs['dcaches']):
+        t.zero_()
     gen = _generator(rng_key, dev)
-    p_last = _sampled_prefill(target, tcaches, input_ids, cfg)
-    _sampled_prefill(draft, dcaches, input_ids, cfg)
+    p_last = _sampled_prefill(target, bufs['caches'], input_ids, cfg)
+    _sampled_prefill(draft, bufs['dcaches'], input_ids, cfg)
     c = torch.multinomial(p_last, 1, generator=gen)              # (1, 1)
     # the accept / resample coins: an independent stream, seeded by one
     # draw of the proposal stream (the exactness proof assumes the coins
     # do not correlate with the proposals)
     coins = torch.Generator().manual_seed(int(torch.randint(
         0, 2 ** 31 - 1, (1,), generator=gen, device=dev)))
+    graph.generator.set_state(gen.get_state())
     c_host = int(c)
     out, L = [], S
     while len(out) < max_new_tokens:
-        c = torch.tensor([[c_host]], dtype=input_ids.dtype, device=dev)
-        drafts, pd = _sampled_propose(draft, dcaches, c, L, gen, k, cfg)
-        pt = _sampled_verify(target, tcaches,
-                             torch.cat([c, drafts[None].to(c.dtype)], 1),
-                             L, cfg)
+        graph.load(c=np.array([[c_host]], np.int64),
+                   wp=np.array([L], np.int64))
+        drafts, pd, pt = graph.run()
         # one host read per window: proposals and both distributions
         V = pt.shape[-1]
         host = torch.cat([pt.double().reshape(-1), pd.double().reshape(-1),
@@ -865,6 +1021,7 @@ def _speculative_sampled_loop(target, draft, input_ids, max_new_tokens,
             break
         c_host = nxt
         L += len(committed)
+    gen.set_state(graph.generator.get_state())
     if eos_token_id is not None and len(out) < max_new_tokens:
         out += [eos_token_id] * (max_new_tokens - len(out))
     return out[:max_new_tokens]

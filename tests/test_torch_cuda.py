@@ -2277,3 +2277,164 @@ def test_graphs_follow_a_replaced_weight(card):
     assert eng._graphs.captures == m + 1
     fresh = ServingEngine(model, **kw).serve(prompts)
     assert all(np.array_equal(a, b) for a, b in zip(outs, fresh))
+
+
+# ---------------------------------------------------------------------------
+# The compiled speculative windows (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+def _spec_serving_engine(card, kv):
+    """`_serving_engine`'s settings with a draft (the target's first
+    layer under its embedding, norm and head) proposing 3 tokens."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+
+    models = []
+    for layers in (2, 1):
+        cfg = llama_tiny(vocab_size=128, hidden_size=64, layers=layers)
+        cfg.dtype = 'bfloat16'
+        models.append(LlamaForCausalLM(cfg, device=card, seed=0))
+    target, draft = models
+    draft.load_state_dict({k: v for k, v in target.state_dict().items()
+                           if '.layers.1.' not in k})
+    return ServingEngine(target, draft=draft, num_draft_tokens=3,
+                         max_slots=3, block_size=4, max_new_tokens=12,
+                         decode_window=3, max_context_len=64,
+                         kv_cache_dtype=kv)
+
+
+@pytest.mark.parametrize('sampled', [False, True], ids=['greedy', 'sampled'])
+@pytest.mark.parametrize('kv', [None, 'int8'], ids=['bf16', 'int8'])
+def test_serving_spec_window_graph_equals_the_direct_window(card, kv,
+                                                            sampled):
+    """A captured speculative window replayed over live slots equals a
+    direct `_spec_window` call on cloned state bit for bit: candidates,
+    commit counts, next tokens, carried logits, and every byte of the
+    target's and the draft's pools past the scratch page, greedy and
+    sampled, over bf16 and int8 pools. (Page 0 takes every slot's
+    uncommitted verify rows; rows that land on one of its slots are
+    written in no fixed order, and it is never read.)"""
+    from paddle_tpu_torch.inference.serving import _spec_window
+
+    eng = _spec_serving_engine(card, kv)
+    rng = np.random.default_rng(9)
+    for i, n in enumerate((5, 14, 9)):
+        eng.submit(rng.integers(3, 128, n),
+                   **(dict(temperature=0.9, top_k=30) if i != 1 else {}))
+    eng.step()
+    eng._ensure_window_pages()
+    live = np.ones(3, bool)
+    graph = eng._spec_graph(32, sampled)
+    inputs = eng._window_inputs(live, sampled, True)
+    t = {k: (v.clone() if isinstance(v, torch.Tensor)
+             else torch.as_tensor(v, device=card)) for k, v in inputs.items()}
+    clone = [type(pc)(*(f.clone() for f in pc))
+             for pc in eng._pages + eng._dpages]
+    L = len(eng._pages)
+    with torch.no_grad():
+        want = _spec_window(
+            eng.model, eng.draft, clone[:L], clone[L:], t['last_logits'],
+            t['forced_tok'], t['forced'], t['btab'], t['ctx'], t['live'],
+            t['budget'], k=3, ctx_bucket=32, eos_token_id=None,
+            sampling=(tuple(t[k] for k in ('temp', 'topk', 'topp', 'seed',
+                                           'plen')) if sampled else None))
+    graph.load(**inputs)
+    got = graph.run()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[1].sum()) > 0
+    for pa, pb in zip(eng._pages + eng._dpages, clone):
+        for a, b in zip(pa, pb):
+            assert torch.equal(a[1:], b[1:])
+
+
+def test_generate_speculative_graph_equals_the_direct_windows(card):
+    """generate_speculative (b1, b3, int8 caches) and the sampled b1
+    through their replayed windows give the direct windows' tokens, with
+    the same launch counts; the sampled stream draws from the caller's
+    generator state, which it leaves where the direct loop does; a
+    warmed DecodeEngine captures nothing more."""
+    from paddle_tpu_torch.inference import DecodeEngine
+    from paddle_tpu_torch.inference.graphs import for_decode_engine
+    from paddle_tpu_torch.models.generation import (
+        _decode_graphs, generate_speculative, generate_speculative_sampled)
+
+    eng = _spec_serving_engine(card, None)
+    target, draft = eng.model, eng.draft
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        3, 128, (3, 9))).to(card)
+    runs = {'b1': lambda: generate_speculative(
+                target, draft, ids[:1], max_new_tokens=10,
+                num_draft_tokens=3),
+            'b3 int8': lambda: generate_speculative(
+                target, draft, ids, max_new_tokens=10, num_draft_tokens=3,
+                kv_cache_int8=True),
+            'sampled': lambda: generate_speculative_sampled(
+                target, draft, ids[:1], max_new_tokens=10,
+                num_draft_tokens=3, temperature=0.9, top_k=40,
+                rng_key=gen)}
+    for name, run in runs.items():
+        outs, counts, states = [], [], []
+        for direct in (False, True, False):
+            gen = torch.Generator(device=card).manual_seed(3)
+            before = dict(_build.LAUNCHES)
+            if direct:
+                with _direct_steps():
+                    out = run()
+            else:
+                out = run()
+            counts.append({k: _build.LAUNCHES[k] - before[k]
+                           for k in before})
+            outs.append(out)
+            states.append(gen.get_state())
+        assert torch.equal(outs[0], outs[1]), name
+        assert torch.equal(outs[2], outs[1]), name
+        assert counts[0] == counts[1] == counts[2], name
+        assert torch.equal(states[0], states[1]), name
+    dec = DecodeEngine(target, max_new_tokens=10)
+    dec.warmup(geometries=[g for g in for_decode_engine(
+        dec, [9], spec_draft_tokens=[3], spec_batch_sizes=(3,))
+        if g.kind == 'decode_spec'], draft=draft)
+    n = _decode_graphs(dec, target).captures()
+    assert torch.equal(dec.generate_speculative(draft, ids,
+                                                num_draft_tokens=3),
+                       generate_speculative(target, draft, ids,
+                                            max_new_tokens=10,
+                                            num_draft_tokens=3))
+    assert _decode_graphs(dec, target).captures() == n
+
+
+def test_spec_capture_failure_raises_and_foreign_pools_are_refused(card):
+    """A speculative window whose body cannot be captured (a host read
+    inside it) raises at its step: nothing falls back to the eager
+    body. A draft pool replaced after the capture is refused by
+    `check_state`, as a target pool is."""
+    from unittest import mock
+
+    from paddle_tpu_torch.inference import serving
+
+    prompts = [np.arange(3, 12), np.arange(5, 25)]
+    eng = _spec_serving_engine(card, None)
+    accept = serving._spec_accept
+
+    def host_read(*a, **k):
+        m, nxt = accept(*a, **k)
+        int(m.sum())                   # a device-to-host copy
+        return m, nxt
+
+    with mock.patch.object(serving, '_spec_accept', host_read):
+        for p in prompts:
+            eng.submit(p)
+        with pytest.raises(RuntimeError):
+            eng.step()
+    assert not any(k[0] == 'serve_spec_window' for k in eng._graphs.entries)
+
+    eng = _spec_serving_engine(card, 'int8')
+    eng.warmup()
+    assert eng.stats()['graphs']['captures'] == 2 * len(eng.geometries())
+    eng._dpages = eng.draft.init_paged_cache(eng.allocator.num_blocks, 4,
+                                             dtype=torch.int8)
+    for p in prompts:
+        eng.submit(p)
+    with pytest.raises(RuntimeError, match='not the ones'):
+        eng.step()

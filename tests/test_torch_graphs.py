@@ -118,10 +118,14 @@ def test_warmup_refuses_artifacts_and_requests_in_flight():
         dec.warmup(artifact='/nonexistent')
     with pytest.raises(ValueError, match='geometries'):
         dec.warmup()
-    with pytest.raises(NotImplementedError, match='A9b'):
-        dec.warmup(geometries=[dict(kind='decode_spec', batch=1,
-                                    prompt_len=4, max_new_tokens=3,
-                                    num_draft_tokens=2)])
+    # decode_spec needs the draft, as in the JAX engine; with it the
+    # speculative window is captured
+    spec = [dict(kind='decode_spec', batch=1, prompt_len=4,
+                 max_new_tokens=3, num_draft_tokens=2)]
+    with pytest.raises(ValueError, match='draft'):
+        dec.warmup(geometries=spec)
+    assert dec.warmup(geometries=spec, draft=tm)['traces'] == 1
+    assert dec.stats()['verify_forwards'] == 0
 
 
 def test_streams_after_warmup_equal_the_jax_engine():

@@ -359,6 +359,8 @@ def runs():
                 engine = JaxEngine(jm, draft=jd, **kw)
             elif kind == 'port':
                 engine = ServingEngine(tm, draft=td, **kw)
+                # its speculative and chunk-step windows captured first
+                engine.warmup()
             else:
                 kw.pop('num_draft_tokens')
                 engine = ServingEngine(tm, **kw)
