@@ -1391,12 +1391,7 @@ def trace_step(torch, engine, card, label, what):
         engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    # kernel-level events only (an operator's device time is its
-    # kernels' time, counted once)
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith('CUDA')
-                   and e.self_device_time_total > 0), reverse=True)
+    rows = device_rows(prof)
     if not rows:
         print(f'{label}: the profiler recorded no device time; device-busy '
               f'share not measured')
@@ -1410,13 +1405,16 @@ def trace_step(torch, engine, card, label, what):
 
 
 def serve_burst(torch, engine, prompts):
-    """Warm the engine on one short request (not measured), then serve
+    """Warm the engine (not measured: every geometry of the burst's
+    prompt lengths captured, then one short request), then serve
     `prompts` in three staggered waves (later requests admitted while
     earlier rows decode) with every launch count set to 0 just before
     and read just after. Returns the run's wall time, launch counts,
     engine stats before and after, outputs and peak memory."""
     from paddle_tpu_torch import ops
 
+    engine.warmup(geometries=engine.geometries(
+        prompt_lens=[32] + [len(p) for p in prompts]))
     engine.serve([prompts[0][:32]], max_new_tokens=8)
     before = engine.stats()
     torch.cuda.synchronize()
@@ -1471,6 +1469,7 @@ def serve_phase(torch, np, card):
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 
+    lap = lap_timer()
     cfg = dataclasses.replace(llama_7b(), dtype='bfloat16')
     L = cfg.num_hidden_layers
     t = time.perf_counter()
@@ -1488,14 +1487,18 @@ def serve_phase(torch, np, card):
     launches, outs = run[1], run[4]
     check_burst('serving', engine, prompts, cfg.vocab_size, *run,
                 'paged_decode_attention', card)
+    lap('4 (a) the burst')
 
     profile_window(torch, engine, prompts, card)
+    lap('4 (b) window profile')
 
     logits_phase(torch, model, cfg, prompts[2], outs[2][len(prompts[2]):])
+    lap('4 (c) logits')
     del engine
     gc.collect()
     torch.cuda.empty_cache()
     int8_launches = int8_serve_phase(torch, np, card, model, prompts, outs)
+    lap('5 int8 serving')
     return launches, int8_launches
 
 
@@ -1751,6 +1754,18 @@ def count_launches(torch, fn):
     return out, dict(ops.LAUNCHES)
 
 
+def launch_delta(torch, fn):
+    """fn() and the launches it made (synchronised), the counts left
+    running: (result, counts)."""
+    from paddle_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+
+
 def expect_launches(got, L, forwards, decode_forwards, quant=None):
     """The decode phase's exact launch counts: K1 2L + 1 per forward, K7
     L per single-token forward, K10 or K11 7L + 1 per forward of a
@@ -1764,6 +1779,24 @@ def expect_launches(got, L, forwards, decode_forwards, quant=None):
         raise AssertionError(f'launch counts {got} != expected {want}')
 
 
+def device_rows(prof):
+    """The device work a finished torch.profiler session traced, as
+    (device us, count, name) rows by kernel name, largest first:
+    kernel-level events only, so an operator's device time is its
+    kernels' time, counted once. Read from the profiler's raw events:
+    `key_averages()` builds a Python object per host event (~0.4 ms
+    each), seconds for one eager 7B step."""
+    sums = {}
+    for e in prof.profiler.kineto_results.events():
+        if (str(e.device_type()).endswith('CUDA')
+                and not getattr(e, 'is_user_annotation', lambda: False)()):
+            row = sums.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e3
+            row[1] += 1
+    return sorted(((t, n, name) for name, (t, n) in sums.items() if t > 0),
+                  reverse=True)
+
+
 def profile_forward(torch, fn, label, card, phase='decode',
                     what='one forward'):
     """Trace one decode (or prefill) forward (or `what` fn runs): device
@@ -1771,17 +1804,21 @@ def profile_forward(torch, fn, label, card, phase='decode',
     Returns the traced kernels' (device us, count, name) rows."""
     from torch.profiler import ProfilerActivity, profile
 
+    marker = torch.zeros(1, device='cuda')
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the profiler can miss the first launches of a traced region
+        # (a fused step's first RMSNorm went untraced): uncounted ones
+        # go first, outside the timed wall
+        for _ in range(4):
+            marker.add_(1)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith('CUDA')
-                   and e.self_device_time_total > 0), reverse=True)
+    rows = device_rows(prof)
     if not rows:
         print(f'{phase} profile {label}: the profiler recorded no device '
               f'time; device-busy share not measured')
@@ -1815,6 +1852,7 @@ TRACE_TAGS = {
     'decode_attention': ('pt_decode::',),
     'paged_decode_attention': ('pt_decode::',),
     'paged_decode_attention_int8': ('pt_decode::',),
+    'decode_attention_headmajor': ('pt_decode::',),
     'moe_grouped_matmul': ('moe_skinny_kernel', 'moe_tiled_kernel',
                            'moe_tc_kernel'),
     **dict.fromkeys(('quant_matmul', 'quant_matmul_int4',
@@ -1826,15 +1864,17 @@ TRACE_TAGS = {
 
 def check_replay_trace(rows, graph, n, label):
     """The hand-written kernels that a traced run of n replays of `graph`
-    launched, counted by name in the profiler's `rows`, against the
-    launches its capture counted times n (what the runner adds to the
-    counters on each replay): equal for every kernel family, none
-    launched that the capture did not count."""
+    (or of each (graph, n) pair of a list: the graphs one engine step
+    replayed) launched, counted by name in the profiler's `rows`,
+    against the launches its capture counted times n (what the runner
+    adds to the counters on each replay): equal for every kernel family,
+    none launched that the capture did not count."""
     want = dict.fromkeys(set(TRACE_TAGS.values()), 0)
-    for name, inc in graph.increments[0].items():
-        if name not in TRACE_TAGS:
-            raise AssertionError(f'{label}: no traced name for {name}')
-        want[TRACE_TAGS[name]] += n * inc
+    for g, m in (graph if isinstance(graph, list) else [(graph, n)]):
+        for name, inc in g.increments[0].items():
+            if name not in TRACE_TAGS:
+                raise AssertionError(f'{label}: no traced name for {name}')
+            want[TRACE_TAGS[name]] += m * inc
     got = {tags: sum(c for _, c, key in rows
                      if any(t in key for t in tags)) for tags in want}
     shown = {tags[0]: (got[tags], want[tags]) for tags in want
@@ -2323,7 +2363,40 @@ def fused_phase(torch, np, card, steps=64, f32_tol=1e-3, L=32, E=4096,
           f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches '
           f'per step: K9 {counts["decode_attention_headmajor"] // steps}, '
           f'K1 {counts["rms_norm"] // steps} [{card}]', flush=True)
-    profile_forward(torch, lambda: step(steps), 'fused decode step b8', card)
+    # the replayed step against fused_multi_transformer's direct
+    # time_step path on cloned caches, bit for bit, with its launches;
+    # then the direct step's time over the positions the loop wrote (each
+    # rewrites the same rows)
+    ref = [c.clone() for c in caches]
+    got, gcounts = launch_delta(torch, lambda: step(steps))
+
+    def direct(i, into):
+        with torch.no_grad():
+            return FF.fused_multi_transformer(
+                xs[i], **w, cache_kvs=into, time_step=S + i, **kw)[0]
+
+    want, dcounts = launch_delta(torch, lambda: direct(steps, ref))
+    same = (bool(torch.equal(got, want)) and gcounts == dcounts
+            and all(torch.equal(a, b) for a, b in zip(caches, ref)))
+    del ref
+    add_counts(total, gcounts)
+    n_d = min(8, steps)
+    _, t_d = timed(torch, lambda: [direct(i, caches)
+                                   for i in range(1, n_d + 1)])
+    print(f'graphs fused decode step b8: the replayed step equal to the '
+          f'direct time_step path on cloned caches (output, caches, '
+          f'launches) {same}; {t_d / n_d * 1e3:.3f} ms per step direct, '
+          f'{dt / steps * 1e3:.3f} ms replayed [{card}]', flush=True)
+    if not same:
+        raise AssertionError('fused decode step: the replayed step differs '
+                             'from the direct path')
+    profile_forward(torch, lambda: direct(steps, caches),
+                    'fused decode step b8 direct', card)
+    rows = profile_forward(torch, lambda: step(steps),
+                           'fused decode step b8 replayed', card)
+    graph = next(iter(FF._FMT_RUNNERS[xs.device].entries.values()))
+    check_replay_trace(rows, graph, 1, 'fused decode step b8 replayed')
+    FF.release_graphs()
     del w, caches, x, xs
     gc.collect()
     torch.cuda.empty_cache()
@@ -2505,10 +2578,7 @@ def profile_train_step(torch, eng, ids, card, label='train'):
     print(f'{label} profile: AdamW update '
           f'{events[0].elapsed_time(events[1]):.1f} ms of the step (CUDA '
           f'events around apply_gradients)')
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith('CUDA')
-                   and e.self_device_time_total > 0), reverse=True)
+    rows = device_rows(prof)
     if not rows:
         print(f'{label} profile: the profiler recorded no device time; '
               f'device-busy share not measured')
@@ -2967,8 +3037,12 @@ def qwen2_agreement(torch, np, card, cfg):
             kw['kv_cache_dtype'] = 'int8'
         got, counts = count_launches(
             torch, lambda: ServingEngine(model, **kw).serve(prompts))
+        gc.collect()
+        torch.cuda.empty_cache()
         with plain_kernels():
             want = ServingEngine(model, **kw).serve(prompts)
+        gc.collect()
+        torch.cuda.empty_cache()
         key = ('paged_decode_attention_int8' if kv == 'int8'
                else 'paged_decode_attention')
         equal = all(np_equal(a, b) for a, b in zip(got, want))
@@ -3188,13 +3262,15 @@ def prefill_logits(torch, model, prompt, cuts):
                 model, pages, torch.nn.functional.pad(
                     ids[:, :p0], (0, bucket_length(p0) - p0)),
                 torch.tensor([p0], device=dev), btab)
+        no_copy = torch.zeros(1, dtype=torch.int64, device=dev)
         for lo, hi in zip(edges, edges[1:]):
             Cb = bucket_length(hi - lo)
             chunk = torch.nn.functional.pad(ids[:, lo:hi],
                                             (0, Cb - (hi - lo)))
             last, pages = _chunk_kv(
                 model, pages, chunk, torch.tensor([hi - lo], device=dev),
-                torch.tensor([lo], device=dev), btab, bucket_length(lo + Cb))
+                torch.tensor([lo], device=dev), btab, bucket_length(hi),
+                no_copy, no_copy)
     return last.float()
 
 
@@ -3210,6 +3286,17 @@ def logits_gap(torch, model, prompt, cuts, label, tol):
           f'|logit| {float(mono.abs().max()):.4f}), argmax equal {same}')
     if not gap <= tol:
         raise AssertionError(f'{label}: logits moved {gap} > {tol}')
+
+
+def graph_bytes(label, engine, card):
+    """Print an engine's captured geometries: each key with its capture
+    seconds and the bytes its capture reserved, and their sum."""
+    g = engine.stats()['graphs']
+    rows = ', '.join(f'{k} {c} s {b}' for k, c, b in zip(
+        g['keys'], g['capture_s'], g['reserved_bytes']))
+    print(f'{label}: {g["captures"]} graphs captured; per geometry (key, '
+          f'capture, bytes reserved): {rows}; {sum(g["reserved_bytes"])} '
+          f'bytes in all [{card}]', flush=True)
 
 
 def pct(np, xs, q):
@@ -3235,11 +3322,15 @@ def prefix_phase(torch, np, card):
     over a contiguous cache through K7 equal to the plain versions.
     Returns the launch counts of its runs by path."""
     from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.engine import bucket_length
+    from paddle_tpu_torch.inference.graphs import Geometry
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 
     t_phase = time.perf_counter()
+    lap = lap_timer()
     cfg = dataclasses.replace(llama_7b(), dtype='bfloat16')
     V = cfg.vocab_size
+    W = SERVE_KW['decode_window']
     model = LlamaForCausalLM(cfg, seed=0)
     rng = np.random.default_rng(12)
     system = rng.integers(3, V, 512).astype(np.int32)
@@ -3255,8 +3346,16 @@ def prefix_phase(torch, np, card):
     for run, cached in enumerate((False, True, True, False), start=1):
         engine = ServingEngine(model, prefix_cache=cached, **SERVE_KW)
         # warm-up, not measured: with the cache on it indexes the system
-        # prompt, as a served system prompt would have been
+        # prompt, as a served system prompt would have been; then the
+        # graphs the measured burst replays are captured: its admission
+        # prefill and window, and with the cache each hit's chunk (the
+        # suffix past the 512 cached tokens, gathered to its end bucket)
         engine.serve([warm], max_new_tokens=8)
+        engine.warmup(geometries=engine.geometries(
+            prompt_lens=[len(p) for p in prompts]) if not cached else [
+            Geometry('serve_chunk_step', window=W,
+                     chunk=bucket_length(len(p) - 512),
+                     bucket=bucket_length(len(p))) for p in prompts])
         label = f'prefix {"on" if cached else "off"} (run {run})'
         wall, launches, before, after, outs, first, _ = stepped_run(
             torch, engine, [(0, p, {}) for p in prompts])
@@ -3279,7 +3378,10 @@ def prefix_phase(torch, np, card):
               f'chunk forwards '
               f'{after["chunk_forwards"] - before["chunk_forwards"]} '
               f'[{card}]', flush=True)
+        graph_bytes(label, engine, card)
         del engine
+        gc.collect()
+        torch.cuda.empty_cache()
     (off, pre_off), (on, pre_on) = res[False], res[True]
     same = [int(np.sum(np.cumprod(a[len(p):] == b[len(p):])))
             for p, a, b in zip(prompts, on, off)]
@@ -3292,6 +3394,7 @@ def prefix_phase(torch, np, card):
     logits_gap(torch, model, prompts[0], [512], 'prefix bf16 hit',
                CHUNK_BF16_TOL)
 
+    lap('12 (a) prefix cache off / on')
     # (b) two long prompts arriving while two short streams decode
     short = [rng.integers(3, V, 64).astype(np.int32) for _ in range(2)]
     long = [rng.integers(3, V, 1536).astype(np.int32) for _ in range(2)]
@@ -3300,6 +3403,14 @@ def prefix_phase(torch, np, card):
     for chunk in (None, 256):
         engine = ServingEngine(model, prefill_chunk=chunk, **SERVE_KW)
         engine.serve([short[0][:32]], max_new_tokens=8)
+        # not measured: the graphs the measured run replays (the short
+        # prompts' prefill, the window; the long ones' prefill, or their
+        # 256-token chunks gathered to each end's bucket)
+        engine.warmup(geometries=engine.geometries(prompt_lens=[64, 1536])
+                      if not chunk else [Geometry('serve_step', window=W,
+                                                  bucket=64)] + [
+            Geometry('serve_chunk_step', window=W, chunk=256, bucket=b)
+            for b in (256, 512, 1024, 2048)])
         label = 'chunked 256' if chunk else 'monolithic'
         wall, launches, before, after, outs, first, steps = stepped_run(
             torch, engine, arrivals, watch=(0, 1))
@@ -3320,6 +3431,7 @@ def prefix_phase(torch, np, card):
               f'forwards, {after["prefill_forwards"] - before["prefill_forwards"]} '
               f'prefills, {len(steps)} steps in {wall:.3f} s [{card}]',
               flush=True)
+        graph_bytes(label, engine, card)
         if chunk:
             # one step of a 256-token chunk of each long prompt (past
             # their first) beside the short streams' window
@@ -3334,9 +3446,12 @@ def prefix_phase(torch, np, card):
             for r in rids:
                 engine.result(r)
         del engine
+        gc.collect()
+        torch.cuda.empty_cache()
     logits_gap(torch, model, long[0], list(range(0, 1536, 256)),
                'chunked bf16', CHUNK_BF16_TOL)
 
+    lap('12 (b) chunked against monolithic')
     # (c) sampled rows beside greedy rows: one bucket, equal budgets, so
     # every admission wave is one prefill of 4 rows of the same shape
     sp = [rng.integers(3, V, n).astype(np.int32)
@@ -3349,6 +3464,8 @@ def prefix_phase(torch, np, card):
     for name, jobs in (('mixed', mixed), ('again', mixed),
                        ('reversed', mixed[::-1]), ('greedy only', greedy)):
         engine = ServingEngine(model, **SERVE_KW)
+        engine.warmup(geometries=engine.geometries(
+            prompt_lens=[len(p) for p, _ in jobs]))
         wall, launches, before, after, outs, _f, _s = stepped_run(
             torch, engine, [(0, p, kw) for p, kw in jobs])
         check_outputs(f'sampling {name}', [p for p, _ in jobs], outs, V,
@@ -3362,6 +3479,8 @@ def prefix_phase(torch, np, card):
         print(f'sampling {name}: {len(jobs)} requests, {n_tok} tokens in '
               f'{wall:.3f} s: {n_tok / wall:.1f} tok/s [{card}]', flush=True)
         del engine
+        gc.collect()
+        torch.cuda.empty_cache()
     rep = all(np_equal(got['mixed'][i], got[k][i]) for i in range(4)
               for k in ('again', 'reversed'))
     grd = all(np_equal(got['mixed'][i], got['greedy only'][i])
@@ -3373,13 +3492,24 @@ def prefix_phase(torch, np, card):
         raise AssertionError('sampling: streams depend on the run or the '
                              'batch')
 
+    lap('12 (c) sampling')
     # (d) an int8 pool with both features
     engine = ServingEngine(model, kv_cache_dtype='int8', prefix_cache=True,
                            prefill_chunk=256, **SERVE_KW)
     engine.serve([warm], max_new_tokens=8)
+    # not measured: the (chunk, bucket) pairs this burst's chunk steps
+    # take (the hits' suffixes beside the long prompts' 256-token chunks)
+    engine.warmup(geometries=[
+        Geometry('serve_chunk_step', window=W, chunk=c, bucket=b)
+        for c, b in ((256, 256), (256, 512), (64, 1024), (128, 1024),
+                     (256, 1024), (256, 2048))])
+    n_cap = engine.stats()['graphs']['captures']
     wall, launches, before, after, outs, first, _ = stepped_run(
         torch, engine, [(0, p, {}) for p in prompts]
         + [(1, p, {}) for p in long])
+    if engine.stats()['graphs']['captures'] != n_cap:
+        raise AssertionError('int8 prefix+chunked: a graph was captured '
+                             'inside the timed run')
     check_outputs('int8 prefix+chunked', prompts + long, outs, V, [32] * 10)
     serving_launches('int8 prefix+chunked', engine, before, after, launches,
                      'paged_decode_attention_int8')
@@ -3394,11 +3524,14 @@ def prefix_phase(torch, np, card):
           f'{pfx["chunk_steps"]}, prefill tokens '
           f'{after["prefill_tokens"] - before["prefill_tokens"]} [{card}]',
           flush=True)
+    graph_bytes('int8 prefix+chunked', engine, card)
     del engine, model
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap('12 (d) int8 prefix + chunked')
     prefix_agreement(torch, np, card, system, prompts, long)
+    lap('12 (e) float32 agreement')
     print(f'prefix: phase took {time.perf_counter() - t_phase:.1f} s',
           flush=True)
     return paths
@@ -3441,6 +3574,9 @@ def prefix_agreement(torch, np, card, system, prompts, long):
                 and engine.allocator.in_use() == 0):
             raise AssertionError(f'prefix agreement ({name} pools): streams '
                                  f'differ, no hit or chunk, or pages held')
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # one-token steps at per-row offsets over a contiguous cache
     dev = model.device
@@ -3737,15 +3873,13 @@ def spec_serving(torch, np, model, draft, card, paths):
             engine = ServingEngine(model, **kw)
             label = (f'spec serving {kv or "bf16"} '
                      f'{"speculative" if spec else "plain"}')
-            if spec:
-                # every verify ctx bucket the burst's contexts reach
-                report = engine.warmup(geometries=engine.geometries(
-                    prompt_lens=[32] + [len(p) for p in prompts],
-                    max_new_tokens=32))
-                g = engine.stats()['graphs']
-                print(f'{label}: warmup {report}; per geometry capture '
-                      f'{g["capture_s"]} s, reserved {g["reserved_bytes"]} '
-                      f'bytes [{card}]', flush=True)
+            # every admission bucket and (speculative) verify ctx bucket
+            # the burst's contexts reach
+            report = engine.warmup(geometries=engine.geometries(
+                prompt_lens=[32] + [len(p) for p in prompts],
+                max_new_tokens=32))
+            print(f'{label}: warmup {report} [{card}]', flush=True)
+            graph_bytes(label, engine, card)
             engine.serve([prompts[0][:32]], max_new_tokens=8)    # warm
             wall, launches, before, after, out, first, steps = stepped_run(
                 torch, engine, arrivals, watch=range(8))
@@ -3788,6 +3922,7 @@ def spec_serving(torch, np, model, draft, card, paths):
                            f'rows')            # the rest is not served
             del engine
             gc.collect()
+            torch.cuda.empty_cache()
         same = [leading_equal(np, a[len(p):], b[len(p):])
                 for p, a, b in zip(prompts, outs[True], outs[False])]
         print(f'spec serving {kv or "bf16"}: leading tokens equal to the '
@@ -3827,6 +3962,8 @@ def spec_serving(torch, np, model, draft, card, paths):
               f'tokens in {wall:.3f} s, accept rate '
               f'{sc["accepted"] / sc["proposed"]:.4f} [{card}]', flush=True)
         del engine
+        gc.collect()
+        torch.cuda.empty_cache()
     rep = all(np_equal(got['mixed'][i], got[k_][i]) for i in range(8)
               for k_ in ('again', 'reversed'))
     print(f'spec sampling: streams (temperature 0.8, top_k 50, top_p 0.95 '
@@ -3917,6 +4054,8 @@ def spec_agreement(torch, np, card, total):
                            ok, after['spec']['accept_rate'] if
                            label == 'self-draft' else None))
             del engine
+            gc.collect()
+            torch.cuda.empty_cache()
     for label, ok, rate in checks:
         print(f'spec agreement float32, Llama-7B width, 2 layers: {label}: '
               f'streams equal to the non-speculative ones (and through the '
@@ -3948,6 +4087,7 @@ def spec_phase(torch, np, card):
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 
     t_phase = time.perf_counter()
+    lap = lap_timer()
     cfg = dataclasses.replace(llama_7b(), dtype='bfloat16')
     model = LlamaForCausalLM(cfg, seed=0)
     qdraft = model.quantize_weights(8)
@@ -3956,18 +4096,22 @@ def spec_phase(torch, np, card):
     spec_generate_b1(torch, np, model, (('2 layers', draft2, None),
                                         ('int8 copy', qdraft, 'quant_matmul')),
                      card, total)
+    lap('13 (a) generate b1')
     spec_generate_b8(torch, np, model, draft2, card, total)
+    lap('13 (b) DecodeEngine b8')
     del draft2
     gc.collect()
     torch.cuda.empty_cache()
     paths = {}
     spec_serving(torch, np, model, qdraft, card, paths)
+    lap('13 (c) serving')
     for counts in paths.values():
         add_counts(total, counts)
     del model, qdraft
     gc.collect()
     torch.cuda.empty_cache()
     spec_agreement(torch, np, card, total)
+    lap('13 (d) float32 agreement')
     print(f'spec: phase took {time.perf_counter() - t_phase:.1f} s',
           flush=True)
     return {'speculative': total}
@@ -4694,7 +4838,8 @@ def window_variant(torch, np, engine, label, sampled, forced, card,
 
 def window_checks(torch, np, model, card, kv):
     """Phase 4's engine settings at Llama-7B width over `kv` pools:
-    warmup (report, capture time and bytes per geometry), 4 requests (2
+    warmup over its prompt lengths (report, capture time and bytes per
+    geometry), 4 requests (2
     sampled) admitted and decoding, then every window variant against the
     direct body (the carried-token one as a speculative engine's chunk
     step runs it)."""
@@ -4702,13 +4847,12 @@ def window_checks(torch, np, model, card, kv):
 
     label = 'int8 pools' if kv else 'bf16 pools'
     engine = ServingEngine(model, kv_cache_dtype=kv, **SERVE_KW)
-    report = engine.warmup()
-    g = engine.stats()['graphs']
-    print(f'graphs {label}: warmup {report}; per geometry capture '
-          f'{g["capture_s"]} s, reserved {g["reserved_bytes"]} bytes '
-          f'[{card}]', flush=True)
+    lens = (96, 200, 333, 480)
+    report = engine.warmup(geometries=engine.geometries(prompt_lens=lens))
+    print(f'graphs {label}: warmup {report} [{card}]', flush=True)
+    graph_bytes(f'graphs {label}', engine, card)
     rng = np.random.default_rng(31)
-    for i, n in enumerate((96, 200, 333, 480)):
+    for i, n in enumerate(lens):
         engine.submit(rng.integers(3, model.config.vocab_size, n),
                       **(dict(temperature=0.8, top_p=0.95) if i % 2 else {}))
     engine.step()                    # admissions and the first window
@@ -4927,6 +5071,196 @@ def generate_checks(torch, np, model, B, label, card, P=GRAPH_PROMPT,
                                  f'and direct steps disagree')
 
 
+@contextlib.contextmanager
+def recording_replays():
+    """The captured graphs run inside the block, as (graph, replays)
+    pairs (a body run directly is no replay)."""
+    from paddle_tpu_torch.inference import graphs
+
+    seen = []
+    run = graphs.Graph.run
+
+    def recorded(self, n=1):
+        if self.graph is not None:
+            seen.append((self, n))
+        return run(self, n)
+
+    with mock.patch.object(graphs.Graph, 'run', recorded):
+        yield seen
+
+
+# phase 15 (f)'s engines: pages for its five lockstep steps
+STEP_BLOCKS = 100
+
+
+def lockstep_engine(torch, model, draft, kv, direct):
+    """Phase 4's engine settings with `draft` (k = SPEC_K), the prefix
+    cache and prefill_chunk=256 over `kv` pools; `direct` runs every
+    body directly on the card (a runner off the card: the eager
+    reference of the captured bodies)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.graphs import GraphRunner
+
+    engine = ServingEngine(model, draft=draft, num_draft_tokens=SPEC_K,
+                           kv_cache_dtype=kv, prefix_cache=True,
+                           prefill_chunk=256, num_blocks=STEP_BLOCKS,
+                           **SERVE_KW)
+    if direct:
+        engine._graphs = GraphRunner('cpu')
+    return engine
+
+
+def engine_state(engine):
+    """Every request's committed tokens by id, finished or not."""
+    return {rid: list(r.generated) for rid, r in
+            list(engine._live.items()) + list(engine._terminal.items())}
+
+
+def step_body_checks(torch, np, model, draft, card, kv):
+    """(f) The captured admission prefills, chunks and draft catch-ups:
+    `lockstep_engine` at Llama-7B width with the 2-layer draft over `kv`
+    pools stepped in lockstep with its direct twin from the same zero
+    pools: step 1 admits a 96- and a 200-token prompt (both models'
+    prefills of buckets 128 and 256 at one row each, then the
+    speculative window: a speculative admission step); step 2 a copy of
+    the first (every page cached: a one-token chunk into a copy-on-write
+    copy of its last page) and a 600-token prompt's first 256-token
+    chunk (both models' chunks, then the window with the carried
+    tokens); steps 3-4 the rest of the long prompt, each with the
+    draft's catch-up of the rows the previous window committed; step 5
+    a 150-token prompt into a slot the shorter requests freed: both
+    models' prefills, the draft's catch-up of the long prompt's window,
+    then the speculative window (a speculative admission step with the
+    catch-up). After every step the
+    committed tokens, the carried logits, both models' pools past the
+    scratch page and the launch counts must be equal; the wall time of
+    each step both ways (the replayed one includes the captures of the
+    graphs it used first, printed)."""
+    rng = np.random.default_rng(41)
+    V = model.config.vocab_size
+    first = rng.integers(3, V, 96)
+    plan = {0: [first, rng.integers(3, V, 200)],
+            1: [first.copy(), rng.integers(3, V, 600)],
+            4: [rng.integers(3, V, 150)]}
+    label = f'graphs steps {"int8" if kv else "bf16"} pools'
+    engines = [lockstep_engine(torch, model, draft, kv, direct)
+               for direct in (False, True)]
+    for i in range(5):
+        for e in engines:
+            for p in plan.get(i, []):
+                e.submit(p, max_new_tokens=24)
+        runs = []
+        for e in engines:
+            before = e.stats()
+            n0, c0 = e._graphs.captures, sum(e._graphs.stats()['capture_s'])
+            with recording_replays() as seen:
+                (_, wall), counts = launch_delta(
+                    torch, lambda: timed(torch, e.step))
+            after = e.stats()
+            runs.append((wall, counts, seen, e._graphs.captures - n0,
+                         sum(e._graphs.stats()['capture_s']) - c0,
+                         {k: after[k] - before[k] for k in (
+                             'prefill_forwards', 'chunk_forwards',
+                             'decode_forwards')},
+                         {k: after['spec']['draft_forwards'][k]
+                          - before['spec']['draft_forwards'][k]
+                          for k in after['spec']['draft_forwards']},
+                         after['spec']['windows'] - before['spec']['windows']))
+        g, d = engines
+        same = {
+            'tokens': engine_state(g) == engine_state(d),
+            'logits': bool(torch.equal(g._last_logits, d._last_logits)),
+            'pools': all(torch.equal(a[1:], b[1:]) for pa, pb in zip(
+                g._pages + g._dpages, d._pages + d._dpages)
+                for a, b in zip(pa, pb)),
+            'launches': runs[0][1] == runs[1][1]}
+        wall, _, seen, n_cap, cap_s, fw, dfw, wins = runs[0]
+        print(f'{label} step {i + 1}: target forwards {fw}, draft {dfw}, '
+              f'{wins} speculative windows; {len(seen)} graphs replayed; '
+              f'replayed equal to the direct bodies {same}; '
+              f'{runs[1][0] * 1e3:.1f} ms direct, {wall * 1e3:.1f} ms '
+              f'replayed ({n_cap} captures in {cap_s:.3f} s of it) [{card}]',
+              flush=True)
+        if not all(same.values()):
+            raise AssertionError(f'{label} step {i + 1}: the replayed step '
+                                 f'differs from the direct bodies: {same}')
+    st = g.stats()
+    if not (st['prefix']['cow_pages'] and st['prefix']['hits']
+            and st['spec']['draft_forwards']['chunk'] > 2):
+        raise AssertionError(f'{label}: no copy on write, prefix hit or '
+                             f'draft catch-up ran: {st["prefix"]}')
+    gs = st['graphs']
+    per = list(zip(gs['keys'], gs['reserved_bytes']))
+    print(f'{label}: per geometry {per} bytes reserved, {sum(gs["reserved_bytes"])} in all [{card}]',
+          flush=True)
+    del engines, g, d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def engine_step_profiles(torch, np, model, card):
+    """An admission step (phase 4's engine: 4 prompts of 96-480 tokens,
+    buckets 128 / 256 / 512, then the window) and a chunk step (the
+    engine with prefill_chunk=256: two 1536-token prompts' 256-token
+    chunks at positions 768-1024 beside two decoding rows, then the
+    window), each traced direct (a runner off the card) and replayed
+    (its graphs warmed, or captured by the same steps before it), the
+    replayed step's traced launches equal to its graphs' counts; the
+    rest is not served."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.graphs import GraphRunner
+
+    lap = lap_timer()
+    V = model.config.vocab_size
+    rng = np.random.default_rng(33)
+    mixed = [rng.integers(3, V, n) for n in (96, 200, 333, 480)]
+    short = [rng.integers(3, V, 64) for _ in range(2)]
+    long = [rng.integers(3, V, 1536) for _ in range(2)]
+    for direct in (True, False):
+        how = 'direct' if direct else 'replayed'
+        eng = ServingEngine(model, **SERVE_KW)
+        if direct:
+            eng._graphs = GraphRunner('cpu')
+        else:
+            eng.warmup(geometries=eng.geometries(
+                prompt_lens=[len(p) for p in mixed]))
+        for p in mixed:
+            eng.submit(p, max_new_tokens=8)
+        with recording_replays() as seen:
+            rows = profile_forward(
+                torch, eng.step, f'admission step {how}', card,
+                phase='graphs', what='one step admitting 4 rows (prefills '
+                'of buckets 128 and 256 at 1 row, 512 at 2) and their '
+                'window')
+        if not direct:
+            check_replay_trace(rows, list(seen), 1, 'admission step replayed')
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f'15 (e) admission step {how}')
+        eng = ServingEngine(model, prefill_chunk=256, **SERVE_KW)
+        if direct:
+            eng._graphs = GraphRunner('cpu')
+        for p in short:
+            eng.submit(p, max_new_tokens=64)
+        eng.step()
+        for p in long:
+            eng.submit(p, max_new_tokens=8)
+        for _ in range(3):                # chunks ending 256, 512, 768
+            eng.step()
+        with recording_replays() as seen:
+            rows = profile_forward(
+                torch, eng.step, f'chunk step {how}', card, phase='graphs',
+                what='one step of 2 x 256-token chunks (ctx bucket 1024) '
+                'and a window of 8 x 4 rows')
+        if not direct:
+            check_replay_trace(rows, list(seen), 1, 'chunk step replayed')
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap(f'15 (e) chunk step {how}')
+
+
 def graphs_profile(torch, np, card):
     """The device-busy share of a direct and a replayed decode window
     (phase 4's engine at Llama-7B width), speculative window (the same
@@ -4940,6 +5274,7 @@ def graphs_profile(torch, np, card):
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
 
+    lap = lap_timer()
     model = LlamaForCausalLM(dataclasses.replace(llama_7b(),
                                                  dtype='bfloat16'), seed=0)
     engine = ServingEngine(model, **SERVE_KW)
@@ -4965,6 +5300,9 @@ def graphs_profile(torch, np, card):
                            phase='graphs', what='one window')
     check_replay_trace(rows, graph, 1, 'window replayed')
     del engine, graph
+    lap('15 (e) window profiles')
+    engine_step_profiles(torch, np, model, card)
+    lap('15 (e) admission and chunk step profiles')
 
     # a speculative window (k = SPEC_K, the 2-layer draft) of 4 greedy
     # rows, traced direct and replayed
@@ -5004,12 +5342,15 @@ def graphs_profile(torch, np, card):
                                phase='graphs', what=f'{n} decode steps')
         check_replay_trace(rows, g, n, f'{label} step replayed')
 
+    lap('15 (e) speculative window profiles')
     step_profiles(model, 'generate b8', GRAPH_PROMPT)
+    lap('15 (e) generate b8 profiles')
     del model
     gc.collect()
     torch.cuda.empty_cache()
     step_profiles(MoEForCausalLM(MoEConfig(), seed=0, dtype='bfloat16'),
                   'moe b8', MOE_PROMPT)
+    lap('15 (e) MoE b8 profiles')
 
 
 def graphs_phase(torch, np, card):
@@ -5028,14 +5369,21 @@ def graphs_phase(torch, np, card):
                                                  dtype='bfloat16'), seed=0)
 
     def checks():
+        lap = lap_timer()
         for kv in (None, 'int8'):
             window_checks(torch, np, model, card, kv)
+        lap('15 (a) windows')
         for B in (1, 8):
             generate_checks(torch, np, model, B, 'Llama-7B', card)
+        lap('15 (b) generate')
         draft = layer_draft(torch, model, 2)
         for kv in (None, 'int8'):
             spec_window_checks(torch, np, model, draft, card, kv)
         spec_generate_checks(torch, np, model, draft, card)
+        lap('15 (d) speculative windows')
+        for kv in (None, 'int8'):
+            step_body_checks(torch, np, model, draft, card, kv)
+        lap('15 (f) lockstep steps')
 
     _, counts = count_launches(torch, checks)
     del model

@@ -1,10 +1,10 @@
 // The decode-attention kernel template shared by decode_attention.cu
 // (head sizes 33..128, Llama's and Qwen2's rows) and
 // decode_attention_any.cu (head sizes up to 32 and 129..256) over
-// contiguous caches, and by paged_attention.cu / paged_attention_any.cu
-// over the pages of a block table: one template, compiled for G = 1, 2,
-// 4, 8 query heads per block, rows padded to DMAX = 16, 32, 64, 128 or
-// 256 elements, and three address modes (Mode). See decode_attention.cu
+// contiguous caches, and by paged_attention_<rows>.cu over the pages
+// of a block table: one template, compiled for G = 1, 2, 4, 8 query
+// heads per block, rows padded to DMAX = 16, 32, 64, 128 or 256
+// elements, and three address modes (Mode). See decode_attention.cu
 // and paged_attention.cu for what it computes and why.
 #pragma once
 
@@ -844,10 +844,9 @@ cudaError_t select_any(int device, int dtype, int kv_int8, int dmax, int g,
                        cudaStream_t s);
 
 // The paged instantiations over rows of DMAX (mode kPaged or
-// kPagedRows), each DMAX instantiated in one source:
-// paged_attention.cu 128, paged_attention_64_256.cu 64 and 256,
-// paged_attention_any.cu 16 and 32, so that nvcc builds them in
-// parallel.
+// kPagedRows), each DMAX instantiated in a source of its own,
+// paged_attention_<DMAX>.cu (128's row-scale mode in
+// paged_attention_128_rows.cu), so that nvcc builds them in parallel.
 template <int DMAX>
 cudaError_t select_paged(int device, int mode, int dtype, int kv_int8, int g,
                          int nchunk, const Args* a, Plan* plan,

@@ -52,18 +52,19 @@
 //   version does. (Hkv, D) scales take K7's int8 path unchanged.
 // - int8 rows that are not 16-byte aligned (D = 40) take 8-byte copies.
 //
-// The paged instantiations are compiled here (rows padded to 128
-// elements: head sizes 65..128, Llama's and Qwen2's), in
-// paged_attention_64_256.cu (64, 256) and in paged_attention_any.cu (16,
-// 32), each in an nvcc process of its own beside decode_attention*.cu:
+// The paged instantiations are compiled in paged_attention_<rows>.cu,
+// one padded row size each (16, 32, 64, 128 and 256; 128, Llama's and
+// Qwen2's, in two: paged_attention_128_rows.cu holds its row-scale
+// mode), each in an nvcc process of its own beside decode_attention*.cu:
 // bf16 / float32 q, pages of q's dtype or int8 with either scale mode,
-// G = 1, 2, 4, 8 query heads per block (4 past 128).
+// G = 1, 2, 4, 8 query heads per block (4 past 128). This source holds
+// the C entry and the dispatch alone.
 
 #include "decode_attention.cuh"
 
 namespace pt_decode {
 
-// compiled in paged_attention_64_256.cu and paged_attention_any.cu
+// compiled in paged_attention_<rows>.cu
 extern template cudaError_t select_paged<16>(int, int, int, int, int, int,
                                              const Args*, Plan*,
                                              cudaStream_t);
@@ -73,6 +74,9 @@ extern template cudaError_t select_paged<32>(int, int, int, int, int, int,
 extern template cudaError_t select_paged<64>(int, int, int, int, int, int,
                                              const Args*, Plan*,
                                              cudaStream_t);
+extern template cudaError_t select_paged<128>(int, int, int, int, int, int,
+                                              const Args*, Plan*,
+                                              cudaStream_t);
 extern template cudaError_t select_paged<256>(int, int, int, int, int, int,
                                               const Args*, Plan*,
                                               cudaStream_t);

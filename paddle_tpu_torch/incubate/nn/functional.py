@@ -20,7 +20,8 @@ path calls.
   through `scaled_dot_product_attention` (K5 at 128 tokens or more),
   `time_step` decode through `masked_multihead_attention` (K9); norms
   are LayerNorm (plain PyTorch, as the JAX package has no Pallas layer
-  norm) or RMSNorm (K1).
+  norm) or RMSNorm (K1). The decode step is captured as a CUDA graph
+  per geometry and replayed, as the JAX package compiles it once.
 
 Caches are updated in place (the JAX functions return new arrays; the
 decode step there donates its caches): each function returns the same
@@ -38,13 +39,14 @@ import numpy as np
 import torch
 
 from ... import ops
+from ...inference.graphs import GraphRunner
 from ...models.llama import apply_rotary
 from ...nn.functional.attention import NEG_INF, scaled_dot_product_attention
 from ...nn.functional.norm import layer_norm
 
 __all__ = ['block_multihead_attention', 'fused_dropout_add', 'fused_moe',
            'fused_multi_transformer', 'fused_multi_transformer_decode_step',
-           'masked_multihead_attention']
+           'masked_multihead_attention', 'release_graphs']
 
 
 def _gelu(x):
@@ -252,8 +254,9 @@ def block_multihead_attention(
     [quant_min_bound, quant_max_bound]). Returns (out, qkv, key_cache,
     value_cache). Mixed prefill + decode in one call, dynamic cache
     quantization and the reference CUDA pipeline's knobs raise, as in
-    the JAX package. Both phases run eagerly (a captured decode phase is
-    ROADMAP A9b)."""
+    the JAX package. Both phases run eagerly: the JAX package compiles
+    this functional inside its caller, not as a dispatch of its own
+    (ROADMAP B3)."""
     for name, v_ in (('qkv_out_scale', qkv_out_scale),
                      ('out_shift', out_shift), ('out_smooth', out_smooth),
                      ('pre_key_cache', pre_key_cache),
@@ -460,41 +463,65 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights,
             'gqa: use the Llama family (GQA-native) models')
     if residual_alpha != 1.0:
         raise NotImplementedError('residual_alpha != 1 unsupported')
+    norm, act = _fmt_config(norm_type, epsilon, activation, x, cache_kvs,
+                            time_step is not None)
+    lens = None
+    if time_step is not None:
+        if attn_mask is not None:
+            raise NotImplementedError(
+                'attn_mask is not applied on time_step decode steps (the '
+                'cache window is positional) — drive padded decode via '
+                'seq_lens instead of a mask')
+        lens = torch.as_tensor(_decode_lens(x, cache_kvs, time_step,
+                                            seq_lens), device=x.device)
+    return _fmt_stack(
+        x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights,
+        linear_biases, ffn_ln_scales, ffn_ln_biases, ffn1_weights,
+        ffn1_biases, ffn2_weights, ffn2_biases, cache_kvs, lens, attn_mask,
+        pre_layer_norm, norm, act, dropout_rate, training, mode)
+
+
+def _fmt_config(norm_type, epsilon, activation, x, cache_kvs, decode):
+    """The norm and activation functions of fused_multi_transformer's
+    config, checked; for a decode step also one token per row and the
+    caches present."""
     norm = _norm_fn(norm_type, epsilon)
     if activation not in ACTIVATIONS:
         raise ValueError(f'activation must be one of {list(ACTIVATIONS)}')
-    act = ACTIVATIONS[activation]
-    if time_step is not None and x.shape[1] != 1:
+    if decode and x.shape[1] != 1:
         raise ValueError('time_step decode expects one token per row')
-    if time_step is not None and cache_kvs is None:
+    if decode and cache_kvs is None:
         raise ValueError(
             'time_step decode requires cache_kvs (the per-layer '
             '(2, B, H, max_seq, D) caches written at prefill)')
-    if time_step is not None and attn_mask is not None:
-        raise NotImplementedError(
-            'attn_mask is not applied on time_step decode steps (the '
-            'cache window is positional) — drive padded decode via '
-            'seq_lens instead of a mask')
+    return norm, ACTIVATIONS[activation]
 
-    lens = None
-    if time_step is not None:
-        B = x.shape[0]
-        if seq_lens is not None:
-            host = _host_ints(seq_lens)
-            lens = torch.as_tensor(seq_lens, device=x.device).reshape(-1) \
-                .long().expand(B)
-        else:
-            host = np.full((B,), int(time_step))
-            lens = torch.full((B,), int(time_step), dtype=torch.int64,
-                              device=x.device)
-        # every layer writes the same positions: check the caches once
-        for cache in cache_kvs:
-            if cache.dtype == torch.int8:
-                raise NotImplementedError(
-                    'int8 cache_kv is not supported by '
-                    'masked_multihead_attention')
-            _check_not_full(host, cache.shape[3])
 
+def _decode_lens(x, cache_kvs, time_step, seq_lens):
+    """A decode step's write positions as host (B,) int64, from
+    `seq_lens` or else `time_step` for every row, checked on the host
+    against every cache (an int8 cache and a full one raise)."""
+    B = x.shape[0]
+    host = (_host_ints(seq_lens) if seq_lens is not None
+            else np.full((B,), int(time_step)))
+    # every layer writes the same positions: check the caches once
+    for cache in cache_kvs:
+        if cache.dtype == torch.int8:
+            raise NotImplementedError(
+                'int8 cache_kv is not supported by '
+                'masked_multihead_attention')
+        _check_not_full(host, cache.shape[3])
+    return np.broadcast_to(host, (B,)).astype(np.int64)
+
+
+def _fmt_stack(x, ln_scales, ln_biases, qkv_weights, qkv_biases,
+               linear_weights, linear_biases, ffn_ln_scales, ffn_ln_biases,
+               ffn1_weights, ffn1_biases, ffn2_weights, ffn2_biases,
+               cache_kvs, lens, attn_mask, pre_layer_norm, norm, act,
+               dropout_rate, training, mode):
+    """fused_multi_transformer's layers after its checks: a decode step
+    at the (B,) device positions `lens`, or (lens None) the prefill.
+    Reads nothing on the host."""
     for i in range(len(qkv_weights)):
         qkv_w = qkv_weights[i]                           # (3, H, D, E)
         _, H, D, E = qkv_w.shape
@@ -504,7 +531,7 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights,
         qkv = h @ qkv_w.reshape(3 * H * D, E).t()        # (B, S, 3HD)
         if qkv_biases[i] is not None:
             qkv = qkv + qkv_biases[i].reshape(-1)
-        if time_step is not None:
+        if lens is not None:
             attn_out, _ = _mmha(qkv[:, 0], cache, None, None, lens, None,
                                 False)
             attn_out = attn_out[:, None]
@@ -544,6 +571,17 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights,
     return x
 
 
+# the captured decode step of fused_multi_transformer_decode_step, one
+# runner per device, each keeping the last geometry only
+_FMT_RUNNERS: dict = {}
+
+
+def _tensor_key(t):
+    if not isinstance(t, torch.Tensor):
+        return None if t is None else repr(t)
+    return (t.data_ptr(), tuple(t.shape), t.dtype)
+
+
 @torch.no_grad()
 def fused_multi_transformer_decode_step(
         x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights,
@@ -554,15 +592,58 @@ def fused_multi_transformer_decode_step(
     """One `time_step` decode step of `fused_multi_transformer`, with no
     gradient: every layer's (2, B, H, max_seq, D) cache is updated in
     place (PyTorch's counterpart of the JAX step's donated caches).
-    Returns (x_out, cache_kvs). Runs eagerly: capturing it as a CUDA
-    graph is ROADMAP A9b."""
-    return fused_multi_transformer(
-        x, ln_scales, ln_biases, qkv_weights, qkv_biases, linear_weights,
-        linear_biases, ffn_ln_scales, ffn_ln_biases, ffn1_weights,
-        ffn1_biases, ffn2_weights, ffn2_biases,
-        pre_layer_norm=pre_layer_norm, epsilon=epsilon, cache_kvs=cache_kvs,
-        seq_lens=seq_lens, time_step=time_step, activation=activation,
-        training=False, norm_type=norm_type)
+    Returns (x_out, cache_kvs).
+
+    The step is captured as a CUDA graph once per geometry (the weight
+    and cache tensors, by address, shape and dtype; x's shape and dtype;
+    the static config) and replayed (`inference/graphs.py`): x and each
+    row's write position (`seq_lens`, else `time_step`) are uploaded
+    into the graph's buffers, so one capture serves every step index.
+    The positions are checked on the host before the replay (a full
+    cache and an int8 cache raise, as in `fused_multi_transformer`). A
+    replaced weight or cache captures anew; only the last geometry is
+    kept, and `release_graphs()` frees it. On the CPU the step runs
+    directly over the same buffers."""
+    norm, act = _fmt_config(norm_type, epsilon, activation, x, cache_kvs,
+                            True)
+    host = _decode_lens(x, cache_kvs, time_step, seq_lens)
+    weights = (ln_scales, ln_biases, qkv_weights, qkv_biases,
+               linear_weights, linear_biases, ffn_ln_scales, ffn_ln_biases,
+               ffn1_weights, ffn1_biases, ffn2_weights, ffn2_biases)
+    cache_kvs = list(cache_kvs)
+    runner = _FMT_RUNNERS.get(x.device)
+    if runner is None:
+        runner = _FMT_RUNNERS[x.device] = GraphRunner(x.device)
+    key = (tuple(tuple(_tensor_key(t) for t in ws) for ws in weights),
+           tuple(_tensor_key(c) for c in cache_kvs), tuple(x.shape),
+           x.dtype, bool(pre_layer_norm), float(epsilon), activation,
+           norm_type)
+    graph = runner.get(key)
+    if graph is None:
+        runner.release()
+        # the capture's eager run is this step itself: it writes the
+        # rows' own positions with the values the replay writes again
+        static = dict(x=x.clone(),
+                      lens=torch.as_tensor(host, device=x.device))
+
+        def body():
+            return _fmt_stack(static['x'], *weights, cache_kvs,
+                              static['lens'], None, pre_layer_norm, norm,
+                              act, 0.0, False, 'upscale_in_train')[0]
+
+        graph = runner.capture(key, body, static, cache_kvs)
+    graph.check_state(cache_kvs)
+    graph.load(x=x, lens=host)
+    # the graph's output is overwritten by its next replay
+    return graph.run().clone(), cache_kvs
+
+
+def release_graphs():
+    """Free the captured decode step of
+    `fused_multi_transformer_decode_step` (its graph and memory pool)."""
+    for runner in _FMT_RUNNERS.values():
+        runner.release()
+    _FMT_RUNNERS.clear()
 
 
 def fused_moe(x, gate_weight, ffn1_weight, ffn2_weight, ffn1_bias=None,

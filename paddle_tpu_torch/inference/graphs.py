@@ -1,13 +1,14 @@
-"""Captured decode bodies: one CUDA graph per geometry, replayed
-(counterpart of the JAX package's compiled windows and `aot` warm-up).
+"""Captured serving and decode bodies: one CUDA graph per geometry,
+replayed (counterpart of the JAX package's compiled dispatches and `aot`
+warm-up).
 
-The JAX engines run a decode window, a decode step or a speculative
-propose / verify window as one compiled dispatch (`jax.jit`), compiled
-once per geometry. The port runs the same
-bodies eagerly as Python code, so every decode forward pays the host
-time of its few hundred launches. A `GraphRunner` captures such a body
-once per geometry key into a CUDA graph and replays it. It holds, per
-key:
+The JAX engines run a decode window, a decode step, a speculative
+propose / verify window, an admission prefill, a chunked-prefill chunk
+and a fused-inference decode step each as one compiled dispatch
+(`jax.jit`), compiled once per geometry. Run as Python code, the same
+bodies pay the host time of their few hundred launches on every call. A
+`GraphRunner` captures such a body once per geometry key into a CUDA
+graph and replays it. It holds, per key:
 
   - the static input buffers the body reads (each call copies its new
     inputs into them: `Graph.load`);
@@ -46,9 +47,10 @@ kernel for its plain version runs the bodies directly (a runner off the
 card), not through graphs captured before the swap.
 
 `Geometry` is the port's copy of the JAX package's geometry record
-(`paddle_tpu/aot/geometry.py`): the `serve_window` and
-`serve_spec_window` kinds a `ServingEngine.warmup` captures and the
-`decode` and `decode_spec` kinds of `DecodeEngine.warmup`.
+(`paddle_tpu/aot/geometry.py`): the serving kinds a
+`ServingEngine.warmup` captures (`for_serving_engine` enumerates them as
+the JAX package does) and the `decode` and `decode_spec` kinds of
+`DecodeEngine.warmup`.
 """
 from __future__ import annotations
 
@@ -60,14 +62,29 @@ import torch
 
 from ..ops import _build
 from ..ops.hopper import flash_attention, moe_grouped_matmul, quant_matmul
+from .engine import bucket_length
 
 
 class Geometry:
     """One captured dispatch shape: `kind` and a params dict of
-    primitives. Kinds the port captures:
+    primitives (the JAX package's names). Kinds the port captures:
 
       serve_window  window (ServingEngine: its decode window, every
                     sampling and carry variant its config implies)
+      serve_step    window, bucket (an admission step: the prefill of
+                    `bucket`-token rows, then the decode window)
+      serve_prefill bucket (an admission prefill alone; on a
+                    speculative engine the draft's too)
+      serve_chunk_step
+                    window, chunk, bucket (a chunked / continuation
+                    prefill step: a `chunk`-bucket chunk over prefixes
+                    gathered to the `bucket` of the farthest end, then
+                    the decode window; on a speculative engine the
+                    draft's chunk and its catch-up chunks too)
+      serve_spec_step
+                    spec, bucket, ctx (ServingEngine(draft=): an
+                    admission prefill of both models, then the
+                    speculative window of `ctx`)
       serve_spec_window
                     spec, ctx (ServingEngine(draft=): a speculative
                     propose / verify window of `spec` draft tokens whose
@@ -112,8 +129,6 @@ def for_decode_engine(engine, prompt_lens, batch_sizes=(1,),
     `decode_spec` geometry per (spec batch size, k, budget, prompt
     length): speculative prompts are not bucketed, so every declared
     length is its own geometry."""
-    from .engine import bucket_length
-
     mnts = (max_new_tokens if isinstance(max_new_tokens, (list, tuple))
             else [max_new_tokens])
     out = []
@@ -138,6 +153,77 @@ def for_decode_engine(engine, prompt_lens, batch_sizes=(1,),
                                     max_new_tokens=budget,
                                     num_draft_tokens=int(k))
                            for L in prompt_lens)
+    return out
+
+
+def bucket_ladder(lo, hi, buckets):
+    """The buckets the lengths lo..hi fall in, in order, each once."""
+    out, v = [], lo
+    while v <= hi:
+        b = bucket_length(v, buckets)
+        out.append(b)
+        v = b + 1
+    return out
+
+
+def for_serving_engine(engine, prompt_lens=None, max_new_tokens=None):
+    """The geometries a (monolithic) ServingEngine dispatches, as the JAX
+    package enumerates them: an admission step per prefill bucket of the
+    declared admission lengths (`prompt_lens`, default 1..
+    max_context_len; with `prefill_chunk` only those up to the chunk)
+    and the decode window; on a speculative engine instead an admission
+    step per (bucket, reachable verify ctx bucket) and the speculative
+    window per ctx bucket of the ladder live contexts climb (up to the
+    largest prompt plus the largest `max_new_tokens` budget, within
+    max_context_len, less one); the standalone prefill of each bucket;
+    with `prefill_chunk` or `prefix_cache`, a chunk step per reachable
+    (chunk bucket, end bucket) pair."""
+    W = engine.decode_window
+    buckets_of = engine.buckets
+    lens = [int(L) for L in (range(1, engine.max_context_len + 1)
+                             if prompt_lens is None else prompt_lens)]
+    chunk = engine.prefill_chunk
+    spec = engine.spec_window
+    mono = lens if chunk is None else [L for L in lens if L <= chunk]
+    buckets = []
+    for L in mono:
+        b = bucket_length(L, buckets_of)
+        if b not in buckets:
+            buckets.append(b)
+    if spec is None:
+        out = [Geometry('serve_step', window=W, bucket=b) for b in buckets]
+        out.append(Geometry('serve_window', window=W))
+    else:
+        k = int(spec)
+        mnts = (max_new_tokens if isinstance(max_new_tokens, (list, tuple))
+                else [max_new_tokens])
+        budget = max(engine.max_new_tokens if m is None else int(m)
+                     for m in mnts)
+        m_hi = min(max(lens) + budget, engine.max_context_len) - 1
+        ladder = bucket_ladder(min(lens) + k + 1, m_hi + k + 1, buckets_of)
+        out = []
+        # an admitted row is live in its own step: the verify bucket
+        # starts at its own length's
+        for Sb in buckets:
+            lmin = min(L for L in mono if bucket_length(L, buckets_of) == Sb)
+            floor = bucket_length(lmin + k + 1, buckets_of)
+            out.extend(Geometry('serve_spec_step', spec=k, bucket=Sb, ctx=c)
+                       for c in ladder if c >= floor)
+        out.extend(Geometry('serve_spec_window', spec=k, ctx=c)
+                   for c in ladder)
+    out.extend(Geometry('serve_prefill', bucket=b) for b in buckets)
+    if (chunk is not None or engine.prefix_cache) and lens:
+        max_end = max(lens)
+        ends = bucket_ladder(1, max_end, buckets_of)
+        max_take = (min(chunk, max_end) if chunk is not None
+                    else max(1, max_end - engine.block_size))
+        cb_max = bucket_length(max_take, buckets_of)
+        # an equal pair is only a start-0 chunked admission's first
+        # chunk, whose take is the whole chunk
+        out.extend(Geometry('serve_chunk_step', window=W, chunk=cb, bucket=sb)
+                   for cb in ends if cb <= cb_max for sb in ends
+                   if cb < sb or (chunk is not None and max_end > chunk
+                                  and cb == sb == cb_max))
     return out
 
 
@@ -337,14 +423,18 @@ class GraphRunner:
         g.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved0
 
     def stats(self):
-        """Captured geometries: count, capture seconds and reserved bytes
-        (the card's memory_reserved increase over each capture)."""
+        """Captured geometries: count, and per kept graph its key,
+        capture seconds and reserved bytes (the card's memory_reserved
+        increase over its capture)."""
         return {'captures': self.captures, 'kept': len(self.entries),
+                'keys': [str(k) for k in self.entries],
                 'capture_s': [round(g.capture_s, 4)
                               for g in self.entries.values()],
                 'reserved_bytes': [g.reserved_bytes
                                    for g in self.entries.values()]}
 
 
-__all__ = ['Geometry', 'Graph', 'GraphRunner', 'for_decode_engine',
-           'geometry_parts', 'tensor_ptrs', 'warmup_report']
+__all__ = ['Geometry', 'Graph', 'GraphRunner', 'bucket_ladder',
+           'for_decode_engine',
+           'for_serving_engine', 'geometry_parts', 'tensor_ptrs',
+           'warmup_report']

@@ -78,20 +78,32 @@
      chunk step's plain window committed catch the draft's pages up
      before the next speculative window.
 
-  9. The compiled windows: `_window` and the speculative `_spec_window`
-     are captured as CUDA graphs once per geometry and replayed over
-     the pools they captured (`inference/graphs.py`). A decode window's
-     geometry is greedy or sampled, with or without the carried token
-     of a speculative engine; a speculative window's is greedy or
-     sampled and the verify's gathered length (its ctx bucket), and it
-     writes the draft's pools too. The slots, window, k, table width,
-     eos and pool dtype are the engine's. Each window uploads its
-     per-slot state into the graph's buffers and copies the carried
-     logits out into the engine's own buffer. A first use mid-serving,
-     or `warmup()` before the first request, captures over an
-     all-frozen dummy batch on the scratch page of every pool, so it
-     touches no live page. The admission prefills, the chunk forwards
-     and the draft's catch-up run eagerly (ROADMAP A9b).
+  9. The compiled dispatches: every device body of a step is captured
+     as a CUDA graph once per geometry and replayed over the pools it
+     captured (`inference/graphs.py`): the admission prefill of each
+     bucket (the target's, and the draft's KV-only one), the chunk
+     forward of each (chunk bucket, bucket of the farthest end) pair
+     (the target's, and the draft's, which also runs its catch-up),
+     the decode window (greedy or sampled, with or without the carried
+     token of a speculative engine) and the speculative window (greedy
+     or sampled, per verify ctx bucket, writing the draft's pools too).
+     The admission and chunk bodies run at a fixed width per graph,
+     the group's row count rounded up to a power of two (at most
+     max_slots; the JAX package's run max_slots rows always, which
+     makes a lone admission pay for the whole batch): rows past the
+     group are dummies (length 0 on the scratch page, slot index SLOTS,
+     which commits no logits) and a row with no copy on write carries
+     the pair (0, 0). A warm-up captures every width.
+     The slots, window, k, table width, eos and pool dtype are the
+     engine's. Each body's inputs are uploaded into its graph's
+     buffers; the prefill and chunk bodies commit logits into the
+     engine's carried-logits buffer, and the windows' carried logits
+     are copied out into it. A first use mid-serving, or `warmup()`
+     before the first request, captures over an all-dummy batch on the
+     scratch page of every pool, so it touches no live page. A
+     `serve_step` is the prefill of its bucket then the window, a
+     `serve_spec_step` both models' prefills then the speculative
+     window, a `serve_chunk_step` the chunk then the window.
 
 Per request, `result(rid)` is what the JAX engine returns: the prompt,
 then `max_new_tokens` tokens, padded with eos after an early stop.
@@ -114,7 +126,8 @@ import torch
 from ..models.generation import (QuantPagedKVCache, RowQuantKVCache,
                                  filter_logits_batched)
 from .engine import DEFAULT_BUCKETS, bucket_length
-from .graphs import Geometry, GraphRunner, geometry_parts, warmup_report
+from .graphs import (GraphRunner, bucket_ladder, for_serving_engine,
+                     geometry_parts, warmup_report)
 
 
 class OutOfBlocks(RuntimeError):
@@ -625,27 +638,57 @@ def _prefill_kv(model, pages, ids, real_len, btabs):
     return last, pages
 
 
-def _chunk_kv(model, pages, ids, chunk_len, start, btabs, L, cow=None):
+def _commit_rows(last_logits, last, slots):
+    """Row i of `last` (K, V) into row slots[i] of the carried logits
+    `last_logits` (SLOTS, V), in place. Rows whose slot index is SLOTS
+    (dummy rows, chunks that do not end their context) write nothing:
+    the JAX body drops them with an out-of-range scatter, which on the
+    card would be a device assert, so each slot row selects its source
+    row instead."""
+    S, K = last_logits.shape[0], last.shape[0]
+    hit = (slots.long()[None, :]
+           == torch.arange(S, device=slots.device)[:, None])       # (S, K)
+    src = (hit.long() * torch.arange(K, device=slots.device)).sum(1)
+    last_logits.copy_(torch.where(hit.any(1)[:, None],
+                                  last[src].to(last_logits.dtype),
+                                  last_logits))
+
+
+def _prefill_body(model, pages, last_logits, static):
+    """`_prefill_kv` over a captured admission prefill's static buffers
+    (ids, real_len, btabs at the graph's row width; dummy rows have
+    length 0 and land on the scratch page), then each row's next-token
+    logits into its slot's row of `last_logits` (None for the draft,
+    whose logits are never kept)."""
+    last, _ = _prefill_kv(model, pages, static['ids'], static['real_len'],
+                          static['btabs'])
+    if last_logits is not None:
+        _commit_rows(last_logits, last, static['slots'])
+
+
+def _chunk_kv(model, pages, ids, chunk_len, start, btabs, ctx_bucket,
+              cow_src, cow_dst):
     """Chunked / continuation prefill into pages: row b owns positions
     [0, start[b]) in its pages (an earlier chunk's, or shared prefix
     pages) and appends its chunk ids[b, :chunk_len[b]] at positions
-    start[b] + i. `cow` (src, dst) page ids are copied first (dst :=
-    src over every pool field, int8 scale rows included), so the gather
-    and the scatter both see the private copies the block tables
-    already name. Then each row's prefix is gathered into a contiguous
-    cache of length L (>= start + ids' width, so every write of the
-    forward lands inside it), the chunk runs with per-row write offsets
-    (`kv_write_pos`: causal within the chunk, every prefix row
-    visible), and only the chunk's rows are scattered back (pad
-    columns to the scratch page). Returns (each row's last-token logits
-    (K, V), pages)."""
+    start[b] + i, none past `ctx_bucket`. The copy-on-write pairs
+    (K,) run first (page cow_dst[b] := cow_src[b] over every pool
+    field, int8 scale rows included; a row with no copy carries (0, 0),
+    a self-copy of the scratch page), so the gather and the scatter
+    both see the private copies the block tables already name. Then
+    each row's prefix is gathered into a contiguous cache of ctx_bucket
+    positions and one throwaway column, the chunk runs with per-row
+    write offsets (`kv_write_pos`: causal within the chunk, every
+    prefix row visible; pad columns past ctx_bucket land on the
+    throwaway column, which no real query attends: the JAX body drops
+    them), and only the chunk's rows are scattered back (pad columns to
+    the scratch page). Returns (each row's last-token logits (K, V),
+    pages)."""
     K, Cb = ids.shape
-    if cow is not None:
-        src, dst = cow
-        for pc in pages:
-            for f in pc:
-                f[dst] = f[src]
-    tmp = _pool_gather(pages, btabs, start, L)
+    for pc in pages:
+        for f in pc:
+            f[cow_dst] = f[cow_src]
+    tmp = _pool_gather(pages, btabs, start, ctx_bucket + 1)
     logits, tmp = model(ids, caches=tmp, kv_write_pos=start)
     cl = chunk_len.long()
     last = logits[torch.arange(K, device=ids.device), (cl - 1).clamp_min(0)]
@@ -656,10 +699,23 @@ def _chunk_kv(model, pages, ids, chunk_len, start, btabs, L, cow=None):
     page = torch.gather(btabs.long(), 1, (wpos // bs).clamp(max=maxb - 1))
     page = torch.where(i[None, :] < cl[:, None], page, 0)
     pflat, sflat = page.reshape(-1), (wpos % bs).reshape(-1)
-    take = wpos.clamp(max=L - 1)
+    take = wpos.clamp(max=ctx_bucket)
     for t, pc in zip(tmp, pages):
         _pool_scatter(pc, t, pflat, sflat, take=take)
     return last, pages
+
+
+def _chunk_body(model, pages, last_logits, static, *, ctx_bucket):
+    """`_chunk_kv` over a captured chunk's static buffers (the graph's
+    row width; dummy rows have length 0 and a (0, 0) copy), then the
+    logits of the rows whose chunk ends their context into their
+    slots' rows of `last_logits` (the others carry slot index SLOTS;
+    None for the draft)."""
+    last, _ = _chunk_kv(model, pages, static['ids'], static['chunk_len'],
+                        static['start'], static['btabs'], ctx_bucket,
+                        static['cow_src'], static['cow_dst'])
+    if last_logits is not None:
+        _commit_rows(last_logits, last, static['slots'])
 
 
 def _window(model, pages, last_logits, btab, ctx, live, budget, *, window,
@@ -1186,50 +1242,38 @@ class ServingEngine:
     restore = snapshot
 
     def geometries(self, prompt_lens=None, max_new_tokens=None):
-        """The window geometries this engine's config implies, as the
+        """The geometries this engine's config implies, exactly as the
         JAX package enumerates them (`aot.geometry.for_serving_engine`,
-        the kinds the port captures): one `serve_window` on a plain
-        engine. On a speculative one, a `serve_spec_window` per verify
-        ctx bucket (bucket(max live context + k + 1)) that live contexts
-        reach, from the smallest declared admission length (`prompt_lens`,
-        default every length up to max_context_len) to the longest
-        context a decoding row can hold (the largest prompt plus the
-        largest budget of `max_new_tokens`, default the engine's, within
-        max_context_len, less one); and the `serve_window` its chunk steps
-        run when it chunks or caches prefixes. `warmup` captures each
-        greedy and sampled."""
-        W = self.decode_window
-        if self.draft is None:
-            return [Geometry('serve_window', window=W)]
-        k = self.spec_window
-        lens = [int(L) for L in (range(1, self.max_context_len + 1)
-                                 if prompt_lens is None else prompt_lens)]
-        mnts = (max_new_tokens if isinstance(max_new_tokens, (list, tuple))
-                else [max_new_tokens])
-        budget = max(self.max_new_tokens if m is None else int(m)
-                     for m in mnts)
-        m_hi = min(max(lens) + budget, self.max_context_len) - 1
-        out, v = [], min(lens) + k + 1
-        while v <= m_hi + k + 1:
-            b = bucket_length(v, self.buckets)
-            out.append(Geometry('serve_spec_window', spec=k, ctx=b))
-            v = b + 1
-        if self.prefill_chunk is not None or self.prefix_cache:
-            out.append(Geometry('serve_window', window=W))
-        return out
+        here `graphs.for_serving_engine`): `prompt_lens` are the
+        admission context lengths the deployment declares (default
+        every length up to max_context_len), `max_new_tokens` its
+        budgets (default the engine's). `warmup` captures each."""
+        return for_serving_engine(self, prompt_lens=prompt_lens,
+                                  max_new_tokens=max_new_tokens)
 
     @torch.no_grad()
     def warmup(self, artifact=None, geometries=None):
-        """Capture every window geometry (default: `geometries()`)
-        before the first request, greedy and sampled: the decode window
-        (on a speculative engine with the carried token) and the
-        speculative window of each ctx bucket. Returns the JAX package's
-        report (`traces`: the graphs captured now). Raises RuntimeError
-        while requests are in flight, as the JAX engine does; ValueError
-        for a geometry enumerated for another window, k or a plain
-        engine; NotImplementedError for `artifact=` (a CUDA graph cannot
-        be persisted) and for the kinds the port runs eagerly. A
-        geometry not warmed is captured at its first window."""
+        """Capture every geometry (default: `geometries()`) before the
+        first request: the decode window greedy and sampled (on a
+        speculative engine with the carried token) for `serve_window`;
+        the admission prefill of its bucket (the draft's too on a
+        speculative engine) for `serve_prefill`, and with the window for
+        `serve_step`; the chunk of its (chunk, bucket) pair and the
+        window for `serve_chunk_step`, on a speculative engine with the
+        draft's chunk and its catch-up chunks (every chunk bucket up to
+        bucket(decode_window)) at that bucket; the speculative window
+        of its ctx bucket greedy and sampled for `serve_spec_window`,
+        and with both models' prefills of its bucket for
+        `serve_spec_step` (with the catch-up chunks at ctx when the
+        engine chunks or caches prefixes). Each prefill and chunk is
+        captured at every row width (`_row_width`). Returns the JAX
+        package's report (`traces`: the graphs captured now). Raises
+        RuntimeError while requests are in flight, as the JAX engine does;
+        ValueError for a geometry enumerated for another window or k, a
+        speculative kind on a plain engine, or an unknown kind;
+        NotImplementedError for `artifact=` (a CUDA graph cannot be
+        persisted) and for the KV-migration kinds (not ported). A
+        geometry not warmed is captured at its first use."""
         if artifact is not None:
             raise NotImplementedError(
                 'warmup(artifact=): a CUDA graph cannot be persisted; '
@@ -1244,35 +1288,62 @@ class ServingEngine:
         t0 = time.perf_counter()
         n0 = self._graphs.captures
         for g in geometries:
-            kind, params = geometry_parts(g)
-            if kind == 'serve_spec_window':
-                if self.draft is None:
-                    raise ValueError(
-                        f'geometry {params} needs a speculative engine '
-                        f'(construct with draft=...)')
-                if int(params['spec']) != self.spec_window:
-                    raise ValueError(
-                        f'geometry {params} was enumerated for '
-                        f'num_draft_tokens {params["spec"]}; the engine '
-                        f'has {self.spec_window}')
-                for sampled in (False, True):
-                    self._spec_graph(int(params['ctx']), sampled)
-                continue
-            if kind != 'serve_window':
-                raise NotImplementedError(
-                    f'geometry kind {kind!r}: the port captures the decode '
-                    f'window (serve_window) and the speculative window '
-                    f'(serve_spec_window); admission prefills and chunk '
-                    f'steps run eagerly (ROADMAP A9b)')
-            if int(params.get('window', self.decode_window)) \
-                    != self.decode_window:
-                raise ValueError(
-                    f'geometry {params} was enumerated for another '
-                    f'decode_window; the engine has {self.decode_window}')
-            for sampled in (False, True):
-                self._window_graph(sampled)
+            self._warm(*geometry_parts(g))
         return warmup_report(len(geometries), time.perf_counter() - t0,
                              self._graphs.captures - n0)
+
+    def _warm(self, kind, params):
+        """Capture the graphs of one geometry (see `warmup`)."""
+        if int(params.get('window', self.decode_window)) \
+                != self.decode_window:
+            raise ValueError(
+                f'geometry {params} was enumerated for another '
+                f'decode_window; the engine has {self.decode_window}')
+        if 'spec' in params:
+            if self.draft is None:
+                raise ValueError(
+                    f'geometry {params} needs a speculative engine '
+                    f'(construct with draft=...)')
+            if int(params['spec']) != self.spec_window:
+                raise ValueError(
+                    f'geometry {params} was enumerated for '
+                    f'num_draft_tokens {params["spec"]}; the engine has '
+                    f'{self.spec_window}')
+        if kind in ('serve_export', 'serve_import'):
+            raise NotImplementedError(
+                f'geometry kind {kind!r}: KV migration is not ported yet')
+        if kind not in ('serve_window', 'serve_step', 'serve_prefill',
+                        'serve_chunk_step', 'serve_spec_step',
+                        'serve_spec_window'):
+            raise ValueError(f'unknown serving geometry kind {kind!r}')
+        for R in self._row_widths():
+            if kind in ('serve_step', 'serve_prefill', 'serve_spec_step'):
+                self._prefill_graph(int(params['bucket']), R)
+                if self.draft is not None:
+                    self._prefill_graph(int(params['bucket']), R, draft=True)
+            if kind == 'serve_chunk_step':
+                Cb, Sb = int(params['chunk']), int(params['bucket'])
+                self._chunk_graph(Cb, Sb, R)
+                if self.draft is not None:
+                    self._chunk_graph(Cb, Sb, R, draft=True)
+        if kind == 'serve_chunk_step' and self.draft is not None:
+            self._warm_catchup(int(params['bucket']))
+        if kind in ('serve_window', 'serve_step', 'serve_chunk_step'):
+            for sampled in (False, True):
+                self._window_graph(sampled)
+        if kind in ('serve_spec_step', 'serve_spec_window'):
+            for sampled in (False, True):
+                self._spec_graph(int(params['ctx']), sampled)
+            if self.prefill_chunk is not None or self.prefix_cache:
+                self._warm_catchup(int(params['ctx']))
+
+    def _warm_catchup(self, Sb):
+        """The draft's catch-up chunks at ctx bucket `Sb`: a row's hole
+        is at most one decode window, so every chunk bucket up to
+        bucket(decode_window), at every row width."""
+        for Cb in bucket_ladder(1, self.decode_window, self.buckets):
+            for R in self._row_widths():
+                self._chunk_graph(Cb, Sb, R, draft=True)
 
     def _window_inputs(self, live, sampled, forced=None):
         """A window's inputs from the host state: the carried logits,
@@ -1299,11 +1370,7 @@ class ServingEngine:
         dummy batch (every row not live, its table on the scratch
         page), with the sampling vectors when `sampled` and the carried
         tokens when `forced`."""
-        S, dev = self.max_slots, self.device
-
-        def z(*shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
+        S, dev, z = self.max_slots, self.device, self._zeros
         static = dict(last_logits=torch.zeros_like(self._last_logits),
                       btab=z(S, self.max_blocks_per_seq, dtype=torch.int32),
                       ctx=z(S, dtype=torch.int32),
@@ -1319,6 +1386,91 @@ class ServingEngine:
             static.update(forced_tok=z(S, dtype=torch.int64),
                           forced=z(S, dtype=torch.bool))
         return static
+
+    def _zeros(self, *shape, dtype=torch.int64):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _slot_index(self, R):
+        """(R,) slot indices all SLOTS: every row commits nothing."""
+        return torch.full((R,), self.max_slots, dtype=torch.int64,
+                          device=self.device)
+
+    def _role(self, draft):
+        """(model, its pools, the carried logits its bodies commit to:
+        None for the draft)."""
+        if draft:
+            return self.draft, list(self._dpages), None
+        return self.model, list(self._pages), self._last_logits
+
+    def _body_state(self, pages, logits):
+        return _pool_tensors(pages) + ([] if logits is None else [logits])
+
+    def _row_width(self, n):
+        """The rows a captured admission prefill or chunk runs for `n`
+        real ones: the next power of two, at most max_slots (the rest
+        are dummies). The JAX bodies run max_slots rows always; a
+        narrower graph keeps a lone admission from paying for the
+        whole batch."""
+        return min(self.max_slots, 1 << max(0, n - 1).bit_length())
+
+    def _row_widths(self):
+        """Every row width `_row_width` gives, ascending."""
+        return sorted({self._row_width(n)
+                       for n in range(1, self.max_slots + 1)})
+
+    def _prefill_graph(self, Sb, R, draft=False):
+        """The captured admission prefill of `Sb`-token rows at R rows
+        (a `_row_width`), of the target (its rows' next-token logits
+        committed to their slots in the engine's carried logits) or of
+        the `draft` (KV only), captured now when it is not yet, over an
+        all-dummy batch (every row of length 0, so the eager run before
+        the capture writes the scratch page alone)."""
+        key = ('serve_prefill', int(Sb), int(R),
+               'draft' if draft else 'target')
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph
+        static = dict(ids=self._zeros(R, int(Sb)), real_len=self._zeros(R),
+                      btabs=self._zeros(R, self.max_blocks_per_seq,
+                                        dtype=torch.int32),
+                      slots=self._slot_index(R))
+        model, pages, logits = self._role(draft)
+        body = functools.partial(_prefill_body, model, pages, logits, static)
+        return self._graphs.capture(key, body, static,
+                                    self._body_state(pages, logits))
+
+    def _chunk_graph(self, Cb, Sb, R, draft=False):
+        """The captured chunk forward of `Cb`-bucket chunks over
+        prefixes gathered at ctx bucket `Sb`, at R rows (a
+        `_row_width`), of the target (the logits of rows that end their
+        context committed) or of the `draft` (its chunk leg and its
+        catch-up), captured now when it is not yet, over an all-dummy
+        batch (every row of length 0 at 0 with a (0, 0) copy: the
+        scratch page alone)."""
+        key = ('serve_chunk', int(Cb), int(Sb), int(R),
+               'draft' if draft else 'target')
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph
+        static = dict(ids=self._zeros(R, int(Cb)), chunk_len=self._zeros(R),
+                      start=self._zeros(R),
+                      btabs=self._zeros(R, self.max_blocks_per_seq,
+                                        dtype=torch.int32),
+                      slots=self._slot_index(R), cow_src=self._zeros(R),
+                      cow_dst=self._zeros(R))
+        model, pages, logits = self._role(draft)
+        body = functools.partial(_chunk_body, model, pages, logits, static,
+                                 ctx_bucket=int(Sb))
+        return self._graphs.capture(key, body, static,
+                                    self._body_state(pages, logits))
+
+    def _replay(self, graph, draft, inputs):
+        """Check the graph's state is the engine's, upload `inputs`, and
+        replay it."""
+        _, pages, logits = self._role(draft)
+        graph.check_state(self._body_state(pages, logits))
+        graph.load(**inputs)
+        return graph.run()
 
     def _window_graph(self, sampled, forced=None):
         """The captured decode window of `sampled` (else greedy), with
@@ -1439,16 +1591,18 @@ class ServingEngine:
     def _spec_step(self, live, sampled):
         """A speculative step's window (every slot decoding): the draft's
         pages caught up first, then the captured `_spec_window` of the
-        ctx bucket that holds the farthest row's k + 1 writes, its
-        inputs uploaded into the graph's buffers, and one host read of
-        its candidates, commit counts and next tokens together."""
+        ctx bucket that holds the farthest row's k + 1 writes (the
+        catch-up gathers to the same bucket), its inputs uploaded into
+        the graph's buffers, and one host read of its candidates,
+        commit counts and next tokens together."""
         k = self.spec_window
+        max_ctx = int(np.where(live, self._ctx, 0).max())
+        ctx_bucket = bucket_length(max_ctx + k + 1, self.buckets)
         catchup = self._draft_catchup_rows()
         if catchup:
-            self._draft_advance(catchup)
-        max_ctx = int(np.where(live, self._ctx, 0).max())
-        graph = self._spec_graph(bucket_length(max_ctx + k + 1,
-                                               self.buckets), sampled)
+            # at the window's ctx bucket, which holds every row's end
+            self._draft_advance(catchup, ctx_bucket)
+        graph = self._spec_graph(ctx_bucket, sampled)
         graph.check_state(_pool_tensors(self._pages + self._dpages))
         graph.load(**self._window_inputs(live, sampled, True))
         cand, nc, nxt, last = graph.run()
@@ -1589,88 +1743,94 @@ class ServingEngine:
         req.admit_seq = next(self._admit_seq)
 
     def _prefill_group(self, Sb, group):
-        """Prefill one admission group (one bucket) into its pages,
-        commit each request's next-token logits to its slot's row, and
-        index its full prompt pages."""
-        dev = self.device
-        ids = np.zeros((len(group), Sb), np.int64)
-        real_len = np.zeros((len(group),), np.int64)
-        btabs = np.zeros((len(group), self.max_blocks_per_seq), np.int32)
+        """Prefill one admission group (one bucket) into its pages
+        through the captured prefill of its bucket at the group's row
+        width (rows past the group are dummies: length 0, slot index
+        SLOTS), the draft's too on a speculative engine; each request's
+        next-token logits land in its slot's row. Then index its full
+        prompt pages."""
+        R = self._row_width(len(group))
+        ids = np.zeros((R, Sb), np.int64)
+        real_len = np.zeros((R,), np.int64)
+        btabs = np.zeros((R, self.max_blocks_per_seq), np.int32)
+        slots = np.full((R,), self.max_slots, np.int64)
         for i, (slot, req) in enumerate(group):
             ids[i, :req.context_len] = req.context()          # RIGHT-pad
             real_len[i] = req.context_len
             btabs[i] = self._btab[slot]
+            slots[i] = slot
         self.prefill_tokens += int(real_len.sum())
-        ids, real_len, btabs = (torch.as_tensor(a, device=dev)
-                                for a in (ids, real_len, btabs))
-        last, self._pages = _prefill_kv(self.model, self._pages, ids,
-                                        real_len, btabs)
+        inputs = dict(ids=ids, real_len=real_len, btabs=btabs, slots=slots)
+        self._replay(self._prefill_graph(Sb, R), False, inputs)
         self.prefill_forwards += 1
         if self.draft is not None:
             # the draft must hold every admitted row's prompt KV, or its
             # proposals run against zeros
-            _, self._dpages = _prefill_kv(self.draft, self._dpages, ids,
-                                          real_len, btabs)
+            self._replay(self._prefill_graph(Sb, R, draft=True), True,
+                         inputs)
             self.draft_forwards['prefill'] += 1
-        slots = torch.as_tensor([s for s, _r in group], device=dev)
-        self._last_logits[slots] = last.to(self._last_logits.dtype)
         for slot, req in group:
             self._register_prefix_pages(slot, req, 0, req.context_len)
 
-    def _chunk_group(self, rows):
-        """One chunk forward over `rows` = (slot, req, progress, take):
-        the pending copy-on-write copies first, then `_chunk_kv` with
-        the chunk width padded to a bucket and the gathered cache to the
-        bucket of the farthest write. Rows whose chunk completes their
-        context commit their logits; the copies' source references are
-        released once the forward is issued, and the chunk's full prompt
-        pages are indexed."""
-        dev = self.device
-        K = len(rows)
-        Cb = bucket_length(max(t for _s, _r, _p, t in rows), self.buckets)
-        L = bucket_length(max(p for _s, _r, p, _t in rows) + Cb,
-                          self.buckets)
-        ids = np.zeros((K, Cb), np.int64)
-        clen = np.zeros((K,), np.int64)
-        start = np.zeros((K,), np.int64)
-        btabs = np.zeros((K, self.max_blocks_per_seq), np.int32)
+    def _chunk_inputs(self, rows, Cb):
+        """A chunk's inputs at the row width of `rows` = (slot, req,
+        progress, take), and the copy-on-write pairs it takes: each
+        row's chunk ids, length, start and table; its slot where the
+        chunk ends its context (else SLOTS, as for the dummy rows past
+        the group); its pending copy, else (0, 0)."""
+        R = self._row_width(len(rows))
+        ids = np.zeros((R, Cb), np.int64)
+        clen = np.zeros((R,), np.int64)
+        start = np.zeros((R,), np.int64)
+        btabs = np.zeros((R, self.max_blocks_per_seq), np.int32)
+        slots = np.full((R,), self.max_slots, np.int64)
+        cow = np.zeros((2, R), np.int64)
         pairs = []
         for i, (slot, req, p, take) in enumerate(rows):
             ids[i, :take] = req.context()[p:p + take]
             clen[i], start[i] = take, p
             btabs[i] = self._btab[slot]
+            if self._pfill[slot] is None:
+                slots[i] = slot
             if self._cow_pending[slot] is not None:
+                cow[:, i] = self._cow_pending[slot]
                 pairs.append(self._cow_pending[slot])
                 self._cow_pending[slot] = None
-        cow = None
-        if pairs:
-            cow = tuple(torch.as_tensor(c, device=dev) for c in zip(*pairs))
-        self.prefill_tokens += int(clen.sum())
-        args = [torch.as_tensor(a, device=dev)
-                for a in (ids, clen, start, btabs)]
-        last, self._pages = _chunk_kv(self.model, self._pages, *args, L,
-                                      cow=cow)
+        return dict(ids=ids, chunk_len=clen, start=start, btabs=btabs,
+                    slots=slots, cow_src=cow[0], cow_dst=cow[1]), pairs
+
+    def _chunk_group(self, rows):
+        """One chunk forward over `rows` = (slot, req, progress, take)
+        through the captured chunk of (chunk bucket, bucket of the
+        farthest end) at their row width: the pending copy-on-write
+        copies first, then the chunks; rows whose chunk completes their
+        context commit their logits. On a speculative engine the
+        draft's chunk follows, then every decoding row's draft catch-up.
+        The copies' source references are released once the forwards
+        are issued, and the chunk's full prompt pages are indexed."""
+        Cb = bucket_length(max(t for _s, _r, _p, t in rows), self.buckets)
+        Sb = bucket_length(max(p + t for _s, _r, p, t in rows),
+                           self.buckets)
+        inputs, pairs = self._chunk_inputs(rows, Cb)
+        R = len(inputs['start'])
+        self.prefill_tokens += int(inputs['chunk_len'].sum())
+        self._replay(self._chunk_graph(Cb, Sb, R), False, inputs)
         self.chunk_forwards += 1
         if self.draft is not None:
             # the draft's pages follow the chunk path (the copies on
             # write included); then every decoding row's draft hole (the
             # previous chunk step's commits) catches up, so no hole
             # outgrows one window
-            _, self._dpages = _chunk_kv(self.draft, self._dpages, *args, L,
-                                        cow=cow)
+            self._replay(self._chunk_graph(Cb, Sb, R, draft=True), True,
+                         inputs)
             self.draft_forwards['chunk'] += 1
             for slot, _r, p, take in rows:
                 self._dctx[slot] = p + take
             catchup = self._draft_catchup_rows()
             if catchup:
-                self._draft_advance(catchup)
+                self._draft_advance(catchup, bucket_length(
+                    max(p + t for _s, _r, p, t in catchup), self.buckets))
         self.prefix_counts['chunk_steps'] += 1
-        done = [i for i, (s, _r, _p, _t) in enumerate(rows)
-                if self._pfill[s] is None]
-        if done:
-            slots = torch.as_tensor([rows[i][0] for i in done], device=dev)
-            self._last_logits[slots] = last[
-                torch.as_tensor(done, device=dev)].to(self._last_logits.dtype)
         if pairs:
             self.allocator.free([src for src, _dst in pairs])
         for slot, req, p, take in rows:
@@ -1685,28 +1845,15 @@ class ServingEngine:
                 if r is not None and self._pfill[s] is None
                 and self._ctx[s] > self._dctx[s]]
 
-    def _draft_advance(self, rows):
-        """One chunk forward of the draft appending each row's context
-        tokens [start, start + take) into its pages (no copy on write:
-        these rows are past their prefill), then advance their draft
-        context."""
-        dev = self.device
-        K = len(rows)
+    def _draft_advance(self, rows, Sb):
+        """One captured draft chunk at ctx bucket `Sb` appending each
+        row's context tokens [start, start + take) into the draft's
+        pages (no copy on write: these rows are past their prefill),
+        then advance their draft context."""
         Cb = bucket_length(max(t for _s, _r, _p, t in rows), self.buckets)
-        L = bucket_length(max(p for _s, _r, p, _t in rows) + Cb,
-                          self.buckets)
-        ids = np.zeros((K, Cb), np.int64)
-        clen = np.zeros((K,), np.int64)
-        start = np.zeros((K,), np.int64)
-        btabs = np.zeros((K, self.max_blocks_per_seq), np.int32)
-        for i, (slot, req, p, take) in enumerate(rows):
-            ids[i, :take] = req.context()[p:p + take]
-            clen[i], start[i] = take, p
-            btabs[i] = self._btab[slot]
-        _, self._dpages = _chunk_kv(
-            self.draft, self._dpages, *(torch.as_tensor(a, device=dev)
-                                        for a in (ids, clen, start, btabs)),
-            L)
+        inputs, _ = self._chunk_inputs(rows, Cb)
+        self._replay(self._chunk_graph(Cb, Sb, len(inputs['start']),
+                                       draft=True), True, inputs)
         self.draft_forwards['chunk'] += 1
         for slot, _r, p, take in rows:
             self._dctx[slot] = p + take

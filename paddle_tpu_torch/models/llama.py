@@ -220,12 +220,14 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
 
     `kv_write_pos` (B,) over a contiguous cache gives every row its own
     write offset (the serving engine's chunked and prefix-hit prefill):
-    row b's S new rows land at columns kv_write_pos[b] + i, which must
-    lie inside the cache, and row b's query i attends the columns <=
-    kv_write_pos[b] + i. A RowQuantKVCache writes the rows' scales at
-    the same columns; a QuantKVCache never recalibrates under it. A
-    single-token step takes the decode-attention kernel with per-row
-    lengths kv_write_pos + 1 (same rule as above).
+    row b's S new rows land at columns kv_write_pos[b] + i, and row b's
+    query i attends the columns <= kv_write_pos[b] + i. A column past
+    the cache lands on its last one (the serving engine's chunk gives
+    its cache one throwaway last column for its pad columns). A
+    RowQuantKVCache writes the rows' scales at the same columns; a
+    QuantKVCache never recalibrates under it. A single-token step takes
+    the decode-attention kernel with per-row lengths kv_write_pos + 1
+    (same rule as above).
 
     A PagedKVCache or QuantPagedKVCache takes `kv_write_pos` (B,) and
     `block_tables` (B, MAXB) and runs the paged-attention kernel (see
@@ -245,7 +247,11 @@ def cached_attention(q, k, v, cache, cache_index, kv_write_pos=None,
     if kv_write_pos is not None:
         wp = kv_write_pos.reshape(-1).to(torch.int64).expand(B)
         rows = torch.arange(B, device=q.device)[:, None]
-        wcols = wp[:, None] + torch.arange(S, device=q.device)[None, :]
+        # a column past the cache lands on its last one (the JAX
+        # package's scatter drops it; on the card an index past the end
+        # is a device assert)
+        wcols = (wp[:, None] + torch.arange(S, device=q.device)[None, :]) \
+            .clamp(max=cache[0].shape[1] - 1)
         at = (rows, wcols)
     else:
         at = (slice(None), slice(cache_index, cache_index + S))

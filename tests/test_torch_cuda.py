@@ -2274,7 +2274,8 @@ def test_graphs_follow_a_replaced_weight(card):
     assert len(_decode_graphs(model, model).buffers) == 1
     prompts = [np.arange(3, 12), np.arange(20, 27)]
     outs = eng.serve(prompts)
-    assert eng._graphs.captures == m + 1
+    # the greedy window and the prefill of the prompts' bucket
+    assert eng._graphs.captures == m + 2
     fresh = ServingEngine(model, **kw).serve(prompts)
     assert all(np.array_equal(a, b) for a, b in zip(outs, fresh))
 
@@ -2283,7 +2284,7 @@ def test_graphs_follow_a_replaced_weight(card):
 # The compiled speculative windows (CUDA graphs)
 # ---------------------------------------------------------------------------
 
-def _spec_serving_engine(card, kv):
+def _spec_serving_engine(card, kv, **kw):
     """`_serving_engine`'s settings with a draft (the target's first
     layer under its embedding, norm and head) proposing 3 tokens."""
     from paddle_tpu_torch.inference import ServingEngine
@@ -2300,7 +2301,7 @@ def _spec_serving_engine(card, kv):
     return ServingEngine(target, draft=draft, num_draft_tokens=3,
                          max_slots=3, block_size=4, max_new_tokens=12,
                          decode_window=3, max_context_len=64,
-                         kv_cache_dtype=kv)
+                         kv_cache_dtype=kv, **kw)
 
 
 @pytest.mark.parametrize('sampled', [False, True], ids=['greedy', 'sampled'])
@@ -2431,10 +2432,207 @@ def test_spec_capture_failure_raises_and_foreign_pools_are_refused(card):
 
     eng = _spec_serving_engine(card, 'int8')
     eng.warmup()
-    assert eng.stats()['graphs']['captures'] == 2 * len(eng.geometries())
+    geos = eng.geometries()
+    ctxs = {g.params['ctx'] for g in geos if g.kind == 'serve_spec_window'}
+    bks = {g.params['bucket'] for g in geos if g.kind == 'serve_prefill'}
+    # each window greedy and sampled, each bucket's prefill of both
+    # models at each row width (1, 2, 3)
+    assert eng.stats()['graphs']['captures'] == 2 * len(ctxs) + 6 * len(bks)
     eng._dpages = eng.draft.init_paged_cache(eng.allocator.num_blocks, 4,
                                              dtype=torch.int8)
     for p in prompts:
         eng.submit(p)
     with pytest.raises(RuntimeError, match='not the ones'):
         eng.step()
+
+
+# ---------------------------------------------------------------------------
+# The compiled admission prefills, chunks, catch-ups and fused decode step
+# ---------------------------------------------------------------------------
+
+def _randomize(pools, seed):
+    gen = torch.Generator(device=pools[0][0].device).manual_seed(seed)
+    for pc in pools:
+        for f in pc:
+            if f.dtype == torch.int8:
+                f.copy_(torch.randint(-100, 100, f.shape, generator=gen,
+                                      device=f.device, dtype=torch.int8))
+            else:
+                f.copy_(torch.randn(f.shape, generator=gen, device=f.device,
+                                    dtype=f.dtype))
+
+
+@pytest.mark.parametrize('kv', [None, 'int8'], ids=['bf16', 'int8'])
+def test_serving_prefill_and_chunk_graphs_equal_the_direct_bodies(card, kv):
+    """The captured admission prefill and chunk of the target and the
+    draft at max_slots rows (a dummy row; a chunk with one copy-on-write
+    pair beside a (0, 0) one, a row that ends its context and one that
+    does not, pad columns past the ctx bucket) replayed over random
+    pools equal the direct bodies on cloned state bit for bit: both models' pools past the scratch page
+    and the carried logits, with the direct bodies' launch counts."""
+    from paddle_tpu_torch.inference import serving
+
+    eng = _spec_serving_engine(card, kv, prefix_cache=True, prefill_chunk=8)
+    _randomize(eng._pages + eng._dpages, 1)
+    eng._last_logits.normal_()
+    rng = np.random.default_rng(3)
+    S, MAXB = 3, eng.max_blocks_per_seq
+    pre = dict(ids=np.zeros((S, 16), np.int64),
+               real_len=np.array([9, 14, 0]),
+               btabs=np.zeros((S, MAXB), np.int32),
+               slots=np.array([2, 0, S]))
+    pre['ids'][0, :9] = rng.integers(3, 128, 9)
+    pre['ids'][1, :14] = rng.integers(3, 128, 14)
+    pre['btabs'][0, :3] = [1, 2, 3]
+    pre['btabs'][1, :4] = [4, 5, 6, 7]
+    ch = dict(ids=np.zeros((S, 8), np.int64), chunk_len=np.array([8, 5, 0]),
+              start=np.array([9, 26, 0]), btabs=np.zeros((S, MAXB), np.int32),
+              slots=np.array([S, 0, S]), cow_src=np.array([0, 6, 0]),
+              cow_dst=np.array([0, 8, 0]))
+    ch['ids'][0] = rng.integers(3, 128, 8)
+    ch['ids'][1, :5] = rng.integers(3, 128, 5)
+    ch['btabs'][0, :5] = [1, 2, 3, 9, 10]
+    ch['btabs'][1, :8] = [4, 5, 6, 8, 11, 12, 13, 14]
+    dev = {k: {n: torch.as_tensor(a, device=card) for n, a in d.items()}
+           for k, d in (('pre', pre), ('ch', ch))}
+    clone = [[type(pc)(*(f.clone() for f in pc)) for pc in p]
+             for p in (eng._pages, eng._dpages)]
+    logits = eng._last_logits.clone()
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        for i, model in enumerate((eng.model, eng.draft)):
+            lg = logits if i == 0 else None
+            serving._prefill_body(model, clone[i], lg, dev['pre'])
+            serving._chunk_body(model, clone[i], lg, dev['ch'],
+                                ctx_bucket=32)
+    direct = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    graphs = [eng._prefill_graph(16, S), eng._prefill_graph(16, S, True),
+              eng._chunk_graph(8, 32, S), eng._chunk_graph(8, 32, S, True)]
+    before = dict(_build.LAUNCHES)
+    for draft in (False, True):
+        eng._replay(graphs[draft], draft, pre)
+        eng._replay(graphs[2 + draft], draft, ch)
+    replayed = {k: _build.LAUNCHES[k] - before[k] for k in before}
+    assert replayed == direct and direct['rms_norm'] == 2 * (5 + 3)
+    for got, want in zip((eng._pages, eng._dpages), clone):
+        for pa, pb in zip(got, want):
+            for a, b in zip(pa, pb):
+                assert torch.equal(a[1:], b[1:])
+    assert torch.equal(eng._last_logits, logits)
+
+
+@pytest.mark.parametrize('kv', [None, 'int8'], ids=['bf16', 'int8'])
+def test_speculative_chunked_serving_replays_equal_direct_bodies(card, kv):
+    """A speculative engine with chunked prefill and the prefix cache,
+    warmed over every geometry: its admission steps (both models'
+    prefills then the speculative window), chunk steps (both models'
+    chunks, the draft's catch-up, the window) and speculative windows
+    replayed give the streams and launch counts of an engine whose
+    bodies run directly, and capture nothing while serving."""
+    from paddle_tpu_torch.inference.graphs import GraphRunner
+
+    rng = np.random.default_rng(12)
+    system = rng.integers(3, 128, 12)
+    prompts = [np.concatenate([system, rng.integers(3, 128, n)])
+               for n in (3, 9, 20)] + [rng.integers(3, 128, 30)]
+    runs = []
+    for direct in (False, True):
+        eng = _spec_serving_engine(card, kv, prefix_cache=True,
+                                   prefill_chunk=8)
+        if direct:
+            eng._graphs = GraphRunner('cpu')
+        eng.warmup(geometries=eng.geometries(prompt_lens=[len(p)
+                                                          for p in prompts]))
+        n = eng._graphs.captures
+        eng.serve(prompts[:1], max_new_tokens=4)
+        before = dict(_build.LAUNCHES)
+        outs = eng.serve(prompts[1:])
+        got = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        s = eng.stats()
+        runs.append((outs, got, s['spec'], s['prefix']))
+        if not direct:
+            assert eng._graphs.captures == n
+    assert runs[0][1] == runs[1][1] and runs[0][2] == runs[1][2]
+    assert runs[0][3]['hits'] > 0 and runs[0][3]['chunk_steps'] > 0
+    assert runs[0][2]['draft_forwards']['chunk'] > 0
+    assert all(np.array_equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+
+
+def test_serving_prefill_capture_failure_raises(card):
+    """An admission prefill whose body cannot be captured (a host read
+    inside it) raises at its step: nothing falls back to the eager
+    body, and no graph is kept for it."""
+    from unittest import mock
+
+    from paddle_tpu_torch.inference import serving
+
+    eng = _serving_engine(card, None)
+    prefill = serving._prefill_kv
+
+    def host_read(*a, **k):
+        last, pages = prefill(*a, **k)
+        float(last.sum())              # a device-to-host copy
+        return last, pages
+
+    with mock.patch.object(serving, '_prefill_kv', host_read):
+        eng.submit(np.arange(3, 12))
+        with pytest.raises(RuntimeError):
+            eng.step()
+    assert not any(k[0] == 'serve_prefill' for k in eng._graphs.entries)
+
+
+def test_fused_decode_step_graph_equals_the_direct_step(card):
+    """fused_multi_transformer_decode_step replayed over 3 steps (one
+    capture; per-row positions by seq_lens, then a uniform time_step)
+    equals fused_multi_transformer's direct time_step path on cloned
+    caches bit for bit, with its launch counts; a full cache raises
+    before the replay; release_graphs frees the graph."""
+    from paddle_tpu_torch.incubate.nn import functional as FF
+
+    L, E, H, F_, B, S, T = 2, 256, 2, 512, 3, 20, 32
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def r(*shape, std=0.05):
+        return (std * torch.randn(*shape, generator=gen, device=card)).to(
+            torch.bfloat16)
+
+    w = dict(ln_scales=[1 + r(E) for _ in range(L)], ln_biases=[None] * L,
+             qkv_weights=[r(3, H, E // H, E) for _ in range(L)],
+             qkv_biases=[None] * L,
+             linear_weights=[r(E, E) for _ in range(L)],
+             linear_biases=[None] * L,
+             ffn_ln_scales=[1 + r(E) for _ in range(L)],
+             ffn_ln_biases=[None] * L,
+             ffn1_weights=[r(E, F_) for _ in range(L)],
+             ffn1_biases=[None] * L,
+             ffn2_weights=[r(F_, E) for _ in range(L)],
+             ffn2_biases=[None] * L)
+    kw = dict(norm_type='rmsnorm', activation='silu')
+    caches = [r(2, B, H, T, E // H, std=1.0) for _ in range(L)]
+    ref = [c.clone() for c in caches]
+    FF.release_graphs()
+    lens = [torch.tensor([S, S + 3, S + 1], device=card), None, None]
+    for i in range(3):
+        x = r(B, 1, E, std=1.0)
+        ts = S + 5 + i
+        before = dict(_build.LAUNCHES)
+        got, _ = FF.fused_multi_transformer_decode_step(
+            x, **w, cache_kvs=caches, time_step=ts, seq_lens=lens[i], **kw)
+        counts = {k: _build.LAUNCHES[k] - before[k] for k in before}
+        before = dict(_build.LAUNCHES)
+        with torch.no_grad():
+            want, _ = FF.fused_multi_transformer(
+                x, **w, cache_kvs=ref, time_step=ts, seq_lens=lens[i],
+                **kw)
+        assert counts == {k: _build.LAUNCHES[k] - before[k] for k in before}
+        assert counts['decode_attention_headmajor'] == L
+        assert torch.equal(got, want), i
+        for a, b in zip(caches, ref):
+            assert torch.equal(a, b), i
+    runner = FF._FMT_RUNNERS[caches[0].device]
+    assert runner.captures == 1 and len(runner.entries) == 1
+    with pytest.raises(ValueError, match='cache is full'):
+        FF.fused_multi_transformer_decode_step(
+            r(B, 1, E), **w, cache_kvs=caches, time_step=T, **kw)
+    FF.release_graphs()
+    assert not runner.entries

@@ -28,6 +28,7 @@ from paddle_tpu.nn import initializer as jinit
 from paddle_tpu_torch.framework import io
 from paddle_tpu_torch.inference import DecodeEngine, ServingEngine
 from paddle_tpu_torch.inference import graphs
+from paddle_tpu_torch.inference import serving as tserving
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
 
@@ -78,18 +79,23 @@ def _prompts(lens=(5, 7, 3, 6)):
 def test_warmup_report_and_the_geometries_the_config_implies():
     jm, tm = _models()
     eng = ServingEngine(tm, **KW)
-    # the JAX package enumerates one serve_window for this config beside
-    # its admission steps (which the port runs eagerly)
-    jwin = [g for g in jgeometry.for_serving_engine(JaxEngine(jm, **KW))
-            if g.kind == 'serve_window']
+    # the JAX package's enumeration for this config: an admission step
+    # per bucket (8 and 16), the window, a standalone prefill per bucket
+    jall = jgeometry.for_serving_engine(JaxEngine(jm, **KW))
     assert [g.to_dict() for g in eng.geometries()] == \
-        [g.to_dict() for g in jwin]
+        [g.to_dict() for g in jall]
+    jwin = [g for g in jall if g.kind == 'serve_window']
     report = eng.warmup()
     assert set(report) == REPORT_KEYS
-    assert report['geometries'] == 1
-    assert report['traces'] == 2           # greedy and sampled windows
+    assert report['geometries'] == 5
+    # the prefill of each bucket at 1 and 2 rows, the greedy and the
+    # sampled window
+    assert report['traces'] == 6
     assert eng.warmup(geometries=jwin)['traces'] == 0   # kept
-    assert eng.stats()['graphs']['captures'] == 2
+    assert eng.stats()['graphs']['captures'] == 6
+    assert sorted(eng.stats()['graphs']['keys']) == sorted(map(str, [
+        ('serve_prefill', b, r, 'target') for b in (8, 16) for r in (1, 2)]
+        + [('serve_window', False, False), ('serve_window', True, False)]))
     # a speculative engine's plain windows carry the verify's token
     spec = ServingEngine(tm, draft=tm, num_draft_tokens=2, **KW)
     assert spec.warmup(geometries=[{'kind': 'serve_window', 'window': 2}])[
@@ -97,9 +103,15 @@ def test_warmup_report_and_the_geometries_the_config_implies():
     assert {k[2] for k in spec._graphs.entries} == {True}
     with pytest.raises(ValueError, match='decode_window'):
         eng.warmup(geometries=[graphs.Geometry('serve_window', window=3)])
-    with pytest.raises(NotImplementedError, match='A9b'):
-        eng.warmup(geometries=[graphs.Geometry('serve_step', window=2,
-                                               bucket=8)])
+    # an admission step captures the prefill of its bucket and the window
+    fresh = ServingEngine(tm, **KW)
+    assert fresh.warmup(geometries=[graphs.Geometry(
+        'serve_step', window=2, bucket=8)])['traces'] == 4
+    with pytest.raises(NotImplementedError, match='migration'):
+        eng.warmup(geometries=[graphs.Geometry('serve_export', ctx=8)])
+    with pytest.raises(ValueError, match='unknown'):
+        eng.warmup(geometries=[dict(kind='decode', batch=1, prompt_len=4,
+                                    max_new_tokens=2)])
 
 
 def test_warmup_refuses_artifacts_and_requests_in_flight():
@@ -112,7 +124,9 @@ def test_warmup_refuses_artifacts_and_requests_in_flight():
     with pytest.raises(RuntimeError, match='in flight'):
         eng.warmup()
     eng.run()
-    assert eng.warmup()['traces'] == 1      # the sampled window
+    # the sampled window, the bucket-8 prefill at 2 rows and the
+    # bucket-16 ones: the run captured the rest
+    assert eng.warmup()['traces'] == 4
     dec = DecodeEngine(tm, max_new_tokens=3)
     with pytest.raises(NotImplementedError, match='persisted'):
         dec.warmup(artifact='/nonexistent')
@@ -128,21 +142,28 @@ def test_warmup_refuses_artifacts_and_requests_in_flight():
     assert dec.stats()['verify_forwards'] == 0
 
 
-def test_streams_after_warmup_equal_the_jax_engine():
+@pytest.fixture(scope='module')
+def jax_streams():
+    """The JAX engine's greedy streams of `_prompts()` under KW."""
+    jm, _ = _models()
+    return [np.asarray(w) for w in JaxEngine(jm, **KW).serve(_prompts())]
+
+
+def test_streams_after_warmup_equal_the_jax_engine(jax_streams):
     """Greedy streams after warmup() equal the JAX engine's (and its
     warm-up leaves nothing behind: admission waves replay the warmed
-    window over new rows). Sampled streams are the port's own hash, so
-    they are held to an engine that never warmed, in another batch
-    order."""
+    prefills and window over new rows). Sampled streams are the port's
+    own hash, so they are held to an engine that never warmed, in
+    another batch order."""
     jm, tm = _models()
     prompts = _prompts()
-    want = JaxEngine(jm, **KW).serve(prompts)
+    want = jax_streams
     eng = ServingEngine(tm, **KW)
     eng.warmup()
     got = eng.serve(prompts)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, np.asarray(w))
-    assert eng.stats()['graphs']['captures'] == 2
+    assert eng.stats()['graphs']['captures'] == 6      # all warmed
     assert eng.allocator.in_use() == 0
 
     def sampled(warm, order):
@@ -160,6 +181,186 @@ def test_streams_after_warmup_equal_the_jax_engine():
         np.testing.assert_array_equal(x, y)
     greedy = ServingEngine(tm, **dict(KW, max_new_tokens=5)).serve(prompts)
     assert any(not np.array_equal(x, y) for x, y in zip(a, greedy))
+
+
+# chunked prefill and the prefix cache, 4-token chunks
+CHUNKED = dict(KW, prefix_cache=True, prefill_chunk=4)
+
+
+def test_chunked_prefix_engine_warms_every_kind(jax_streams):
+    """A chunked, prefix-caching engine: geometries() equal the JAX
+    package's whole enumeration (its chunk steps among them); warmup()
+    captures every kind, and the streams then serve without a capture:
+    greedy ones equal to the JAX engine's (the chunks of a 1-layer
+    model write the monolithic prefill's K/V rows), sampled ones to an
+    engine that never warmed."""
+    jm, tm = _models()
+    eng = ServingEngine(tm, **CHUNKED)
+    want = jgeometry.for_serving_engine(JaxEngine(jm, **CHUNKED))
+    assert [g.to_dict() for g in eng.geometries()] == \
+        [g.to_dict() for g in want]
+    assert {g.kind for g in want} == {'serve_step', 'serve_window',
+                                      'serve_prefill', 'serve_chunk_step'}
+    report = eng.warmup()
+    assert report['geometries'] == len(want)
+    n = eng.stats()['graphs']['captures']
+    assert any(k.startswith("('serve_chunk'")
+               for k in eng.stats()['graphs']['keys'])
+    got = eng.serve(_prompts())
+    for w, g in zip(jax_streams, got):
+        np.testing.assert_array_equal(g, w)
+    assert eng.stats()['prefix']['chunk_steps'] > 0
+    # a 10-token prompt, then one sharing its first two pages: a hit
+    # that shrinks the prefill
+    base = np.random.default_rng(5).integers(3, 64, 10).astype(np.int32)
+    prompts = [base] + _prompts() + [np.concatenate([base[:8], [9, 9, 9]])]
+    jobs = dict(temperature=0.9, top_k=20, seed=3)
+
+    def sampled(e):
+        rids = [e.submit(p, **jobs) for p in prompts]
+        e.run()
+        return [e.result(r) for r in rids]
+
+    a = sampled(eng)
+    assert eng.stats()['graphs']['captures'] == n
+    assert eng.stats()['prefix']['hits'] > 0
+    for x, y in zip(a, sampled(ServingEngine(tm, **CHUNKED))):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize('kv', [None, 'int8'])
+def test_captured_bodies_at_max_slots_equal_the_direct_bodies(kv):
+    """The captured admission prefill, chunk and draft chunk at
+    max_slots rows (a dummy row past the group; a chunk with one
+    copy-on-write pair beside a (0, 0) one, and pad columns past its
+    ctx bucket) leave the pools (past the scratch page) and the carried
+    logits bit-equal to the direct bodies at the group's width."""
+    _, tm = _models()
+    eng = ServingEngine(tm, **dict(CHUNKED, max_slots=3, kv_cache_dtype=kv,
+                                   max_context_len=32, buckets=(8, 16)),
+                        draft=tm, num_draft_tokens=2)
+    gen = torch.Generator().manual_seed(0)
+    for pc in eng._pages + eng._dpages:
+        for f in pc:
+            f.copy_(torch.randint(-100, 100, f.shape, generator=gen)
+                    if f.dtype == torch.int8 else
+                    torch.randn(f.shape, generator=gen))
+    pools = [[type(pc)(*(f.clone() for f in pc)) for pc in p]
+             for p in (eng._pages, eng._dpages)]
+    logits = eng._last_logits.clone()
+    rng = np.random.default_rng(1)
+    S, MAXB = 3, eng.max_blocks_per_seq
+
+    def rows(width, n):
+        return dict(ids=np.zeros((S, width), np.int64),
+                    btabs=np.zeros((S, MAXB), np.int32),
+                    slots=np.full((S,), S, np.int64),
+                    **{k: np.zeros((S,), np.int64) for k in n})
+
+    def t(a, n=2):
+        return torch.from_numpy(a[:n])
+
+    pre = rows(8, ['real_len'])
+    for i, (n, tab, slot) in enumerate(((5, [1, 2], 2), (7, [3, 4], 0))):
+        pre['ids'][i, :n] = rng.integers(3, 64, n)
+        pre['real_len'][i], pre['slots'][i] = n, slot
+        pre['btabs'][i, :2] = tab
+    ch = rows(8, ['chunk_len', 'start', 'cow_src', 'cow_dst'])
+    for i, (n, st, tab, slot) in enumerate(((6, 5, [1, 2, 6], 1),
+                                           (3, 12, [3, 5, 7, 8], S))):
+        ch['ids'][i, :n] = rng.integers(3, 64, n)
+        ch['chunk_len'][i], ch['start'][i], ch['slots'][i] = n, st, slot
+        ch['btabs'][i, :len(tab)] = tab
+    ch['cow_src'][1], ch['cow_dst'][1] = 4, 5
+    with torch.no_grad():
+        last, _ = tserving._prefill_kv(tm, pools[0], t(pre['ids']),
+                                       t(pre['real_len']), t(pre['btabs']))
+        logits[[2, 0]] = last
+        tserving._prefill_kv(tm, pools[1], t(pre['ids']),
+                             t(pre['real_len']), t(pre['btabs']))
+        last, _ = tserving._chunk_kv(
+            tm, pools[0], t(ch['ids']), t(ch['chunk_len']), t(ch['start']),
+            t(ch['btabs']), 16, t(ch['cow_src']), t(ch['cow_dst']))
+        logits[1] = last[0]
+        tserving._chunk_kv(tm, pools[1], t(ch['ids']), t(ch['chunk_len']),
+                           t(ch['start']), t(ch['btabs']), 16,
+                           t(ch['cow_src']), t(ch['cow_dst']))
+    for draft in (False, True):
+        eng._replay(eng._prefill_graph(8, S, draft), draft, pre)
+        eng._replay(eng._chunk_graph(8, 16, S, draft), draft, ch)
+    for got, want in zip((eng._pages, eng._dpages), pools):
+        for pa, pb in zip(got, want):
+            for a, b in zip(pa, pb):
+                assert torch.equal(a[1:], b[1:])
+    assert torch.equal(eng._last_logits, logits)
+
+
+def test_fused_decode_step_replays_equal_jax():
+    """fused_multi_transformer_decode_step through its captured step,
+    3 steps over float32 caches, against the JAX package's step; one
+    geometry kept (other caches capture anew), the full-cache check on
+    the host before the replay, release_graphs frees it."""
+    import jax
+
+    from paddle_tpu.incubate.nn import functional as JF
+    from paddle_tpu_torch.incubate.nn import functional as TF
+
+    L, E, H, F_, B, S, T = 2, 32, 4, 64, 2, 6, 10
+    rng = np.random.default_rng(2)
+
+    def n(*shape, std=0.2):
+        return (std * rng.normal(size=shape)).astype(np.float32)
+
+    ws = dict(ln_scales=[1 + n(E, std=0.1) for _ in range(L)],
+              ln_biases=[n(E, std=0.1) for _ in range(L)],
+              qkv_weights=[n(3, H, E // H, E) for _ in range(L)],
+              qkv_biases=[n(3 * E, std=0.1) for _ in range(L)],
+              linear_weights=[n(E, E) for _ in range(L)],
+              linear_biases=[None] * L,
+              ffn_ln_scales=[1 + n(E, std=0.1) for _ in range(L)],
+              ffn_ln_biases=[None] * L,
+              ffn1_weights=[n(E, F_) for _ in range(L)],
+              ffn1_biases=[n(F_, std=0.1) for _ in range(L)],
+              ffn2_weights=[n(F_, E) for _ in range(L)],
+              ffn2_biases=[None] * L)
+    caches = [n(2, B, H, T, E // H) for _ in range(L)]
+    xs = n(3, B, 1, E, std=1.0)
+    kw = dict(norm_type='rmsnorm', activation='silu')
+    jw = {k: [None if a is None else jax.numpy.asarray(a) for a in v]
+          for k, v in ws.items()}
+    tw = {k: [None if a is None else torch.from_numpy(a) for a in v]
+          for k, v in ws.items()}
+    jc = [jax.numpy.asarray(c) for c in caches]
+    tc = [torch.from_numpy(c.copy()) for c in caches]
+    TF.release_graphs()
+    for i in range(3):
+        jx, jc = JF.fused_multi_transformer_decode_step(
+            jax.numpy.asarray(xs[i]), **jw, cache_kvs=jc, time_step=S + i,
+            **kw)
+        tx, tc2 = TF.fused_multi_transformer_decode_step(
+            torch.from_numpy(xs[i]), **tw, cache_kvs=tc, time_step=S + i,
+            **kw)
+        assert all(a is b for a, b in zip(tc2, tc))
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx), rtol=1e-5,
+                                   atol=1e-5)
+    for a, b in zip(tc, jc):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+    runner = TF._FMT_RUNNERS[torch.device('cpu')]
+    assert runner.captures == 1 and len(runner.entries) == 1
+    kept = [c.clone() for c in tc]
+    other = [c.clone() for c in tc]
+    TF.fused_multi_transformer_decode_step(
+        torch.from_numpy(xs[0]), **tw, cache_kvs=other, time_step=S + 3,
+        **kw)
+    assert runner.captures == 2 and len(runner.entries) == 1
+    assert all(torch.equal(a, b) for a, b in zip(tc, kept))
+    assert not torch.equal(other[0][:, :, :, S + 3], tc[0][:, :, :, S + 3])
+    with pytest.raises(ValueError, match='cache is full'):
+        TF.fused_multi_transformer_decode_step(
+            torch.from_numpy(xs[0]), **tw, cache_kvs=tc, time_step=T, **kw)
+    TF.release_graphs()
+    assert not TF._FMT_RUNNERS and not runner.entries
 
 
 def test_runner_buffers_pools_and_kept_logits():

@@ -2,13 +2,14 @@
 calls its body directly over the same static buffers a CUDA graph would
 replay (`inference/graphs.py`):
 
-- `ServingEngine.geometries()` and `graphs.for_decode_engine(...,
-  spec_draft_tokens=)` equal to the JAX package's enumeration
+- `ServingEngine.geometries()` (every kind) and
+  `graphs.for_decode_engine(..., spec_draft_tokens=)` equal to the JAX
+  package's enumeration
   (`paddle_tpu.aot.geometry`) for the same configuration; nothing is
   compiled;
 - `warmup` of both engines: report keys, capture counts greedy and
-  sampled, the kinds that stay eager refused, `decode_spec` with and
-  without `draft=`;
+  sampled, every serving kind captured, `decode_spec` with and without
+  `draft=`;
 - greedy and sampled serving streams through the graph route equal to
   an engine whose speculative windows run `_spec_window` directly, over
   bf16 and int8 pools, and one window's outputs and pools bit-equal to
@@ -84,19 +85,17 @@ def test_geometries_equal_the_jax_enumeration(extra, lens, mnt):
     eng = ServingEngine(tm, draft=td, **dict(KW, **extra))
     got = eng.geometries(prompt_lens=lens, max_new_tokens=mnt)
     # the JAX package's enumeration reads the same configuration
-    # attributes off the engine; of its kinds the port captures the
-    # speculative window (the fused admission steps run eagerly)
+    # attributes off the engine: every kind, in its order
     want = jgeometry.for_serving_engine(eng, prompt_lens=lens,
                                         max_new_tokens=mnt)
-    assert _dicts(got, 'serve_spec_window') == \
-        _dicts(want, 'serve_spec_window')
+    assert [g.to_dict() for g in got] == [g.to_dict() for g in want]
     assert len(_dicts(got, 'serve_spec_window')) >= 2
-    # the plain window a speculative engine's chunk steps run
-    assert _dicts(got, 'serve_window') == (
-        [{'kind': 'serve_window', 'window': 2}] if extra else [])
-    assert [g.to_dict() for g in ServingEngine(tm, **dict(
-        KW, num_draft_tokens=4)).geometries()] == [
-        {'kind': 'serve_window', 'window': 2}]
+    assert _dicts(got, 'serve_spec_step')
+    # a chunking or prefix-caching engine's chunk steps
+    assert bool(_dicts(got, 'serve_chunk_step')) == bool(extra)
+    plain = ServingEngine(tm, **dict(KW, num_draft_tokens=4))
+    assert [g.to_dict() for g in plain.geometries()] == [
+        g.to_dict() for g in jgeometry.for_serving_engine(plain)]
     dec = DecodeEngine(tm, max_new_tokens=5, buckets=(8, 16))
     for kw in (dict(spec_draft_tokens=[2, 3]),
                dict(spec_draft_tokens=[2], spec_batch_sizes=(1, 3),
@@ -113,27 +112,43 @@ def test_warmup_captures_the_speculative_geometries():
     geos = eng.geometries()
     report = eng.warmup()
     assert set(report) == REPORT_KEYS
-    assert report['geometries'] == len(geos) == 4
-    assert report['traces'] == 8               # each greedy and sampled
+    # admission steps per (bucket, ctx), a window per ctx, a prefill per
+    # bucket
+    assert report['geometries'] == len(geos) == 16
+    # each ctx bucket's window greedy and sampled, both models' prefill
+    # of each admission bucket at 1, 2 and 3 rows
+    assert report['traces'] == 26
     assert sorted(eng._graphs.entries) == sorted(
-        ('serve_spec_window', K, c, s) for c in (8, 16, 32, 64)
-        for s in (False, True))
+        [('serve_spec_window', K, c, s) for c in (8, 16, 32, 64)
+         for s in (False, True)]
+        + [('serve_prefill', b, r, m) for b in (8, 16, 32)
+           for r in (1, 2, 3) for m in ('target', 'draft')])
     assert eng.warmup()['traces'] == 0          # kept
-    assert len(eng.stats()['graphs']['reserved_bytes']) == 8
+    assert len(eng.stats()['graphs']['reserved_bytes']) == 26
     with pytest.raises(ValueError, match='num_draft_tokens'):
         eng.warmup(geometries=[graphs.Geometry('serve_spec_window', spec=3,
                                                ctx=8)])
     with pytest.raises(ValueError, match='speculative engine'):
         ServingEngine(tm, **KW).warmup(
             geometries=[dict(kind='serve_spec_window', spec=K, ctx=8)])
+    # the kinds the JAX package enumerates for other configurations are
+    # captured too: a chunk step (the target's and the draft's chunk at
+    # each row width, the draft's catch-up chunk of bucket(decode_window)
+    # among them, the windows with the carried token)
+    report = eng.warmup(geometries=[graphs.Geometry(
+        'serve_chunk_step', window=2, chunk=8, bucket=16)])
+    assert report['traces'] == 8
+    assert {('serve_chunk', 8, 16, r, m) for r in (1, 2, 3)
+            for m in ('target', 'draft')} | {
+        ('serve_window', False, True)} <= set(eng._graphs.entries)
     for kind, params in (('serve_step', dict(window=2, bucket=8)),
                          ('serve_prefill', dict(bucket=8)),
                          ('serve_chunk_step', dict(window=2, chunk=8,
                                                    bucket=16)),
                          ('serve_spec_step', dict(spec=K, bucket=8,
                                                   ctx=16))):
-        with pytest.raises(NotImplementedError, match='A9b'):
-            eng.warmup(geometries=[graphs.Geometry(kind, **params)])
+        assert eng.warmup(geometries=[graphs.Geometry(kind, **params)])[
+            'traces'] == 0
 
     dec = DecodeEngine(tm, max_new_tokens=5, buckets=(8,))
     geos = graphs.for_decode_engine(dec, [6], batch_sizes=(2,),
@@ -206,6 +221,7 @@ def test_serving_streams_through_the_graph_route_equal_the_direct_window(kv):
     kw = dict(KW, kv_cache_dtype=kv, eos_token_id=None)
     eng = ServingEngine(tm, draft=td, **kw)
     eng.warmup()
+    n = eng.stats()['graphs']['captures']
     got = _serve(eng, jobs)
     ref = _DirectSpec(tm, draft=td, **kw)
     want = _serve(ref, jobs)
@@ -213,7 +229,7 @@ def test_serving_streams_through_the_graph_route_equal_the_direct_window(kv):
         np.testing.assert_array_equal(g, w)
     sg, sw = eng.stats()['spec'], ref.stats()['spec']
     assert sg == sw and 0 < sg['accepted'] < sg['proposed']
-    assert eng.stats()['graphs']['captures'] == 8      # all warmed
+    assert eng.stats()['graphs']['captures'] == n      # all warmed
 
     # one window mid-serving: the route's outputs and both pools equal
     # the direct body's on cloned state, bit for bit
